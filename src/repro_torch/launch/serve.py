@@ -1,0 +1,144 @@
+"""Serving launcher: GPT-2 345M, W8A8 SmoothQuant, paged KV cache, chunked
+prefill and batched continuous decode on one NVIDIA H100.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve                # card
+    PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
+        --device cpu --requests 4 --max-new 6                         # CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --profile out/  # trace
+
+Draws random weights from ``--seed``, calibrates SmoothQuant on synthetic
+prompts made with numpy from the same seed, serves ``--requests``
+requests of mixed prompt lengths greedily, and prints the engine's stats
+and the kernels' launch counts.  The counterpart of the JAX package's
+``examples/serve_gpt2.py``.
+
+``--profile DIR`` runs the serving loop under ``torch.profiler`` and
+writes its Chrome trace to ``DIR/serve_trace.json``.  It prints the
+device's busy share of the loop's wall time (the union of the device's
+kernel and copy intervals, so overlapping work counts once) and the
+heaviest device and host operators.  The profiler's own cost inflates
+the host time; read the busy share beside an unprofiled run.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import ops
+from repro_torch.models import lm
+from repro_torch.serving.engine import ServeEngine, resolve_device
+
+
+def synthetic_prompts(rng: np.random.Generator, n: int, vocab: int,
+                      lo: int, hi: int) -> List[List[int]]:
+    """``n`` prompts of lengths drawn uniformly from [lo, hi]."""
+    return [rng.integers(1, vocab, int(rng.integers(lo, hi + 1))).tolist()
+            for _ in range(n)]
+
+
+def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reduced", action="store_true",
+                    help="the tiny same-family config of the CPU tests")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--chunk-size", type=int, default=32)
+    ap.add_argument("--max-seq", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", metavar="DIR",
+                    help="trace the serving loop with torch.profiler")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config("gpt2-345m")
+    if args.reduced:
+        cfg = cfg.reduced()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = lm.init(cfg, gen, max_seq=args.max_seq, device=dev)
+    rng = np.random.default_rng(args.seed)
+    calib = [rng.integers(1, cfg.vocab_size, (2, min(64, args.max_seq)))]
+    eng = ServeEngine(cfg, params, batch_slots=args.slots,
+                      max_seq=args.max_seq, eos_id=-1, quantized=True,
+                      calibration_batches=calib, chunk_size=args.chunk_size,
+                      seed=args.seed, device=dev)
+    hi = max(2, args.max_seq - args.max_new - 1)
+    prompts = synthetic_prompts(rng, args.requests, cfg.vocab_size,
+                                min(3, hi), hi)
+    # the profiler starts before the requests arrive, so its start-up
+    # cost stays out of their latencies
+    prof = _profiler(dev) if args.profile else None
+    if prof is not None:
+        prof.start()
+    for p in prompts:
+        eng.submit(p, max_new=args.max_new)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.stop()
+        _report_profile(prof, wall, dev, args.profile)
+    stats = eng.stats()
+    toks = sum(len(r.out) for r in done)
+    stats["tokens_per_s"] = toks / wall
+    print(f"{cfg.name} on {dev}: {len(done)} requests, {toks} tokens in "
+          f"{wall:.3f} s ({toks / wall:.1f} tok/s)")
+    print("kernel launches:", json.dumps(ops.launch_counts()))
+    print("engine stats:", json.dumps(stats, sort_keys=True))
+    return stats
+
+
+def _profiler(dev: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
+def _busy_us(intervals) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def _report_profile(prof, wall: float, dev: torch.device, out_dir: str):
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "serve_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev_iv = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+              and "dur" in e]
+    if dev.type == "cuda":
+        busy = _busy_us(dev_iv) * 1e-6
+        print(f"device busy {busy:.4f} s of {wall:.4f} s wall "
+              f"({100 * busy / wall:.2f}%) over {len(dev_iv)} device "
+              "operations")
+    else:
+        print("device busy: not measured (CPU run)")
+    sort = ("self_cuda_time_total" if dev.type == "cuda"
+            else "self_cpu_time_total")
+    print(prof.key_averages().table(sort_by=sort, row_limit=15))
+    print(f"trace written to {path}")
+
+
+if __name__ == "__main__":
+    main()

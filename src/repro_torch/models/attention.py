@@ -1,0 +1,142 @@
+"""Attention: the full-sequence path (calibration forward) and the paged
+serving paths.
+
+Decode routes through the paged decode kernel (``ops.paged_mha_decode``)
+and chunked prefill through the paged verify kernel
+(``ops.paged_verify``); both attend in place over the page pool, with
+no gathered ``max_seq`` view.  The page pools are updated **in place**
+(``index_put_``): the functions return them only to keep the reference's
+call shape.
+
+Where the JAX reference relies on jnp's clamped gathers and dropped
+scatters, these functions mask explicitly (torch raises on out-of-range
+indices): inactive decode rows and out-of-range chunk positions resolve
+to the null page 0, whose content is never unmasked.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import linear, linear_init
+
+_NEG_INF = -1e30
+
+
+def attn_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device=None):
+    kw = {"dtype": dtype, "device": device}
+    return {
+        "q": linear_init(gen, cfg.d_model, cfg.q_dim, **kw),
+        "k": linear_init(gen, cfg.d_model, cfg.kv_dim, **kw),
+        "v": linear_init(gen, cfg.d_model, cfg.kv_dim, **kw),
+        "out": linear_init(gen, cfg.q_dim, cfg.d_model, **kw),
+    }
+
+
+def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, name: str):
+    B, S = x.shape[:2]
+    q = linear(p["q"], x, name + ".q").reshape(
+        B, S, cfg.n_heads, cfg.head_dim)
+    k = linear(p["k"], x, name + ".k").reshape(
+        B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = linear(p["v"], x, name + ".v").reshape(
+        B, S, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def full_attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+                   name: str = "") -> torch.Tensor:
+    """Causal self-attention over a whole sequence (B, S, D) -> (B, S, D)."""
+    q, k, v = _project_qkv(p, cfg, x, name)
+    group = cfg.n_heads // cfg.n_kv_heads
+    B, S = q.shape[:2]
+    qg = q.reshape(B, S, cfg.n_kv_heads, group, cfg.head_dim)
+    scores = torch.einsum(
+        "bqhgd,bkhd->bhgqk", qg.float(), k.float()) / (cfg.head_dim ** 0.5)
+    ar = torch.arange(S, device=x.device)
+    mask = ar[None, :] <= ar[:, None]
+    scores = torch.where(mask, scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
+                       v.float())
+    out = out.to(x.dtype).reshape(B, S, cfg.q_dim)
+    return linear(p["out"], out, name + ".out")
+
+
+def paged_decode_attention(
+    p: Dict,
+    x: torch.Tensor,  # (B, 1, D) current token
+    cfg: ModelConfig,
+    k_pages: torch.Tensor,  # (P, Hkv, ps, hd) global page pool
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) i32 tokens already cached
+    block_table: torch.Tensor,  # (B, n_pg) i32
+    *,
+    active: Optional[torch.Tensor] = None,  # (B,) bool rows really decoding
+    name: str = "",
+):
+    """One-token attention against the paged cache.
+
+    The new token's K/V are written into the page the block table names
+    for position ``lengths[b]``; rows the ``active`` mask declares as
+    tag-alongs park their write on the null page (position ``n_pg * ps``,
+    past the table), as the reference does.  Idle rows may all write page
+    0 at once: the write order there does not matter.  Returns
+    ``(out (B, 1, D), k_pages, v_pages)``."""
+    B = x.shape[0]
+    ps, n_pg = k_pages.shape[2], block_table.shape[1]
+    q, k, v = _project_qkv(p, cfg, x, name)
+    wpos = lengths.long()
+    if active is not None:
+        wpos = torch.where(active, wpos, n_pg * ps)
+    blk = wpos // ps
+    rows = torch.arange(B, device=x.device)
+    page = torch.where(
+        blk < n_pg, block_table[rows, blk.clamp(max=n_pg - 1)].long(), 0)
+    off = wpos % ps
+    k_pages[page, :, off] = k[:, 0].to(k_pages.dtype)
+    v_pages[page, :, off] = v[:, 0].to(v_pages.dtype)
+    out = ops.paged_mha_decode(
+        q[:, 0].contiguous(), k_pages, v_pages,
+        (lengths + 1).to(torch.int32), block_table)
+    out = out.reshape(B, 1, cfg.q_dim)
+    return linear(p["out"], out, name + ".out"), k_pages, v_pages
+
+
+def paged_chunk_attention(
+    p: Dict,
+    x: torch.Tensor,  # (B, C, D) chunk of prompt tokens
+    cfg: ModelConfig,
+    k_pages: torch.Tensor,  # (P, Hkv, ps, hd)
+    v_pages: torch.Tensor,
+    positions: torch.Tensor,  # (B, C) absolute positions, contiguous per row
+    block_tables: torch.Tensor,  # (B, n_pg) i32
+    *,
+    name: str = "",
+):
+    """Multi-token attention in place over the paged cache (chunked
+    prefill).  The chunk's K/V are scattered into the pages the block
+    table names for each position, then the chunk queries attend through
+    the paged verify kernel with ``base = positions[:, 0]``.  Positions
+    whose block is past the table (a last chunk hanging past the cache)
+    resolve to the null page explicitly.  Returns
+    ``(out (B, C, D), k_pages, v_pages)``."""
+    B, C = x.shape[:2]
+    ps, n_pg = k_pages.shape[2], block_tables.shape[1]
+    q, k, v = _project_qkv(p, cfg, x, name)
+    pos = positions.long()
+    blk = pos // ps
+    page = torch.where(
+        blk < n_pg,
+        torch.gather(block_tables.long(), 1, blk.clamp(0, n_pg - 1)), 0)
+    off = pos % ps
+    k_pages[page, :, off] = k.to(k_pages.dtype)
+    v_pages[page, :, off] = v.to(v_pages.dtype)
+    out = ops.paged_verify(
+        q.contiguous(), k_pages, v_pages,
+        positions[:, 0].to(torch.int32).contiguous(), block_tables)
+    out = out.reshape(B, C, cfg.q_dim)
+    return linear(p["out"], out, name + ".out"), k_pages, v_pages

@@ -1,0 +1,80 @@
+"""Admission pricing and the per-tick prefill schedule.
+
+Requests are priced in KV-cache pages: the worst-case lifetime footprint
+(prompt plus every token it may generate, capped at the cache), net of
+prefix-shared pages — the formula ``PagedCacheManager.alloc`` enforces.
+Each tick, prompt chunks ride along with the batched decode up to a token
+budget derived from the analytic stage program: decode streams every
+weight through the MP kernel anyway, so the budget is however many
+pipelined prefill tokens fit in a fixed fraction of a decode tick
+(``core/perfmodel.py``, the paper's FPGA model).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.perfmodel import FPGAPerfModel
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillChunk:
+    """One scheduled prompt chunk: ``n`` tokens from prompt offset
+    ``start`` into cache slot ``slot``."""
+
+    slot: int
+    start: int
+    n: int
+
+
+def derive_prefill_budget(cfg: ModelConfig, chunk_size: int, *,
+                          nodes: int = 2, hide_frac: float = 0.5) -> int:
+    """Prefill tokens that fit inside ``hide_frac`` of one decode tick,
+    clamped to [chunk_size, 8 * chunk_size] so a P-token prompt always
+    costs ``ceil(P / chunk_size)`` forward calls."""
+    pm = FPGAPerfModel(cfg, nodes=nodes)
+    fit = int(hide_frac * pm.token_latency()["total"]
+              / max(pm.prefill_token_latency(), 1e-12))
+    return max(chunk_size, min(fit, 8 * chunk_size))
+
+
+class FIFOAdmission:
+    """FIFO admission + per-tick prefill-chunk budget."""
+
+    #: reservation pricing (worst-case lifetime up front) — never preempts
+    overcommit = False
+
+    def __init__(self, cfg: ModelConfig, *, chunk_size: int = 32,
+                 budget_tokens: Optional[int] = None, nodes: int = 2):
+        if chunk_size <= 0:
+            raise ValueError(f"chunk_size={chunk_size} must be positive")
+        self.chunk_size = chunk_size
+        if budget_tokens is None:
+            budget_tokens = derive_prefill_budget(cfg, chunk_size,
+                                                  nodes=nodes)
+        self.budget_tokens = max(budget_tokens, chunk_size)
+
+    def page_price(self, prompt_len: int, max_new: int, *, page_size: int,
+                   max_seq: int, shared_tokens: int = 0) -> int:
+        """Admission price of one request in KV-cache pages."""
+        total = -(-min(prompt_len + max_new, max_seq) // page_size)
+        return max(0, total - shared_tokens // page_size)
+
+    def plan_chunks(self, prefilling: Sequence[Tuple[int, int, int]]
+                    ) -> List[PrefillChunk]:
+        """This tick's prompt chunks from (slot, prompt_len, filled)
+        triples in FIFO order: at most one chunk per request, the total
+        capped by ``budget_tokens`` (a chunk that does not fit waits for
+        the next tick rather than splitting)."""
+        budget = self.budget_tokens
+        out: List[PrefillChunk] = []
+        for slot, prompt_len, filled in prefilling:
+            n = min(self.chunk_size, prompt_len - filled)
+            if n <= 0:
+                continue
+            if n > budget:
+                break
+            out.append(PrefillChunk(slot=slot, start=filled, n=n))
+            budget -= n
+        return out

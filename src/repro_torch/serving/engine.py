@@ -1,0 +1,304 @@
+"""Continuous-batching serving engine over the paged KV cache.
+
+The paper's schedule: a fixed set of cache slots runs one batched decode
+step every tick, and prompt work rides along in chunks without stalling
+it.
+
+  * **Chunked prefill** — an admitted prompt is written ``chunk_size``
+    tokens at a time through :func:`repro_torch.models.lm.prefill_into_slot`
+    (one forward call per chunk; ``ceil(P / chunk_size)`` calls per
+    prompt), within a per-tick token budget from
+    :mod:`repro_torch.serving.admission`.
+  * **Paged KV cache** — :class:`~repro_torch.serving.kv_cache.PagedCacheManager`
+    allocates pages through per-request block tables, prices admission in
+    pages, and shares full prompt pages copy-free between requests with a
+    common prefix.
+  * **Quantized serving** — ``quantized=True`` calibrates SmoothQuant on
+    ``calibration_batches`` and runs every linear through the Fused MP
+    kernel; the activation stream between kernels stays float32.
+  * **Per-request sampling** — one :func:`~repro_torch.serving.sampler.sample_batch`
+    call per tick over per-slot parameters, drawn from the engine's
+    ``torch.Generator``.
+
+Every tick on the card goes through the three CUDA kernels: the MP
+kernel for each quantized linear, the paged decode kernel for the decode
+step and the paged verify kernel for each prefill chunk.  The engine runs
+on ``device`` (default ``"cuda"``) and raises if that device is missing;
+the CPU tests pass ``device="cpu"``, which takes the plain versions.
+
+Not ported (they raise ``NotImplementedError``): speculative decoding
+(``spec=``), the stacked layout, replay prefill, ring tensor parallelism
+(``mesh=``) and over-commit admission.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import scheduler as sched
+from repro_torch.core.perfmodel import FPGAPerfModel
+from repro_torch.models import lm
+from repro_torch.models.layers import to_device
+from repro_torch.serving import sampler as samplers
+from repro_torch.serving.admission import FIFOAdmission
+from repro_torch.serving.kv_cache import PagedCacheManager
+from repro_torch.serving.lifecycle import (DECODE, PREFILL, LifecycleMixin,
+                                           Request, drain_engine,
+                                           latency_stats, submit_request)
+from repro_torch.serving.quantize import calibrate, quantize_model_params
+from repro_torch.serving.telemetry import (TID_ENGINE, Telemetry,
+                                           registry_counter)
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card; a CUDA device must exist."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions on the CPU")
+    return dev
+
+
+class ServeEngine(LifecycleMixin):
+    ticks = registry_counter("ticks")
+    model_calls = registry_counter("model_calls")
+    prefill_calls = registry_counter("prefill_calls")
+    stalled = registry_counter("stalled")
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        *,
+        batch_slots: int = 4,
+        max_seq: int = 256,
+        eos_id: int = 0,
+        quantized: bool = False,
+        calibration_batches=None,
+        seed: int = 0,
+        chunk_size: int = 32,
+        prefill_mode: str = "auto",  # auto | chunked
+        kv_layout: str = "auto",  # auto | paged
+        page_size: int = 16,
+        n_pages: Optional[int] = None,
+        prefix_sharing: bool = True,
+        admission: Optional[FIFOAdmission] = None,
+        mesh=None,
+        act_dtype: Optional[torch.dtype] = None,
+        spec=None,
+        telemetry: Optional[Telemetry] = None,
+        device=None,
+    ):
+        for what, bad in (("spec=", spec is not None),
+                          ("mesh=", mesh is not None),
+                          (f"prefill_mode={prefill_mode!r}",
+                           prefill_mode not in ("auto", "chunked")),
+                          (f"kv_layout={kv_layout!r}",
+                           kv_layout not in ("auto", "paged")),
+                          ("over-commit admission",
+                           getattr(admission, "overcommit", False))):
+            if bad:
+                raise NotImplementedError(
+                    f"ServeEngine({what}) is not ported: this engine serves "
+                    "the paged layout with chunked prefill and plain decode")
+        lm.check_supported(cfg)
+        self.tel = telemetry or Telemetry()
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.max_seq = max_seq
+        self.eos_id = eos_id
+        self.B = batch_slots
+        self.chunk_size = min(chunk_size, max_seq)
+        params = to_device(params, self.device)
+        if quantized:
+            stats = None
+            if calibration_batches is not None:
+                stats = calibrate(params, cfg, calibration_batches)
+            params = quantize_model_params(params, cfg, stats)
+        # the W8A8 path re-quantizes activations at every MP kernel input,
+        # so the stream between kernels stays float32
+        self.act_dtype = act_dtype or (torch.float32 if quantized
+                                       else torch.bfloat16)
+        self.params = params
+        self.prefill_mode = "chunked"
+        self.kv_layout = "paged"
+        self.admission = admission or FIFOAdmission(
+            cfg, chunk_size=self.chunk_size)
+        if self.admission.chunk_size > self.chunk_size:
+            raise ValueError(
+                "admission schedules chunks larger than the engine's "
+                f"prefill buffer ({self.admission.chunk_size} > "
+                f"{self.chunk_size})")
+        self.kv = PagedCacheManager(
+            cfg, batch_slots, max_seq, page_size=page_size, n_pages=n_pages,
+            prefix_sharing=prefix_sharing, device=self.device)
+        self._share = prefix_sharing
+        self.cur_tok = np.zeros((batch_slots, 1), np.int64)
+        self._temp = np.zeros((batch_slots,), np.float32)
+        self._topk = np.zeros((batch_slots,), np.int64)
+        self._topp = np.ones((batch_slots,), np.float32)
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        self.slots: List[Optional[Request]] = [None] * batch_slots
+        self.queue: deque = deque()
+        self.finished: List[Request] = []
+        self._next_rid = 0
+        self.ticks = 0
+        self.model_calls = 0  # decode steps + prefill chunks
+        self.prefill_calls = 0
+        self.stalled = 0
+        self.stalled_detail: Dict[str, List[int]] = {
+            "queued": [], "in_flight": []}
+        self.mdk_stats = sched.mdk_stats(cfg)
+
+        reg = self.tel.registry
+        self._h_ttft = reg.histogram("ttft_s")
+        self._h_tpot = reg.histogram("tpot_s")
+        self._h_tick = reg.histogram("tick_wall_s")
+        # the paper's FPGA model's predicted cost per call, kept beside
+        # the measured host time of the same call
+        pm = FPGAPerfModel(cfg)
+        self._modeled_decode_s = pm.token_latency()["total"]
+        self._modeled_prefill_tok_s = pm.prefill_token_latency()
+        self._c_pref_mod = reg.counter("prefill_modeled_s")
+        self._c_pref_meas = reg.counter("prefill_measured_s")
+        self._c_dec_mod = reg.counter("decode_modeled_s")
+        self._c_dec_meas = reg.counter("decode_measured_s")
+
+    # ------------------------------------------------------------------
+    def submit(self, prompt: List[int], max_new: int = 32,
+               sampling: Optional[samplers.SamplingParams] = None) -> int:
+        return submit_request(self, prompt, max_new, sampling)
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _sample(self, logits: torch.Tensor, rows) -> List[int]:
+        return samplers.sample_batch(
+            logits, self.gen, self._dev(self._temp[rows]),
+            self._dev(self._topk[rows]), self._dev(self._topp[rows])).tolist()
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def tick(self) -> None:
+        """One engine tick: prefill chunks within the budget, then one
+        batched decode step over every decoding slot."""
+        t_tick = time.perf_counter()
+        tr = self.tel.tracer
+        with tr.span("tick", "engine"):
+            with tr.span("admit"):
+                self._admit()
+            did = False
+            prefilling = sorted(
+                (r for r in self.slots
+                 if r is not None and r.state == PREFILL),
+                key=lambda r: r.rid)
+            plan = self.admission.plan_chunks(
+                [(r.slot, len(r.prompt), r.filled) for r in prefilling])
+            for ch in plan:
+                req = self.slots[ch.slot]
+                if not self.kv.has_room(ch.slot, ch.n):
+                    raise ValueError(
+                        f"prefill chunk ({ch.n} tokens at offset {ch.start}) "
+                        f"overruns slot {ch.slot}'s cache (len="
+                        f"{self.kv.length_of(ch.slot)}, max_seq="
+                        f"{self.max_seq})")
+                chunk = np.zeros((self.chunk_size,), np.int64)
+                chunk[:ch.n] = req.prompt[ch.start:ch.start + ch.n]
+                t0 = time.perf_counter()
+                with tr.span("prefill.chunk", "stage", TID_ENGINE,
+                             ({"rid": req.rid, "slot": ch.slot,
+                               "start": ch.start, "n": ch.n,
+                               "modeled_s":
+                               ch.n * self._modeled_prefill_tok_s}
+                              if tr.enabled else None)):
+                    logits, self.kv.cache = lm.prefill_into_slot(
+                        self.params, self.cfg, self._dev(chunk),
+                        self.kv.cache, ch.start, valid=ch.n,
+                        block_table=self._dev(self.kv.block_tables[ch.slot]),
+                        dtype=self.act_dtype)
+                self._c_pref_mod.value += ch.n * self._modeled_prefill_tok_s
+                self._c_pref_meas.value += time.perf_counter() - t0
+                self.model_calls += 1
+                self.prefill_calls += 1
+                req.filled += ch.n
+                self.kv.advance(ch.slot, ch.n)
+                if req.filled == len(req.prompt):
+                    # the first token comes straight off the prefill logits
+                    slot = ch.slot
+                    tok = self._sample(logits[None], [slot])[0]
+                    self._emit(req, tok, time.monotonic())
+                did = True
+
+            decoding = [r is not None and r.state == DECODE
+                        for r in self.slots]
+            if any(decoding):
+                self._plain_decode(decoding)
+                did = True
+        if did:
+            self.ticks += 1
+            self._h_tick.record(time.perf_counter() - t_tick)
+
+    def _plain_decode(self, decoding) -> None:
+        """One single-token batched decode step over all slots; rows that
+        are not decoding ride along with their writes parked."""
+        decoding = self._ensure_room(decoding)
+        tr = self.tel.tracer
+        t0 = time.perf_counter()
+        with tr.span("decode.step", "stage", TID_ENGINE,
+                     ({"rows": int(decoding.sum()),
+                       "modeled_s": self._modeled_decode_s}
+                      if tr.enabled else None)):
+            logits, self.kv.cache = lm.decode_step(
+                self.params, self.cfg, self._dev(self.cur_tok),
+                self.kv.cache, self._dev(self.kv.lengths),
+                block_table=self._dev(self.kv.block_tables),
+                active=self._dev(decoding), dtype=self.act_dtype)
+        self._c_dec_mod.value += self._modeled_decode_s
+        self._c_dec_meas.value += time.perf_counter() - t0
+        self.model_calls += 1
+        sampled = self._sample(logits, slice(None))
+        self.kv.advance_mask(decoding)
+        now = time.monotonic()
+        for b, req in enumerate(self.slots):
+            if req is not None and req.state == DECODE and decoding[b]:
+                self._emit(req, int(sampled[b]), now)
+
+    # ------------------------------------------------------------------
+    def run(self, max_ticks: int = 10_000, *,
+            on_stall: str = "raise") -> List[Request]:
+        """Tick until drained; see :func:`drain_engine` for stalls."""
+        return drain_engine(self, max_ticks, on_stall)
+
+    def dump_trace(self, path: str) -> str:
+        return self.tel.dump_trace(path)
+
+    def stats(self) -> Dict[str, float]:
+        """Exactly the keys of ``telemetry.STATS_KEYS_ENGINE``."""
+        out = latency_stats(self)
+        emitted = sum(len(r.out) for r in self.finished) + sum(
+            len(r.out) for r in self.slots if r is not None)
+        out.update({
+            "ticks": self.ticks,
+            "model_calls": self.model_calls,
+            "prefill_calls": self.prefill_calls,
+            "stalled": self.stalled,
+            "stalled_queued": len(self.stalled_detail["queued"]),
+            "stalled_in_flight": len(self.stalled_detail["in_flight"]),
+            "tokens_per_model_call": emitted / max(self.model_calls, 1),
+            "mdk_mp_reuse": self.mdk_stats.reuse_factor().get("mp", 0),
+            "tick_p50_ms": self._h_tick.quantile(0.5) * 1e3,
+            "tick_p99_ms": self._h_tick.quantile(0.99) * 1e3,
+            "decode_modeled_s": self._c_dec_mod.value,
+            "decode_measured_s": self._c_dec_meas.value,
+            "prefill_modeled_s": self._c_pref_mod.value,
+            "prefill_measured_s": self._c_pref_meas.value,
+        })
+        out.update(self.kv.stats())
+        return out

@@ -1,0 +1,327 @@
+"""The paged KV-cache manager: a global page pool, per-request block
+tables, refcounted pages and copy-free prefix sharing.
+
+A copy of the JAX package's ``PagedCacheManager``
+(``repro/serving/kv_cache.py``) for pure global-attention stacks, without
+the speculative ``rewind`` and the preemption ``evict_to_host`` /
+``restore`` round trip, which this package has not ported.
+
+Correctness model: logical position ``p`` of a slot lives in page
+``block_tables[slot, p // page_size]`` at offset ``p % page_size``;
+entries past a slot's allocated pages name the null page 0, whose content
+is never unmasked, because attention only reads positions below the
+slot's length and the engine grows a length only after its pages exist.
+Only *full* prompt pages enter the prefix map, so a shared page is never
+written again.  A freed prefix page is *cached*: it keeps its content and
+map entry until a fresh claim needs it, so a later request with the same
+prefix resurrects it.  At admission every request reserves its
+worst-case page count, so decode-time growth cannot fail.
+"""
+from __future__ import annotations
+
+import heapq
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+
+
+class PagedCacheManager:
+    """Page-pool KV cache: block tables, refcounts, and prefix sharing.
+
+    ``cache`` holds ``n_pages`` pages of ``page_size`` tokens per layer
+    (on ``device``); ``block_tables`` and ``lengths`` are host arrays the
+    engine sends to the device once per call."""
+
+    def __init__(self, cfg: ModelConfig, batch_slots: int, max_seq: int, *,
+                 page_size: int = 16, n_pages: Optional[int] = None,
+                 prefix_sharing: bool = True, dtype=torch.bfloat16,
+                 device=None):
+        if max_seq % page_size:
+            raise ValueError(
+                f"page_size={page_size} must divide max_seq={max_seq}")
+        self.cfg = cfg
+        self.B = batch_slots
+        self.max_seq = max_seq
+        self.page_size = page_size
+        self.pages_per_seq = max_seq // page_size
+        if n_pages is None:
+            # worst case every slot holds a full sequence, +1 null page
+            n_pages = 1 + batch_slots * self.pages_per_seq
+        if n_pages < 2:
+            raise ValueError("need at least the null page and one real page")
+        self.n_pages = n_pages
+        self.prefix_sharing = prefix_sharing
+        self.cache = lm.init_cache(cfg, n_pages, page_size, layout="paged",
+                                   dtype=dtype, device=device)
+        self.lengths = np.zeros((batch_slots,), np.int32)
+        self.block_tables = np.zeros(
+            (batch_slots, self.pages_per_seq), np.int32)
+
+        self._free_slots: List[int] = list(range(batch_slots))
+        heapq.heapify(self._free_slots)
+        self._used_slots: set = set()
+        # free pages in two tiers: never-mapped ("clean") pages first,
+        # then cached prefix pages (lazy-deleted heap + membership set)
+        self._free_clean: List[int] = list(range(1, n_pages))  # 0 = null
+        heapq.heapify(self._free_clean)
+        self._free_cached: List[int] = []
+        self._free_cached_set: set = set()
+        self._cached_heap_pids: set = set()
+        self._refcount = np.zeros((n_pages,), np.int64)
+        self._slot_pages: Dict[int, List[int]] = {}
+        self._reserved: Dict[int, int] = {}  # slot -> pages still owed
+        # prefix map: chained hash of full prompt pages -> page id.  The
+        # hash only accelerates lookup: a match also requires the page's
+        # exact tokens and predecessor page (_page_meta), so a collision
+        # can never link another request's K/V.
+        self._prefix_map: Dict[int, int] = {}
+        self._page_hash: Dict[int, int] = {}
+        self._page_meta: Dict[int, Tuple[int, Tuple[int, ...]]] = {}
+        self._page_ready: set = set()
+        self._pending_ready: Dict[int, List[Tuple[int, int]]] = {}
+
+        self.pages_allocated_total = 0
+        self.prefix_hit_pages = 0
+        self.pages_in_use_peak = 0
+
+    # -- page math ------------------------------------------------------
+    def pages_for(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.page_size)
+
+    @property
+    def n_free_pages(self) -> int:
+        return len(self._free_clean) + len(self._free_cached_set)
+
+    @property
+    def available_pages(self) -> int:
+        """Free pages net of outstanding decode-growth reservations."""
+        return self.n_free_pages - sum(self._reserved.values())
+
+    @property
+    def pages_in_use(self) -> int:
+        return (self.n_pages - 1) - self.n_free_pages
+
+    # -- prefix sharing -------------------------------------------------
+    @staticmethod
+    def _chain(h: int, page_tokens: Tuple[int, ...]) -> int:
+        return hash((h, page_tokens))
+
+    def _match_prefix(self, prompt: Sequence[int]) -> Tuple[List[int], int]:
+        """Ready full prefix pages for ``prompt`` (at least one prompt
+        token is always left to prefill); returns (page ids, chain hash)."""
+        ps = self.page_size
+        pids: List[int] = []
+        h, parent = 0, 0
+        if not self.prefix_sharing:
+            return pids, h
+        for i in range((len(prompt) - 1) // ps):
+            toks = tuple(prompt[i * ps:(i + 1) * ps])
+            nh = self._chain(h, toks)
+            pid = self._prefix_map.get(nh)
+            if (pid is None or pid not in self._page_ready
+                    or self._page_meta.get(pid) != (parent, toks)):
+                break
+            h = nh
+            pids.append(pid)
+            parent = pid
+        return pids, h
+
+    def probe_pending(self, prompt: Sequence[int]) -> bool:
+        """True if the prompt's next unshared full prefix page is
+        registered by a live request whose prefill has not covered it
+        yet: admission waits a tick and links it instead of copying."""
+        if not self.prefix_sharing:
+            return False
+        ps = self.page_size
+        h, parent = 0, 0
+        for i in range((len(prompt) - 1) // ps):
+            toks = tuple(prompt[i * ps:(i + 1) * ps])
+            h = self._chain(h, toks)
+            pid = self._prefix_map.get(h)
+            if pid is None or self._page_meta.get(pid) != (parent, toks):
+                return False
+            if pid not in self._page_ready:
+                return True
+            parent = pid
+        return False
+
+    def _claim_page(self) -> int:
+        if self._free_clean:
+            pid = heapq.heappop(self._free_clean)
+        else:
+            pid = self._pop_cached()
+        self._refcount[pid] = 1
+        self.pages_allocated_total += 1
+        self.pages_in_use_peak = max(self.pages_in_use_peak,
+                                     self.pages_in_use)
+        return pid
+
+    def _pop_cached(self) -> int:
+        """Evict the lowest-id cached free page for fresh use."""
+        while self._free_cached:
+            pid = heapq.heappop(self._free_cached)
+            self._cached_heap_pids.discard(pid)
+            if pid in self._free_cached_set:  # lazy deletion
+                self._free_cached_set.discard(pid)
+                self._evict(pid)
+                return pid
+        raise RuntimeError("page claim past the free pool")
+
+    def _evict(self, pid: int) -> None:
+        """Drop a page's prefix-map registration."""
+        h = self._page_hash.pop(pid, None)
+        if h is not None and self._prefix_map.get(h) == pid:
+            del self._prefix_map[h]
+        self._page_meta.pop(pid, None)
+        self._page_ready.discard(pid)
+
+    def _release_page(self, pid: int) -> None:
+        self._refcount[pid] -= 1
+        if self._refcount[pid] < 0:
+            raise RuntimeError(f"page {pid} released below refcount 0")
+        if self._refcount[pid] == 0:
+            if pid in self._page_ready and pid in self._page_hash:
+                # ready prefix page: keep content + map entry cached
+                if pid not in self._cached_heap_pids:
+                    heapq.heappush(self._free_cached, pid)
+                    self._cached_heap_pids.add(pid)
+                self._free_cached_set.add(pid)
+            else:
+                self._evict(pid)
+                heapq.heappush(self._free_clean, pid)
+
+    # -- slot lifecycle -------------------------------------------------
+    def alloc(self, prompt: Sequence[int], max_new: int = 1, *,
+              share: bool = True) -> Optional[Tuple[int, int]]:
+        """Admit one request: claim a slot, link shared prefix pages,
+        claim fresh pages for the rest of the prompt and reserve its
+        decode growth.  Returns ``(slot, shared_tokens)`` — prefill starts
+        at ``shared_tokens`` — or None when slots or pages are short.
+        Raises ``ValueError`` for a request that can never fit."""
+        plen = len(prompt)
+        if plen > self.max_seq:
+            raise ValueError(
+                f"prompt ({plen} tokens) exceeds the cache (max_seq="
+                f"{self.max_seq}); admitting it would corrupt the mask")
+        total_pages = self.pages_for(min(plen + max_new, self.max_seq))
+        prompt_pages = self.pages_for(plen)
+        if total_pages > self.n_pages - 1:
+            raise ValueError(
+                f"request needs {total_pages} pages but the pool only has "
+                f"{self.n_pages - 1}; it can never be admitted (raise "
+                "n_pages or lower max_new)")
+        if not self._free_slots:
+            return None
+        ps = self.page_size
+        shared_pids, h = (self._match_prefix(prompt) if share else ([], 0))
+        n_shared = len(shared_pids)
+        # resurrecting a cached (refcount-0) page consumes a free page
+        n_cached = sum(1 for pid in shared_pids if self._refcount[pid] == 0)
+        if (total_pages - n_shared) + n_cached > self.available_pages:
+            return None
+
+        slot = heapq.heappop(self._free_slots)
+        self._used_slots.add(slot)
+        pages: List[int] = []
+        for pid in shared_pids:
+            if self._refcount[pid] == 0:
+                self._free_cached_set.discard(pid)
+            self._refcount[pid] += 1
+            pages.append(pid)
+        self.prefix_hit_pages += n_shared
+        pending: List[Tuple[int, int]] = []
+        register = share and self.prefix_sharing
+        for i in range(n_shared, prompt_pages):
+            pid = self._claim_page()
+            pages.append(pid)
+            if register and (i + 1) * ps <= plen:  # full page -> shareable
+                toks = tuple(prompt[i * ps:(i + 1) * ps])
+                h = self._chain(h, toks)
+                if h not in self._prefix_map:
+                    self._prefix_map[h] = pid
+                    self._page_hash[pid] = h
+                    self._page_meta[pid] = (pages[i - 1] if i else 0, toks)
+                    pending.append((pid, (i + 1) * ps))
+        self._slot_pages[slot] = pages
+        self._reserved[slot] = total_pages - prompt_pages
+        self._pending_ready[slot] = pending
+        self.block_tables[slot] = 0
+        self.block_tables[slot, :len(pages)] = pages
+        self.lengths[slot] = n_shared * ps
+        return slot, n_shared * ps
+
+    def free(self, slot: int) -> None:
+        """Release a slot: decref its pages (shared pages survive their
+        other sharers) and drop its reservation."""
+        if slot not in self._used_slots:
+            raise ValueError(f"free of unallocated slot {slot}")
+        self._used_slots.discard(slot)
+        for pid in self._slot_pages.pop(slot):
+            self._release_page(pid)
+        self._reserved.pop(slot, None)
+        self._pending_ready.pop(slot, None)
+        self.block_tables[slot] = 0
+        self.lengths[slot] = 0
+        heapq.heappush(self._free_slots, slot)
+
+    # -- length accounting ---------------------------------------------
+    def advance(self, slot: int, n: int) -> None:
+        """Record n prefill tokens written; full prompt pages the new fill
+        level covers become shareable."""
+        self.lengths[slot] += n
+        filled = int(self.lengths[slot])
+        pending = self._pending_ready.get(slot)
+        if pending:
+            still = []
+            for pid, end in pending:
+                if end <= filled:
+                    self._page_ready.add(pid)
+                else:
+                    still.append((pid, end))
+            self._pending_ready[slot] = still
+
+    def advance_mask(self, mask) -> None:
+        """Advance every masked slot by one token (one decode tick)."""
+        self.lengths += np.asarray(mask, np.int32)
+
+    def length_of(self, slot: int) -> int:
+        return int(self.lengths[slot])
+
+    def ensure_decode_room(self, mask, n: int = 1) -> None:
+        """Grow block tables so every masked slot can take ``n`` more
+        tokens, drawing on its admission-time reservation."""
+        for slot, active in enumerate(mask):
+            if not active:
+                continue
+            pages = self._slot_pages[slot]
+            need = int(self.lengths[slot]) + n
+            while len(pages) * self.page_size < need:
+                if self._reserved.get(slot, 0) <= 0:
+                    raise RuntimeError(
+                        f"slot {slot} page growth to {need} tokens exceeds "
+                        "its admission-time reservation")
+                pid = self._claim_page()
+                self._reserved[slot] -= 1
+                self.block_tables[slot, len(pages)] = pid
+                pages.append(pid)
+
+    # -- introspection --------------------------------------------------
+    def has_room(self, slot: int, n: int = 1) -> bool:
+        return self.length_of(slot) + n <= self.max_seq
+
+    def refcount(self, pid: int) -> int:
+        return int(self._refcount[pid])
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "pages_allocated_total": self.pages_allocated_total,
+            "prefix_hit_pages": self.prefix_hit_pages,
+            "pages_in_use": self.pages_in_use,
+            "pages_in_use_peak": self.pages_in_use_peak,
+            "n_free_pages": self.n_free_pages,
+            "cached_free_pages": len(self._free_cached_set),
+        }
