@@ -1,5 +1,5 @@
-// W8A8 GEMM with a fused dequantisation epilogue: the paper's Fused MP
-// kernel on Hopper.
+// W8A8 GEMM with its dequantisation epilogue: the paper's Fused MP kernel on
+// Hopper, as two launches (the int32 GEMM over K slices, then the epilogue).
 //
 // Replaces: src/repro/kernels/mp_kernel.py :: mp_matmul (_mp_kernel), the
 // Pallas TPU kernel behind repro.kernels.ops.quant_matmul.
@@ -27,7 +27,8 @@
 // split writes its exact int32 partial sums to a workspace, and a second
 // kernel adds the splits in order and applies the epilogue (integer sums
 // are exact in any order, so the split changes no bit of the result).
-// With one split the epilogue is fused into the first kernel.  Weights
+// Every call takes this path, one split or many: the serving shapes always
+// split, so a fused one-split epilogue would be code no caller runs.  Weights
 // arrive row-major (K, N); each thread loads a 4 x 4 byte block (four
 // K-rows of four columns, 32-bit loads that neighbouring threads issue on
 // neighbouring addresses) and transposes it in registers with __byte_perm
@@ -88,13 +89,11 @@ __device__ __forceinline__ float dequant(int acc, float xsm, float wsn,
   return __fadd_rn(__fmul_rn(v, wsn), bn);
 }
 
-// SPLIT: write int32 partials of this block's K slice to part (splits, M,
-// N) instead of the finished output.
-template <int BM, typename OutT, bool SPLIT>
+// The int32 partial sums of this block's K slice, written to part
+// (splits, M, N).
+template <int BM>
 __global__ void __launch_bounds__(THREADS)
 mp_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                 const float* __restrict__ xs, const float* __restrict__ ws,
-                 const float* __restrict__ bias, OutT* __restrict__ y,
                  int* __restrict__ part, int M, int N, int K,
                  int k_per_split) {
   constexpr int RPT = BM / 2;  // output rows per thread
@@ -158,22 +157,11 @@ mp_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
   const int n = n0 + col;
   if (n >= N) return;
-  if (SPLIT) {
-    int* dst = part + (size_t)blockIdx.z * M * N;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int m = m0 + rsub + 2 * i;
-      if (m < M) dst[(size_t)m * N + n] = acc[i];
-    }
-    return;
-  }
-  const float wsn = ws[n];
-  const float bn = bias != nullptr ? bias[n] : 0.0f;
+  int* dst = part + (size_t)blockIdx.z * M * N;
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int m = m0 + rsub + 2 * i;
-    if (m < M)
-      store_out(y + (size_t)m * N + n, dequant(acc[i], xs[m], wsn, bn));
+    if (m < M) dst[(size_t)m * N + n] = acc[i];
   }
 }
 
@@ -203,13 +191,8 @@ void launch(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
   const int k_tiles = (K + BK - 1) / BK;
   const int k_per_split = (k_tiles + splits - 1) / splits * BK;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  if (splits == 1) {
-    mp_matmul_kernel<BM, OutT, false><<<grid, THREADS, 0, stream>>>(
-        x, w, xs, ws, bias, y, nullptr, M, N, K, k_per_split);
-    return;
-  }
-  mp_matmul_kernel<BM, OutT, true><<<grid, THREADS, 0, stream>>>(
-      x, w, xs, ws, bias, y, part, M, N, K, k_per_split);
+  mp_matmul_kernel<BM><<<grid, THREADS, 0, stream>>>(x, w, part, M, N, K,
+                                                      k_per_split);
   const size_t MN = (size_t)M * N;
   mp_splitk_epilogue<OutT><<<(unsigned)((MN + 255) / 256), 256, 0, stream>>>(
       part, xs, ws, bias, y, M, N, splits);
@@ -235,9 +218,9 @@ void dispatch(const void* x, const void* w, const void* xs, const void* ws,
 }  // namespace
 
 // out_bf16: 0 -> float32 output, 1 -> bfloat16 output.  bias may be null.
-// splits: the number of K slices (the wrapper picks it); with splits > 1,
-// part is an int32 workspace of splits * M * N, else null.
-// Returns cudaGetLastError() after the launches.
+// splits: the number of K slices (the wrapper picks it); part is an int32
+// workspace of splits * M * N.  Launches mp_matmul_kernel, then
+// mp_splitk_epilogue; returns cudaGetLastError() after both.
 extern "C" int mp_matmul(const void* x_q, const void* w_q, const void* x_scale,
                          const void* w_scale, const void* bias, void* y,
                          void* part, int M, int N, int K, int splits,

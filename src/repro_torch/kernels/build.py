@@ -5,7 +5,7 @@ together, for ``sm_90a`` (H100); the objects are linked into
 ``build/repro_torch/libkernels.so`` at the repository root and loaded
 with ``ctypes``.  The library exposes a plain C interface: every pointer
 and the CUDA stream are passed as ``c_void_p``, sizes as ``c_int``, and
-each entry returns ``cudaGetLastError()`` after its launch.
+each entry returns ``cudaGetLastError()`` after its launches.
 
 The build happens at first use and is skipped while a stamp of the
 sources and flags matches, so a process pays it once.  Nothing here runs

@@ -8,9 +8,11 @@ card launches the CUDA kernel (built at first use, see
 CUDA tensor to the plain version.  Each wrapper checks device, dtype,
 shape, contiguity and alignment, allocates its output, launches on
 PyTorch's current stream, raises if the launch reports an error, and
-adds one to its launch counter (``<wrapper>.launches``) per kernel
-launch.  Unlike the TPU wrappers these pad nothing: the kernels mask
-their own ragged edges.
+adds one to its launch counter (``<wrapper>.launches``) per call that
+launches its kernel: for ``quant_matmul`` that call launches two CUDA
+functions, ``mp_matmul_kernel`` (the int32 GEMM) and
+``mp_splitk_epilogue``, and counts once.  Unlike the TPU wrappers these
+pad nothing: the kernels mask their own ragged edges.
 """
 from __future__ import annotations
 
@@ -77,7 +79,7 @@ def _contig(name: str, **tensors: torch.Tensor) -> None:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
+    """Calls that launched each wrapper's kernel since the last reset."""
     return {"mp_matmul": quant_matmul.launches,
             "paged_mha_decode": paged_mha_decode.launches,
             "paged_verify": paged_verify.launches}
@@ -127,13 +129,12 @@ def quant_matmul(x_q, w_q, x_scale, w_scale, bias=None, *,
     _contig(name, x_q=x_q, w_q=w_q, x_scale=x_scale, w_scale=w_scale)
     y = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
     splits = _mp_splits(M, N, K)
-    part = (torch.empty((splits, M, N), dtype=torch.int32,
-                        device=x_q.device) if splits > 1 else None)
+    part = torch.empty((splits, M, N), dtype=torch.int32, device=x_q.device)
     err = build.library().mp_matmul(
         x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(),
         w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
-        y.data_ptr(), None if part is None else part.data_ptr(), M, N, K,
-        splits, int(out_dtype == torch.bfloat16), _stream(x_q))
+        y.data_ptr(), part.data_ptr(), M, N, K, splits,
+        int(out_dtype == torch.bfloat16), _stream(x_q))
     _check_launch(name, err)
     quant_matmul.launches += 1
     return y

@@ -8,8 +8,13 @@ it runs on a machine that has only PyTorch:
 Tolerances: the W8A8 kernel is bit-identical to its plain version (exact
 int32 sums, the same float32 epilogue order).  The attention kernels keep
 the softmax probabilities in float32 where the plain versions round them
-to bf16 before the PV product, as the JAX reference does, so they agree to
-``1e-2`` of the output's largest magnitude.
+to bf16 before the PV product, as the JAX reference does, so each output
+vector (one row, query and head) agrees to ``1e-2`` of that vector's
+largest magnitude.  The normalisation is per vector because the vectors'
+scales differ: a row with one key returns a value row of the cache (order
+1), a row with a thousand keys an average of them (order 0.05), and a
+fault on the long row, such as a page left out, must not hide under the
+short row's scale.
 """
 import numpy as np
 import pytest
@@ -33,8 +38,11 @@ def h100():
 
 
 def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    err = (got.float() - want.float()).abs().max().item()
-    return err / max(want.float().abs().max().item(), 1e-30)
+    """The largest error of an output vector (the last axis) over that
+    vector's largest magnitude."""
+    err = (got.float() - want.float()).abs().amax(dim=-1)
+    return (err / want.float().abs().amax(dim=-1).clamp_min(1e-30)).max(
+    ).item()
 
 
 def _pool(rng, P, Hkv, ps, D, dev):
@@ -60,8 +68,8 @@ def _block_table(rng, B, n_pg, P, live_pages, dev):
     (1, 1024, 1024, False), (8, 4096, 1024, True), (32, 1024, 4096, False),
     (5, 1000, 300, True), (512, 1024, 4096, True), (3, 7, 5, False)])
 def test_mp_matmul_kernel_bitexact_on_card(h100, out_dtype, M, K, N, bias):
-    """Decode, prefill and large-M shapes (split-K and fused epilogue),
-    and ragged ones that take the byte-load edges."""
+    """Decode, prefill and large-M shapes (many K slices and one), and
+    ragged ones that take the byte-load edges."""
     rng = np.random.default_rng(M + K + N)
     x = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8))
     w = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8))

@@ -194,7 +194,7 @@ def test_mp_split_geometry_fills_the_card():
             assert (s - 1) * per < tiles <= s * per
             tiles_mn = -(-N // ops._MP_BN) * -(-M // (8 if M <= 8 else 32))
             assert s * tiles_mn >= min(ops._N_SMS, tiles * tiles_mn)
-    assert ops._mp_splits(512, 4096, 1024) == 1  # large M: fused epilogue
+    assert ops._mp_splits(512, 4096, 1024) == 1  # large M: one K slice
 
 
 def test_build_without_toolkit_raises(monkeypatch, tmp_path):
