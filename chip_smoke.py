@@ -8,14 +8,17 @@ is caught and continued:
 
 1. Device: the card's name and power limit (``nvidia-smi``) and its
    compute capability, which must be (9, 0).
-2. Build: the three CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` per source, all started together).  The compiler's register
-   and shared-memory report goes to ``chiprun_out/ptxas.log``.
+2. Build: the CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, all started together).  The compiler's register and
+   shared-memory report goes to ``chiprun_out/ptxas.log``.
 3. Kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the GPT-2 345M serving shapes, with the tolerance stated (for
    attention, per output vector: each row's, query's and head's error over
    that vector's largest magnitude, so a row of 1,000 keys is held to its
-   own scale and not to that of a row with one key).
+   own scale and not to that of a row with one key).  The tree-masked
+   verify runs on trees built with ``TokenTree`` and on a random mask, and
+   a lower-triangular mask must give output bit-identical to the causal
+   kernel; the contiguous decode kernel returns zeros for an empty row.
 4. Timing: each kernel, its plain version and one PyTorch library call
    that computes the same function, timed with CUDA events per launch
    with the 50 MB L2 flushed before each launch (the serving loop streams
@@ -30,16 +33,29 @@ is caught and continued:
    have launched.  Then one prompt is prefilled and decoded at full width
    on the card and on the CPU (plain versions) with the same weights, and
    the logits must agree.
-6. Reduced-config agreement: the reduced config served by the engine on
+6. Speculative serving at full width, same engine settings, 8 requests
+   of 64 new tokens: (a) chain speculation with the n-gram proposer, k 4,
+   on prompts that repeat short token runs; (b) tree speculation with a
+   draft model, k 8, branch 3, the draft being the target's fp weights
+   plus 0.25 std of seeded noise per tensor (``launch/serve.py``'s
+   ``noisy_copy``), on its own contiguous cache.
+   Each run's launch counts are zeroed before and read after it; the
+   tree run must launch the tree-masked verify and the contiguous decode
+   kernel.  Each run's streams are held against plain decode of the same
+   prompts on the card under the rule of phase 7, the two computations
+   being decode steps along the shared history and verify calls of the
+   run's width over it, each in a batch of the engine's 8 rows.
+7. Reduced-config agreement: the reduced config served by the engine on
    the card and on the CPU with the same W8A8 weights (batched slots,
-   chunked prefill, a shared prefix).  The free-running greedy agreement
-   of the served streams is printed.  Each pair of streams must be equal
-   up to where it parts, and every parting must be a near-tie: fed the
-   shared history, the two devices' logits agree to ``LOGIT_REL_TOL`` of
-   their range, and each device's margin of its own token over the other
-   device's is at most twice their largest logit difference, the most
-   that difference can overturn.
-7. One ``kernels`` JSON line, then the device JSON line last.
+   chunked prefill, a shared prefix), plainly, with chain speculation and
+   with tree speculation.  The free-running greedy agreement of the
+   served streams is printed.  Each pair of streams must be equal up to
+   where it parts, and every parting must be a near-tie: fed the shared
+   history, the two computations' logits agree to ``LOGIT_REL_TOL`` of
+   their range, and each one's margin of its own token over the other's
+   is at most twice their largest logit difference, the most that
+   difference can overturn.
+8. One ``kernels`` JSON line, then the device JSON line last.
 """
 from __future__ import annotations
 
@@ -58,16 +74,20 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.layers import to_device  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.serving.speculative import (SpecConfig,  # noqa: E402
+                                             TokenTree, tree_arrays)
 from repro_torch.serving.quantize import (calibrate,  # noqa: E402
                                           quantize_model_params)
 
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-#: NVIDIA H100 SXM data sheet: HBM3 rate and dense tensor-core peaks
+#: NVIDIA H100 SXM data sheet: HBM3 rate, dense tensor-core peaks, and
+#: float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 #: serving shapes of the main path
 SLOTS, CHUNK, MAX_SEQ, PAGE = 8, 32, 1024, 16
 MP_SHAPES = ((1024, 1024), (1024, 4096), (4096, 1024))  # (K, N)
@@ -80,6 +100,9 @@ ATTN_REL_TOL = 1e-2
 LOGIT_REL_TOL = 0.1
 #: the reduced-config agreement phase
 AGREE_MAX_SEQ, AGREE_PAGE, AGREE_CHUNK = 128, 16, 16
+#: speculative serving: chain k, tree k and branch, draft noise (std)
+CHAIN_K, TREE_K, TREE_BRANCH, DRAFT_SIGMA = 4, 8, 3, 0.25
+SPEC_REQUESTS, SPEC_NEW, SPEC_PROMPT_LENS = 8, 64, (16, 512)
 
 
 class SmokeFailure(RuntimeError):
@@ -357,15 +380,228 @@ def kernel_phase(dev, timer):
         "max_abs_err": ver_err, "ms": t, "plain_ms": tp, "bound_ms": b,
         "bound_by": by, "library_ms": tl,
         "shape": f"B=1 C={CHUNK} H={H} D={D} base={base0}"}
-    try:
-        ops.paged_verify(q, kp, vp, base, bt,
-                         anc=torch.ones((2, CHUNK, CHUNK), dtype=torch.int32,
-                                        device=dev))
-    except NotImplementedError as e:
-        print(f"paged_verify(anc=...) on the card refuses: {e}")
-    else:
-        raise SmokeFailure("paged_verify(anc=...) did not refuse")
+    entries["paged_verify"].update(chain_verify_timing(dev, timer, rng))
+    entries["paged_verify_tree"] = tree_verify_phase(dev, timer, rng)
+    entries["mha_decode"] = mha_decode_phase(dev, timer, rng)
     return entries
+
+
+def token_trees(rng, B, k, branch):
+    """One ``TokenTree`` per row, grown breadth first: each node takes up
+    to ``branch`` children (random tokens) until the row's node budget,
+    drawn from 1..k, is spent."""
+    trees = []
+    for _ in range(B):
+        t, frontier, n = TokenTree(), [0], int(rng.integers(1, k + 1))
+        while frontier and t.n < n:
+            par = frontier.pop(0)
+            for _ in range(branch):
+                if t.n >= n:
+                    break
+                frontier.append(t.add(int(rng.integers(1, 50000)), par))
+        trees.append(t)
+    return trees
+
+
+def verify_bases(rng, B, C):
+    """Bases at and beside page edges, mid-cache and at the end of the
+    table, with the last row parked at ``MAX_SEQ`` (output never read)."""
+    fixed = [0, PAGE - 1, PAGE, 2 * PAGE - 1, MAX_SEQ - C]
+    mid = rng.integers(PAGE, MAX_SEQ - C, B - 1 - len(fixed))
+    return np.array(fixed + sorted(mid.tolist()) + [MAX_SEQ], np.int32)
+
+
+def sdpa_verify(q, kp, vp, bt, mask):
+    """The library yardstick: SDPA over the gathered view with an explicit
+    (B, 1, C, S) boolean mask."""
+    kv = ref.paged_gather_ref(kp, bt).float()
+    vv = ref.paged_gather_ref(vp, bt).float()
+    qh = q.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qh, kv, vv, attn_mask=mask)
+
+
+def verify_bytes(B, C, H, D, keys, pages):
+    """Live K/V (bf16) read once, float32 queries in and outputs out,
+    bases and table entries."""
+    return 2 * keys * H * D * 2 + 2 * B * C * H * D * 4 + 4 * B + 4 * pages
+
+
+def chain_verify_timing(dev, timer, rng):
+    """The causal verify at the chain-speculation shape: B = slots rows of
+    C = k + 1 queries at bases spread over the cache."""
+    H, D, C = 16, 64, CHAIN_K + 1
+    q, kp, vp, bt = pool_inputs(rng, SLOTS, H, D, dev, (SLOTS, C, H, D))
+    base_np = np.sort(rng.integers(16, MAX_SEQ - C, SLOTS)).astype(np.int32)
+    base = torch.from_numpy(base_np).to(dev)
+    bt = live_table(bt, base_np + C)
+    got = ops.paged_verify(q, kp, vp, base, bt)
+    want = ref.paged_verify_ref(q, kp, vp, base, bt)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    check(rel <= ATTN_REL_TOL, f"paged_verify chain shape: rel err {rel}")
+    t = timer.ms(lambda: ops.paged_verify(q, kp, vp, base, bt))
+    tp = timer.ms(lambda: ref.paged_verify_ref(q, kp, vp, base, bt))
+    qpos = base[:, None] + torch.arange(C, device=dev)[None]
+    mask = (torch.arange(MAX_SEQ, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    tl = timer.ms(sdpa_verify(q, kp, vp, bt, mask))
+    keys = int((base_np + C).sum())
+    pairs = int(sum(b * C + C * (C + 1) // 2 for b in base_np))
+    pages = int(sum(-(-int(b + C) // PAGE) for b in base_np))
+    b, by = bound_ms(verify_bytes(SLOTS, C, H, D, keys, pages),
+                     4 * pairs * H * D, "bf16")
+    print(f"paged_verify chain shape B={SLOTS} C={C} bases "
+          f"{base_np.tolist()}: rel err {rel:.3e}; kernel {t:.4f} ms, plain "
+          f"{tp:.4f} ms, SDPA on the gathered view {tl:.4f} ms, bound "
+          f"{b:.5f} ms ({by})")
+    return {"chain_shape": f"B={SLOTS} C={C} H={H} D={D}", "chain_ms": t,
+            "chain_plain_ms": tp, "chain_bound_ms": b, "chain_library_ms": tl,
+            "chain_max_abs_err": err}
+
+
+def tree_verify_phase(dev, timer, rng):
+    """The tree-masked verify against its plain version: TokenTree trees
+    (branch 2 and 3) and a random mask that is not triangular, at C 5 and
+    9, bases at page edges and a parked row; a lower-triangular mask is
+    bit-identical to the causal kernel.  Then timed at the tree run's
+    verify shape (B = slots, C = 9)."""
+    H, D = 16, 64
+    worst = 0.0
+    for C in (5, 9):
+        q, kp, vp, bt = pool_inputs(rng, SLOTS, H, D, dev, (SLOTS, C, H, D))
+        base_np = verify_bases(rng, SLOTS, C)
+        base = torch.from_numpy(base_np).to(dev)
+        bt = live_table(bt, np.minimum(base_np + C, MAX_SEQ))
+        masks = {f"TokenTree branch {br}": tree_arrays(
+            token_trees(rng, SLOTS, C - 1, br), C - 1, C)[3]
+            for br in (2, 3)}
+        masks["random"] = rng.integers(0, 2, (SLOTS, C, C)).astype(bool)
+        for what, anc_np in masks.items():
+            anc = torch.from_numpy(anc_np.astype(np.int32)).to(dev)
+            got = ops.paged_verify(q, kp, vp, base, bt, anc=anc)
+            want = ref.paged_verify_ref(q, kp, vp, base, bt, anc=anc)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got[:-1], want[:-1])
+            check(rel <= ATTN_REL_TOL,
+                  f"paged_verify_tree C={C} {what}: rel err {rel}")
+            check(bool(torch.isfinite(got).all()),
+                  f"paged_verify_tree C={C} {what}: non-finite output")
+            worst = max(worst, err)
+            print(f"paged_verify_tree C={C} {what}: max abs err {err:.3e} "
+                  f"(rel {rel:.3e} <= {ATTN_REL_TOL}); parked row finite")
+        tril = torch.tril(torch.ones((SLOTS, C, C), dtype=torch.int32,
+                                     device=dev))
+        for qd in (torch.float32, torch.bfloat16):
+            qq = q.to(qd)
+            same = torch.equal(ops.paged_verify(qq, kp, vp, base, bt,
+                                                anc=tril),
+                               ops.paged_verify(qq, kp, vp, base, bt))
+            check(same, f"paged_verify_tree C={C} q={qd}: a lower-"
+                  "triangular mask is not bit-identical to the causal kernel")
+        print(f"paged_verify_tree C={C}: lower-triangular mask bit-identical "
+              "to the causal kernel (q float32 and bf16)")
+
+    # timed at the tree run's verify shape
+    C = TREE_K + 1
+    q, kp, vp, bt = pool_inputs(rng, SLOTS, H, D, dev, (SLOTS, C, H, D))
+    base_np = np.sort(rng.integers(16, MAX_SEQ - C, SLOTS)).astype(np.int32)
+    base = torch.from_numpy(base_np).to(dev)
+    bt = live_table(bt, base_np + C)
+    anc_np = tree_arrays(token_trees(rng, SLOTS, TREE_K, TREE_BRANCH),
+                         TREE_K, C)[3]
+    anc = torch.from_numpy(anc_np.astype(np.int32)).to(dev)
+    t = timer.ms(lambda: ops.paged_verify(q, kp, vp, base, bt, anc=anc))
+    tp = timer.ms(lambda: ref.paged_verify_ref(q, kp, vp, base, bt, anc=anc))
+    rel_pos = torch.arange(MAX_SEQ, device=dev)[None] - base[:, None]
+    bits = torch.gather(anc.bool(), 2, rel_pos.clamp(0, C - 1)[:, None, :]
+                        .expand(SLOTS, C, MAX_SEQ))
+    mask = ((rel_pos < 0)[:, None, :]
+            | (((rel_pos >= 0) & (rel_pos < C))[:, None, :] & bits))[:, None]
+    tl = timer.ms(sdpa_verify(q, kp, vp, bt, mask))
+    keys = int((base_np + C).sum())
+    pairs = int(sum(int(b) * C for b in base_np) + anc_np.sum())
+    pages = int(sum(-(-int(b + C) // PAGE) for b in base_np))
+    b, by = bound_ms(verify_bytes(SLOTS, C, H, D, keys, pages)
+                     + 4 * SLOTS * C * C, 4 * pairs * H * D, "bf16")
+    print(f"paged_verify_tree B={SLOTS} C={C} bases {base_np.tolist()}: "
+          f"kernel {t:.4f} ms, plain {tp:.4f} ms, SDPA on the gathered view "
+          f"with the tree mask {tl:.4f} ms, bound {b:.5f} ms ({by})")
+    return {
+        "name": "paged_verify_tree", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_verify.cu",
+        "replaces": "src/repro/kernels/paged_verify_kernel.py:101",
+        "max_abs_err": worst, "ms": t, "plain_ms": tp, "bound_ms": b,
+        "bound_by": by, "library_ms": tl,
+        "shape": f"B={SLOTS} C={C} H={H} D={D} ps={PAGE} branch "
+                 f"{TREE_BRANCH}"}
+
+
+def mha_decode_phase(dev, timer, rng):
+    """The contiguous decode kernel against its plain version: S 1024 and
+    a ragged 1000, all heads or GQA, lengths from 1 to S, window 0 and 128,
+    queries and caches in float32 and bf16; an empty row returns zeros.
+    Then timed at the draft model's shape (B = slots, float32 cache: a
+    W8A8 engine's activation dtype)."""
+    B, H, D = SLOTS, 16, 64
+    worst = 0.0
+    for S in (MAX_SEQ, 1000):
+        lengths_np = np.linspace(1, S, B).astype(np.int32)
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        for Hkv in (16, 4):
+            for kvd in (torch.float32, torch.bfloat16):
+                k, v = (torch.from_numpy(rng.standard_normal(
+                    (B, Hkv, S, D)).astype(np.float32)).to(dev, kvd)
+                    for _ in range(2))
+                q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
+                    np.float32)).to(dev)
+                for window in (0, 128):
+                    for qd in (torch.float32, torch.bfloat16):
+                        qq = q.to(qd)
+                        got = ops.mha_decode(qq, k, v, lengths,
+                                             window=window)
+                        want = ref.mha_decode_ref(qq, k, v, lengths,
+                                                  window=window)
+                        torch.cuda.synchronize()
+                        err, rel = rel_err(got, want)
+                        tag = (f"S={S} Hkv={Hkv} kv={kvd} window={window} "
+                               f"q={qd}")
+                        check(rel <= ATTN_REL_TOL,
+                              f"mha_decode {tag}: rel err {rel}")
+                        worst = max(worst, err)
+                        print(f"mha_decode {tag}: max abs err {err:.3e} "
+                              f"(rel {rel:.3e} <= {ATTN_REL_TOL})")
+                got = ops.mha_decode(q, k, v, torch.zeros_like(lengths))
+                check(bool((got == 0).all()),
+                      f"mha_decode S={S} Hkv={Hkv}: empty rows not zero")
+    print("mha_decode: rows with no valid key return zeros")
+
+    S = MAX_SEQ
+    k, v = (torch.from_numpy(rng.standard_normal((B, H, S, D)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
+        np.float32)).to(dev)
+    lengths_np = np.sort(rng.integers(16, S, B)).astype(np.int32)
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    t = timer.ms(lambda: ops.mha_decode(q, k, v, lengths))
+    tp = timer.ms(lambda: ref.mha_decode_ref(q, k, v, lengths))
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    tl = timer.ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask))
+    tot = int(lengths_np.sum())
+    b, by = bound_ms(2 * tot * H * D * 4 + 2 * B * H * D * 4 + 4 * B,
+                     4 * tot * H * D, "f32")
+    print(f"mha_decode B={B} H={H} D={D} S={S} float32 cache, lengths "
+          f"{lengths_np.tolist()}: kernel {t:.4f} ms, plain {tp:.4f} ms, "
+          f"SDPA on the contiguous cache {tl:.4f} ms, bound {b:.5f} ms "
+          f"({by})")
+    return {
+        "name": "mha_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/mha_decode.cu",
+        "replaces": "src/repro/kernels/mha_kernel.py:89",
+        "max_abs_err": worst, "ms": t, "plain_ms": tp, "bound_ms": b,
+        "bound_by": by, "library_ms": tl,
+        "shape": f"B={B} H={H} D={D} S={S} float32 cache"}
 
 
 def serving_phase(dev):
@@ -415,8 +651,11 @@ def serving_phase(dev):
           f"{launches['paged_verify'] / max(s['prefill_calls'], 1):.0f}, "
           f"decode {launches['paged_mha_decode'] / max(decode_steps, 1):.0f})")
     print("engine stats:", json.dumps(s, sort_keys=True))
-    for name, n in launches.items():
-        check(n > 0, f"serving: kernel {name} was never launched")
+    for name in ("mp_matmul", "paged_mha_decode", "paged_verify"):
+        check(launches[name] > 0, f"serving: kernel {name} was never "
+              "launched")
+    check(launches["paged_verify_tree"] == launches["mha_decode"] == 0,
+          "serving: plain decode launched a speculative path's kernel")
     L = cfg.n_layers
     check(launches["mp_matmul"] == 6 * L * s["model_calls"]
           and launches["paged_verify"] == L * s["prefill_calls"]
@@ -451,30 +690,199 @@ def serving_phase(dev):
         print(f"full-width {what} logits card vs CPU: max abs err "
               f"{err:.3e} (rel {rel:.3e} <= {LOGIT_REL_TOL}); argmax "
               f"{int(a.argmax())} vs {int(b.argmax())}")
-    return launches
+    return launches, eng.params, cfg
 
 
-def logits_after(params, cfg, prompt, forced, dev):
+def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
+                 page=AGREE_PAGE, chunk=AGREE_CHUNK, rows=1, verify=0):
     """The model's next-token logits after ``prompt`` and then each token
     of ``forced`` fed back in turn (teacher forcing), through the paged
-    prefill chunks and decode steps the engine runs, on ``dev``."""
-    n_pg = AGREE_MAX_SEQ // AGREE_PAGE
-    cache = lm.init_cache(cfg, 1 + n_pg, AGREE_PAGE, device=dev)
+    prefill chunks and decode steps the engine runs, on ``dev``.  With
+    ``verify`` the forced tokens go through speculative verify calls of
+    that width (the verify kernel) instead of decode steps (the decode
+    kernel).  The request is row 0 of a batch of ``rows`` (the others
+    parked), so every call has the engine's shapes: the float32 matrix
+    products round differently at different row counts."""
+    n_pg = max_seq // page
+    cache = lm.init_cache(cfg, 1 + n_pg, page, device=dev)
     bt = torch.arange(1, 1 + n_pg, dtype=torch.int32, device=dev)
-    for off in range(0, len(prompt), AGREE_CHUNK):
-        piece = prompt[off:off + AGREE_CHUNK]
-        chunk = torch.zeros(AGREE_CHUNK, dtype=torch.int64)
-        chunk[:len(piece)] = torch.tensor(piece)
+    for off in range(0, len(prompt), chunk):
+        piece = prompt[off:off + chunk]
+        toks = torch.zeros(chunk, dtype=torch.int64)
+        toks[:len(piece)] = torch.tensor(piece)
         lg, cache = lm.prefill_into_slot(
-            params, cfg, chunk.to(dev), cache, off, valid=len(piece),
+            params, cfg, toks.to(dev), cache, off, valid=len(piece),
             block_table=bt, dtype=torch.float32)
+    bts = torch.zeros((rows, n_pg), dtype=torch.int32, device=dev)
+    bts[0] = bt
+    lengths = torch.full((rows,), max_seq, dtype=torch.int32)
+    if verify:
+        for off in range(0, len(forced), verify):
+            piece = forced[off:off + verify]
+            toks = torch.zeros((rows, verify), dtype=torch.int64)
+            toks[0, :len(piece)] = torch.tensor(piece)
+            lengths[0] = len(prompt) + off
+            lgs, cache = lm.verify_chunk(
+                params, cfg, toks.to(dev), cache, lengths.to(dev),
+                block_tables=bts, dtype=torch.float32)
+            lg = lgs[0, len(piece) - 1]
+        return lg.float().cpu()
+    active = torch.zeros(rows, dtype=torch.bool, device=dev)
+    active[0] = True
     for i, t in enumerate(forced):
+        toks = torch.zeros((rows, 1), dtype=torch.int64)
+        toks[0, 0] = t
+        lengths[0] = len(prompt) + i
         lg, cache = lm.decode_step(
-            params, cfg, torch.tensor([[t]], device=dev), cache,
-            torch.tensor([len(prompt) + i], dtype=torch.int32, device=dev),
-            block_table=bt[None], dtype=torch.float32)
+            params, cfg, toks.to(dev), cache, lengths.to(dev),
+            block_table=bts, active=active, dtype=torch.float32)
         lg = lg[0]
     return lg.float().cpu()
+
+
+def hold_streams(what, streams, prompts, logits_fns, n_new):
+    """Two computations' served streams (``streams = (a, b)``, rid ->
+    tokens) must be equal up to where a pair parts, and each parting must
+    be a near-tie: fed the shared history, the two computations' logits
+    (``logits_fns = (fa, fb)``, each ``(prompt, history) -> logits``)
+    agree to ``LOGIT_REL_TOL`` of their range, and each one's margin of
+    its own token over the other's is at most twice their largest logit
+    difference.  Returns the free-running agreement."""
+    a_out, b_out = streams
+    fa, fb = logits_fns
+    check(sorted(a_out) == sorted(b_out) == list(range(len(prompts))),
+          f"{what}: a request was not served")
+    total = sum(len(o) for o in b_out.values())
+    free = sum(x == y for rid, o in b_out.items()
+               for x, y in zip(o, a_out[rid]))
+    parted = 0
+    for rid in sorted(b_out):
+        a, b = a_out[rid], b_out[rid]
+        check(len(a) == len(b) == n_new, f"{what}: request {rid} length")
+        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is None:
+            continue
+        parted += 1
+        la, lb = fa(prompts[rid], b[:i]), fb(prompts[rid], b[:i])
+        err = (la - lb).abs().max().item()
+        span = (lb.max() - lb.min()).item()
+        m_a = (la[a[i]] - la[b[i]]).item()
+        m_b = (lb[b[i]] - lb[a[i]]).item()
+        print(f"{what}: request {rid} parts at token {i}: {a[i]} vs {b[i]};"
+              f" logits max err {err:.3e} = {err / span:.3e} of their range "
+              f"(<= {LOGIT_REL_TOL}); margins {m_a:.3e}, {m_b:.3e} "
+              f"(<= 2 x err)")
+        check(err <= LOGIT_REL_TOL * span,
+              f"{what}: request {rid} logits err {err}")
+        check(max(m_a, m_b) <= 2 * err,
+              f"{what}: request {rid} parts at token {i} with margins "
+              f"{m_a}, {m_b} beyond twice the logit difference {err}")
+    print(f"{what}: free-running greedy agreement {free}/{total} = "
+          f"{free / total:.3f}; {parted} of {len(b_out)} stream pairs part, "
+          "each at a near-tie")
+    return free / total
+
+
+def repetitive_prompts(rng, n, vocab, lo, hi):
+    """Prompts that repeat a short run of tokens (2 to 8 long) after a
+    distinct first token, so the n-gram proposer finds matches and no two
+    prompts share a prefix page."""
+    out = []
+    for first, length in zip(rng.permutation(vocab - 1)[:n] + 1,
+                              np.linspace(lo, hi, n).astype(int)):
+        run = rng.integers(1, vocab, int(rng.integers(2, 9))).tolist()
+        out.append([int(first)] + (run * length)[:length - 1])
+    return out
+
+
+def spec_serving_phase(dev, qparams, cfg):
+    """Phase 6: full-width speculative serving, chain + n-gram and tree +
+    draft model, each held against plain decode of the same prompts on
+    the card.  Returns each run's launch counts."""
+    phase("speculative serving (full-width gpt2-345m, W8A8, paged)")
+    rng = np.random.default_rng(3)
+    n_req, max_new, (lo, hi) = SPEC_REQUESTS, SPEC_NEW, SPEC_PROMPT_LENS
+    fp = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                 max_seq=MAX_SEQ, device=dev)
+    draft = serve.noisy_copy(fp, 11, DRAFT_SIGMA)
+    del fp
+    runs = {
+        "chain": (SpecConfig(k=CHAIN_K),
+                  repetitive_prompts(rng, n_req, cfg.vocab_size, lo, hi)),
+        "tree": (SpecConfig(k=TREE_K, proposer="model", draft_cfg=cfg,
+                            draft_params=draft, tree=True,
+                            branch=TREE_BRANCH),
+                 [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+                  for n in np.linspace(lo, hi, n_req)]),
+    }
+    L = cfg.n_layers
+    out = {}
+    for name, (spec, prompts) in runs.items():
+        streams = []
+        for sp in (spec, None):
+            # the W8A8 weights of phase 5, run as a W8A8 engine runs them
+            eng = ServeEngine(cfg, qparams, batch_slots=SLOTS,
+                              max_seq=MAX_SEQ, eos_id=-1,
+                              act_dtype=torch.float32, chunk_size=CHUNK,
+                              page_size=PAGE, seed=0, spec=sp, device=dev)
+            for p in prompts:
+                eng.submit(p, max_new=max_new)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            done = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            s = eng.stats()
+            toks = sum(len(r.out) for r in done)
+            check(len(done) == n_req
+                  and all(len(r.out) == max_new for r in done),
+                  f"spec {name}: not every request produced its tokens")
+            streams.append({r.rid: r.out for r in done})
+            label = f"{name} spec" if sp is not None else f"{name} plain"
+            print(f"{label}: {n_req} requests ({sum(map(len, prompts))} "
+                  f"prompt tokens, {toks} new) in {wall:.3f} s: "
+                  f"{toks / wall:.1f} tok/s; TTFT p50 "
+                  f"{s['p50_ttft_s'] * 1e3:.1f} ms p99 "
+                  f"{s['p99_ttft_s'] * 1e3:.1f} ms; TPOT p50 "
+                  f"{s['p50_tpot_s'] * 1e3:.2f} ms p99 "
+                  f"{s['p99_tpot_s'] * 1e3:.2f} ms; tokens per model call "
+                  f"{s['tokens_per_model_call']:.3f}")
+            print(f"{label} launches: {json.dumps(launches)}")
+            if sp is None:
+                continue
+            print(f"{label}: acceptance {s['acceptance_rate']:.3f} "
+                  f"({s['spec_accepted']}/{s['spec_proposed']}), "
+                  f"{s['spec_ticks']} verify calls, tokens per verify "
+                  f"{s['tokens_per_verify_call']:.3f}, draft calls "
+                  f"{s['draft_calls']}, tick p50 {s['tick_p50_ms']:.2f} ms")
+            print(f"{label} stats:", json.dumps(s, sort_keys=True))
+            need = ["mp_matmul", "paged_verify"]
+            if spec.tree:
+                need += ["paged_verify_tree", "mha_decode"]
+            for k in need:
+                check(launches[k] > 0, f"spec {name}: kernel {k} was never "
+                      "launched")
+            verifies = 0 if spec.tree else s["spec_ticks"]
+            decodes = s["model_calls"] - s["prefill_calls"] - s["spec_ticks"]
+            check(launches["mp_matmul"] == 6 * L * s["model_calls"]
+                  and launches["paged_verify"]
+                  == L * (s["prefill_calls"] + verifies)
+                  and launches["paged_verify_tree"]
+                  == (L * s["spec_ticks"] if spec.tree else 0)
+                  and launches["paged_mha_decode"] == L * decodes,
+                  f"spec {name}: launch counts {launches} do not match "
+                  "the calls")
+            out[name] = launches
+        shape = dict(max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK, rows=SLOTS)
+        fa = (lambda p, h: logits_after(qparams, cfg, p, h, dev,
+                                        verify=spec.k + 1, **shape))
+        fb = (lambda p, h: logits_after(qparams, cfg, p, h, dev, **shape))
+        hold_streams(f"{name} spec vs plain on the card", streams, prompts,
+                     (fa, fb), max_new)
+    del draft
+    return out
 
 
 def agreement_phase(dev):
@@ -482,7 +890,8 @@ def agreement_phase(dev):
     that the two devices' roundings break differently (the plain attention
     rounds probabilities to bf16, the kernels keep them in float32).  So
     the served streams must be equal up to where they part, and each
-    parting must be such a near-tie."""
+    parting must be such a near-tie.  Plain decode, chain speculation and
+    tree speculation with a draft model."""
     phase("reduced-config agreement (card vs CPU, same W8A8 weights)")
     cfg = get_config("gpt2-345m").reduced()
     rng = np.random.default_rng(2)
@@ -491,54 +900,43 @@ def agreement_phase(dev):
     calib = [rng.integers(1, cfg.vocab_size, (2, 32))]
     qparams = quantize_model_params(params, cfg, calibrate(params, cfg,
                                                            calib))
+    draft = serve.noisy_copy(params, 11, DRAFT_SIGMA)
     shared = rng.integers(1, cfg.vocab_size, 40).tolist()
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
                for n in (3, 17, 33, 60, 9, 25)]
     prompts += [shared + [5, 6], shared + [7]]
     cpu_dev = torch.device("cpu")
-    outs = []  # [card, CPU]
-    for d in (dev, cpu_dev):
-        eng = ServeEngine(cfg, qparams, batch_slots=4,
-                          max_seq=AGREE_MAX_SEQ, eos_id=-1,
-                          act_dtype=torch.float32, chunk_size=AGREE_CHUNK,
-                          page_size=AGREE_PAGE, device=d)
-        for p in prompts:
-            eng.submit(p, max_new=16)
-        outs.append({r.rid: r.out for r in eng.run()})
-    card, cpu = outs
-    check(sorted(card) == sorted(cpu) == list(range(len(prompts))),
-          "agreement: a request was not served")
-    total = sum(len(o) for o in cpu.values())
-    free = sum(a == b for rid, o in cpu.items()
-               for a, b in zip(o, card[rid]))
-    print(f"free-running greedy agreement card vs CPU: {free}/{total} = "
-          f"{free / total:.3f}")
     qdev = to_device(qparams, dev)
-    parted = 0
-    for rid in sorted(cpu):
-        a, b = card[rid], cpu[rid]
-        check(len(a) == len(b) == 16, f"agreement: request {rid} length")
-        i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
-        if i is None:
-            continue
-        parted += 1
-        lg_card = logits_after(qdev, cfg, prompts[rid], b[:i], dev)
-        lg_cpu = logits_after(qparams, cfg, prompts[rid], b[:i], cpu_dev)
-        err = (lg_card - lg_cpu).abs().max().item()
-        span = (lg_cpu.max() - lg_cpu.min()).item()
-        m_card = (lg_card[a[i]] - lg_card[b[i]]).item()
-        m_cpu = (lg_cpu[b[i]] - lg_cpu[a[i]]).item()
-        print(f"request {rid} parts at token {i}: card {a[i]}, CPU {b[i]}; "
-              f"logits card vs CPU max err {err:.3e} = {err / span:.3e} of "
-              f"their range (<= {LOGIT_REL_TOL}); margins card {m_card:.3e}"
-              f", CPU {m_cpu:.3e} (<= 2 x err)")
-        check(err <= LOGIT_REL_TOL * span,
-              f"agreement: request {rid} logits card vs CPU err {err}")
-        check(max(m_card, m_cpu) <= 2 * err,
-              f"agreement: request {rid} parts at token {i} with margins "
-              f"{m_card}, {m_cpu} beyond twice the logit difference {err}")
-    print(f"{parted} of {len(cpu)} stream pairs part, each at a near-tie")
-    return free / total
+    fns = (lambda p, h: logits_after(qdev, cfg, p, h, dev),
+           lambda p, h: logits_after(qparams, cfg, p, h, cpu_dev))
+    variants = {
+        "plain": None,
+        "chain": SpecConfig(k=CHAIN_K),
+        "tree": SpecConfig(k=5, proposer="model", draft_cfg=cfg,
+                           draft_params=draft, tree=True,
+                           branch=TREE_BRANCH),
+    }
+    agree = {}
+    for name, spec in variants.items():
+        outs = []  # [card, CPU]
+        for d in (dev, cpu_dev):
+            eng = ServeEngine(cfg, qparams, batch_slots=4,
+                              max_seq=AGREE_MAX_SEQ, eos_id=-1,
+                              act_dtype=torch.float32,
+                              chunk_size=AGREE_CHUNK, page_size=AGREE_PAGE,
+                              spec=spec, device=d)
+            for p in prompts:
+                eng.submit(p, max_new=16)
+            outs.append({r.rid: r.out for r in eng.run()})
+            if spec is not None:
+                s = eng.stats()
+                print(f"reduced {name} on {d.type}: acceptance "
+                      f"{s['acceptance_rate']:.3f} "
+                      f"({s['spec_accepted']}/{s['spec_proposed']}), "
+                      f"{s['spec_ticks']} verify calls")
+        agree[name] = hold_streams(f"reduced {name} card vs CPU", outs,
+                                   prompts, fns, 16)
+    return agree
 
 
 def main() -> int:
@@ -552,13 +950,22 @@ def main() -> int:
     timer = Timer(dev)
     entries = kernel_phase(dev, timer)
     del timer
-    launches = serving_phase(dev)
+    launches, qparams, cfg = serving_phase(dev)
+    spec_launches = spec_serving_phase(dev, qparams, cfg)
+    del qparams
     agreement_phase(dev)
     phase("kernels")
     kernels = []
     for name, e in entries.items():
         e = dict(e)
-        e["launches"] = launches[name]
+        # each kernel's count from the run of its own path: plain serving
+        # for the first slice's three, the tree run for the two it added
+        own = spec_launches["tree"] if name in (
+            "paged_verify_tree", "mha_decode") else launches
+        e["launches"] = own[name]
+        e["launches_by_run"] = {
+            "plain": launches[name],
+            **{f"{run} spec": n[name] for run, n in spec_launches.items()}}
         kernels.append(e)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,10 @@ The JAX ``lm.init`` pytree stacks layers per pattern period:
 "rest": [layer dicts...], "final_ln", "pos_embed"[, "lm_head"]}``.  This
 package keeps one dict per layer (``{"layers": [...]}``), so layer
 ``pi * period + i`` is slice ``pi`` of ``periods[i]`` and the ``rest``
-layers follow.  The same holds for the paged cache pytree, whose leaves
-are page pools ``(P, Hkv, ps, D)`` (with the leading ``n_pg`` axis under
-``periods``).  Leaves may be fp (``w``/``b``) or quantized
+layers follow.  The same holds for the cache pytrees of both layouts,
+whose leaves are page pools ``(P, Hkv, ps, D)`` (paged) or per-slot
+caches ``(B, Hkv, S, D)`` (stacked), with a leading ``n_per`` axis under
+``periods``.  Leaves may be fp (``w``/``b``) or quantized
 (``w_q``/``w_scale``/``smooth``/``bias``) alike.
 
 A caller turns a JAX pytree into numpy first (``jax.device_get``).  bf16
@@ -71,17 +72,18 @@ def params_from_numpy(tree: Dict, device=None) -> Dict:
 
 
 def cache_from_numpy(tree: Dict, device=None) -> Dict:
-    """This package's paged cache from a JAX paged cache pytree given as
-    numpy arrays."""
+    """This package's cache from a JAX cache pytree (paged or stacked)
+    given as numpy arrays."""
     return {"layers": [_map(layer, lambda a: to_tensor(a, device))
                        for layer in _unstack(tree["periods"],
                                              tree["rest"])]}
 
 
 def cache_to_numpy(cache: Dict, n_per: int, period: int = 1) -> Dict:
-    """The JAX paged cache pytree layout (``periods`` stacked over the
-    first ``n_per * period`` layers, ``rest`` for the others) from this
-    package's cache, bf16 leaves as float32 numpy arrays."""
+    """The JAX cache pytree layout (``periods`` stacked over the first
+    ``n_per * period`` layers, ``rest`` for the others) from this
+    package's paged or stacked cache, bf16 leaves as float32 numpy
+    arrays."""
     def host(t: torch.Tensor) -> np.ndarray:
         return t.detach().float().cpu().numpy()
 

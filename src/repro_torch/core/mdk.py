@@ -4,8 +4,12 @@ LoopLynx instantiates a small set of large fused kernels (Fused MP, Fused
 MHA, Fused LN&Res, plus small functional units) and reuses them across
 every stage of every block (Fig 3c).  :class:`MDKStats` counts, per
 token, how many stages each kernel instance serves; ``MDK_REGISTRY`` maps
-a kernel kind to the kernel wrapper that executes it.  It lists only the
-kernels this package has: the fused LN&Res kernel is not ported yet.
+a kernel kind to the kernel wrapper that executes it, as the JAX
+package's does: ``"mp"`` to the Fused MP kernel, ``"mha"`` to the Fused
+MHA kernel on the contiguous cache (``ops.mha_decode``; the paged decode
+kernel is its block-table sibling, ``ops.paged_mha_decode``).  It lists
+only the kernels this package has: the fused LN&Res kernel is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -40,5 +44,5 @@ class MDKStats:
 #: kernel kind -> the wrapper that executes it
 MDK_REGISTRY: Dict[str, Callable] = {
     "mp": ops.quant_matmul,
-    "mha": ops.paged_mha_decode,
+    "mha": ops.mha_decode,
 }

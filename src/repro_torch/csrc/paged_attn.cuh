@@ -1,28 +1,44 @@
-// Attention of C query positions per row over a block-table-addressed page
-// pool: the body shared by paged_mha.cu (decode, C = 1) and
-// paged_verify.cu (chunked prefill / verify, C = chunk).
+// Attention of C query positions per row over a cache of keys addressed by
+// position: the body shared by paged_mha.cu (decode, C = 1), paged_verify.cu
+// (chunked prefill / verify, C = chunk, causal or tree-masked) and
+// mha_decode.cu (decode over a contiguous cache).
 //
 // Query c of row b sits at logical position qpos = base[b] + base_shift + c
 // and attends every cached position p with p <= qpos (and, with a window,
 // p > qpos - window).  Decode passes the new cache length with
-// base_shift = -1, which is exactly the decode mask p < length.  Positions
-// live in page bt[b, p / ps] at offset p % ps of the pool (P, Hkv, ps, D),
-// bf16.  Queries and outputs are (B, C, H, D) in float32 or bf16; all
-// arithmetic is float32 with an online softmax over key tiles.  A row left
-// with no valid key returns zeros (the zero-denominator clamp), never NaN.
+// base_shift = -1, which is exactly the decode mask p < length.  With a tree
+// mask (`anc`, (B, C, C) int32) query c instead attends every p below the
+// row's chunk base plus the in-chunk positions p = base + j whose bit
+// anc[b, c, j] is set, in any order.
+//
+// Two key layouts, chosen at compile time:
+//   * paged (CONTIG = false): position p lives in page bt[b, p / ps] at
+//     offset p % ps of the pool (P, Hkv, ps, D);
+//   * contiguous (CONTIG = true): position p of row b is (b, hk, p) of a
+//     (B, Hkv, S, D) cache, run with ps = 1 and n_pg = S, so the tile walk
+//     below is the same with one-position "pages" and no table.
+// Queries and outputs are (B, C, H, D) in float32 or bf16, keys and values
+// bf16 (or float32 in the contiguous layout); all arithmetic is float32 with
+// an online softmax over key tiles.  A row left with no valid key returns
+// zeros (the zero-denominator clamp), never NaN.
 //
 // Design: one block per (row b, KV head, slice of cq query positions); it
-// serves all `group` query heads of its KV head, so each page it needs is
+// serves all `group` query heads of its KV head, so each key it needs is
 // read once for all of them.  The block reads its row's base and block
-// table itself (the TPU kernel had them as scalar prefetch) and walks only
+// table itself (the TPU kernels had them as scalar prefetch) and walks only
 // the pages between the window's first key and its last query,
 //   pages [lo / ps, ceil(min(qpos_max + 1, n_pg * ps) / ps)),
-// so it never reads a block-table entry at or past n_pg: a parked verify
-// row (base >= n_pg * ps) walks the whole table and its output is never
-// read.  Each step stages kt_pages pages of K and V in shared memory as
-// float, computes the score tile, updates the per-query-row running max and
-// sum (one warp per row), and rescales the float32 accumulators, which
-// live in registers (at most MAX_ACC per thread).
+// (with a tree mask, up to the chunk's last position base + C - 1), so it
+// never reads a block-table entry at or past n_pg: a parked verify row
+// (base >= n_pg * ps) walks the whole table and its output is never read.
+// Each step stages kt_pages pages of K and V in shared memory as float,
+// computes the score tile, updates the per-query-row running max and sum
+// (one warp per row), and rescales the float32 accumulators, which live in
+// registers (at most MAX_ACC per thread).  A tile whose keys are all masked
+// leaves every accumulator, maximum and sum exactly as it was (its scores
+// are -inf, so its probabilities are exactly 0 and its rescale factor 1):
+// a lower-triangular `anc` walks more tiles than the causal mask and gives
+// bit-identical output.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -39,18 +55,29 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+// four consecutive cache elements (8-byte aligned bf16, 16-byte float)
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 __device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename QT>
+template <typename QT, typename KVT, bool CONTIG>
 __global__ void __launch_bounds__(ATTN_THREADS)
-paged_attn_kernel(const QT* __restrict__ q,                 // (B, C, H, D)
-                  const __nv_bfloat16* __restrict__ kpool,  // (P, Hkv, ps, D)
-                  const __nv_bfloat16* __restrict__ vpool,
+paged_attn_kernel(const QT* __restrict__ q,      // (B, C, H, D)
+                  const KVT* __restrict__ kpool,  // (P, Hkv, ps, D) or
+                  const KVT* __restrict__ vpool,  // (B, Hkv, S, D)
                   const int* __restrict__ base,  // (B,)
-                  const int* __restrict__ bt,    // (B, n_pg)
+                  const int* __restrict__ bt,    // (B, n_pg); unused CONTIG
+                  const int* __restrict__ anc,   // (B, C, C) or nullptr
                   QT* __restrict__ out,          // (B, C, H, D)
                   int C, int H, int Hkv, int ps, int D, int n_pg,
                   int base_shift, int window, int cq, int kt_pages,
@@ -74,10 +101,12 @@ paged_attn_kernel(const QT* __restrict__ q,                 // (B, C, H, D)
   float* sl = sm + cq * group;        // [R] running sum
   float* sa = sl + cq * group;        // [R] this tile's rescale factor
 
-  const int q0 = base[b] + base_shift + c0;  // position of the first query
-  const int q1 = q0 + nc - 1;                // position of the last query
+  const int row0 = base[b] + base_shift;  // position of query 0 of the row
+  const int q0 = row0 + c0;               // position of the block's first query
+  const int q1 = q0 + nc - 1;             // position of its last query
   const int S = n_pg * ps;
-  const int key_hi = min(q1 + 1, S);
+  // the tree mask may admit any in-chunk key, whatever the query's order
+  const int key_hi = min((anc != nullptr ? row0 + C - 1 : q1) + 1, S);
   const int key_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int pg_lo = key_lo / ps;
   const int pg_hi = key_hi > key_lo ? (key_hi + ps - 1) / ps : pg_lo;
@@ -96,27 +125,27 @@ paged_attn_kernel(const QT* __restrict__ q,                 // (B, C, H, D)
   for (int i = 0; i < MAX_ACC; ++i) acc[i] = 0.0f;
   __syncthreads();
 
-  const int* row_bt = bt + (size_t)b * n_pg;
+  const int* row_bt = CONTIG ? nullptr : bt + (size_t)b * n_pg;
   for (int p0 = pg_lo; p0 < pg_hi; p0 += kt_pages) {
     const int np = min(kt_pages, pg_hi - p0);
     const int nk = np * ps;
     const int kpos0 = p0 * ps;
-    // stage K and V: 4 bf16 (8 bytes) per load, contiguous within a page
+    // stage K and V: 4 elements per load, contiguous within a page
     for (int i = tid; i < nk * D / 4; i += ATTN_THREADS) {
       const int e = 4 * i;
       const int j = e / D, d = e % D;
-      const int page = row_bt[p0 + j / ps];
-      const size_t src = (((size_t)page * Hkv + hk) * ps + j % ps) * D + d;
-      const uint2 kw = *reinterpret_cast<const uint2*>(kpool + src);
-      const uint2 vw = *reinterpret_cast<const uint2*>(vpool + src);
-      const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&kw);
-      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&vw);
-      const float2 ka = __bfloat1622float2(k2[0]), kb = __bfloat1622float2(k2[1]);
-      const float2 va = __bfloat1622float2(v2[0]), vb = __bfloat1622float2(v2[1]);
+      size_t src;
+      if (CONTIG) {
+        src = (((size_t)b * Hkv + hk) * S + kpos0 + j) * D + d;
+      } else {
+        const int page = row_bt[p0 + j / ps];
+        src = (((size_t)page * Hkv + hk) * ps + j % ps) * D + d;
+      }
+      const float4 kf = load4(kpool + src), vf = load4(vpool + src);
       float* kd = sk + j * Dp + d;
-      kd[0] = ka.x; kd[1] = ka.y; kd[2] = kb.x; kd[3] = kb.y;
+      kd[0] = kf.x; kd[1] = kf.y; kd[2] = kf.z; kd[3] = kf.w;
       float* vd = sv + j * D + d;
-      vd[0] = va.x; vd[1] = va.y; vd[2] = vb.x; vd[3] = vb.y;
+      vd[0] = vf.x; vd[1] = vf.y; vd[2] = vf.z; vd[3] = vf.w;
     }
     __syncthreads();
     // scores; masked keys get -inf so exp() makes them exactly 0
@@ -124,8 +153,16 @@ paged_attn_kernel(const QT* __restrict__ q,                 // (B, C, H, D)
       const int r = i / nk, j = i % nk;
       const int pos = kpos0 + j;
       const int qpos = q0 + r / group;
-      bool valid = pos <= qpos && pos < key_hi;
-      if (window > 0) valid = valid && pos > qpos - window;
+      bool valid;
+      if (anc != nullptr) {  // the row's prefix, then the query's root path
+        const int rel = pos - row0;
+        valid = rel < 0 ||
+                (rel < C && __ldg(anc + ((size_t)b * C + c0 + r / group) * C +
+                                  rel) != 0);
+      } else {
+        valid = pos <= qpos && pos < key_hi;
+        if (window > 0) valid = valid && pos > qpos - window;
+      }
       float s = -INFINITY;
       if (valid) {
         const float* qr = sq + r * D;
@@ -200,23 +237,25 @@ inline size_t paged_attn_smem(int group, int D, int ps, int cq,
          (R * D + KT * (D + 1) + KT * D + R * KT + 3 * R);
 }
 
-template <typename QT>
+// Launch on `stream`; returns cudaGetLastError().  CONTIG takes ps = 1,
+// n_pg = S and bt = nullptr; anc = nullptr is the causal/window mask.
+template <typename QT, typename KVT, bool CONTIG>
 int launch_paged_attn(const void* q, const void* kpool, const void* vpool,
-                      const void* base, const void* bt, void* out, int B,
-                      int C, int H, int Hkv, int ps, int D, int n_pg,
-                      int base_shift, int window, int cq, int kt_pages,
-                      void* stream) {
+                      const void* base, const void* bt, const void* anc,
+                      void* out, int B, int C, int H, int Hkv, int ps, int D,
+                      int n_pg, int base_shift, int window, int cq,
+                      int kt_pages, void* stream) {
   const size_t smem = paged_attn_smem(H / Hkv, D, ps, cq, kt_pages);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_attn_kernel<QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      paged_attn_kernel<QT, KVT, CONTIG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(B, Hkv, (C + cq - 1) / cq);
-  paged_attn_kernel<QT><<<grid, ATTN_THREADS, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const QT*>(q), static_cast<const __nv_bfloat16*>(kpool),
-      static_cast<const __nv_bfloat16*>(vpool),
-      static_cast<const int*>(base), static_cast<const int*>(bt),
+  paged_attn_kernel<QT, KVT, CONTIG><<<grid, ATTN_THREADS, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const QT*>(q), static_cast<const KVT*>(kpool),
+      static_cast<const KVT*>(vpool), static_cast<const int*>(base),
+      static_cast<const int*>(bt), static_cast<const int*>(anc),
       static_cast<QT*>(out), C, H, Hkv, ps, D, n_pg, base_shift, window, cq,
       kt_pages, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();

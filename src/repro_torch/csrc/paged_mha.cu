@@ -32,10 +32,12 @@ extern "C" int paged_mha_decode(const void* q, const void* k_pages,
                                 int D, int n_pg, int window, int kt_pages,
                                 void* stream) {
   if (q_bf16)
-    return launch_paged_attn<__nv_bfloat16>(
-        q, k_pages, v_pages, lengths, block_table, out, B, 1, H, Hkv, ps, D,
-        n_pg, /*base_shift=*/-1, window, /*cq=*/1, kt_pages, stream);
-  return launch_paged_attn<float>(
-      q, k_pages, v_pages, lengths, block_table, out, B, 1, H, Hkv, ps, D,
-      n_pg, /*base_shift=*/-1, window, /*cq=*/1, kt_pages, stream);
+    return launch_paged_attn<__nv_bfloat16, __nv_bfloat16, false>(
+        q, k_pages, v_pages, lengths, block_table, /*anc=*/nullptr, out, B,
+        1, H, Hkv, ps, D, n_pg, /*base_shift=*/-1, window, /*cq=*/1,
+        kt_pages, stream);
+  return launch_paged_attn<float, __nv_bfloat16, false>(
+      q, k_pages, v_pages, lengths, block_table, /*anc=*/nullptr, out, B, 1,
+      H, Hkv, ps, D, n_pg, /*base_shift=*/-1, window, /*cq=*/1, kt_pages,
+      stream);
 }

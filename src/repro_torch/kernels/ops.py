@@ -11,8 +11,10 @@ PyTorch's current stream, raises if the launch reports an error, and
 adds one to its launch counter (``<wrapper>.launches``) per call that
 launches its kernel: for ``quant_matmul`` that call launches two CUDA
 functions, ``mp_matmul_kernel`` (the int32 GEMM) and
-``mp_splitk_epilogue``, and counts once.  Unlike the TPU wrappers these
-pad nothing: the kernels mask their own ragged edges.
+``mp_splitk_epilogue``, and counts once; ``paged_verify`` counts its
+causal and its tree-masked launches apart (``launches``,
+``tree_launches``).  Unlike the TPU wrappers these pad nothing: the
+kernels mask their own ragged edges.
 """
 from __future__ import annotations
 
@@ -79,16 +81,20 @@ def _contig(name: str, **tensors: torch.Tensor) -> None:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Calls that launched each wrapper's kernel since the last reset."""
+    """Calls that launched each kernel since the last reset."""
     return {"mp_matmul": quant_matmul.launches,
             "paged_mha_decode": paged_mha_decode.launches,
-            "paged_verify": paged_verify.launches}
+            "paged_verify": paged_verify.launches,
+            "paged_verify_tree": paged_verify.tree_launches,
+            "mha_decode": mha_decode.launches}
 
 
 def reset_launch_counts() -> None:
     quant_matmul.launches = 0
     paged_mha_decode.launches = 0
     paged_verify.launches = 0
+    paged_verify.tree_launches = 0
+    mha_decode.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -140,20 +146,20 @@ def quant_matmul(x_q, w_q, x_scale, w_scale, bias=None, *,
     return y
 
 
-def _check_paged(name, q, k_pages, v_pages, rows, block_table):
-    """Shared checks of the paged-attention wrappers; returns
-    (Hkv, ps, D, n_pg)."""
+def _check_attn(name, q, k, v, rows, kv_dtypes):
+    """Checks shared by the attention wrappers: q (B, ..., H, D) against
+    a K/V tensor (N, Hkv, S, D) whose dtype is one of ``kv_dtypes``, and
+    ``rows`` (B,) int32; returns (Hkv, D)."""
     _require(q.dtype in (torch.float32, torch.bfloat16),
              f"{name}: q must be float32 or bfloat16, got {q.dtype}")
-    _require(k_pages.dim() == 4 and k_pages.shape == v_pages.shape,
-             f"{name}: k/v pages must both be (P, Hkv, ps, D)")
-    _require(k_pages.dtype == torch.bfloat16
-             and v_pages.dtype == torch.bfloat16,
-             f"{name}: k/v pages must be bfloat16")
-    _, Hkv, ps, D = k_pages.shape
+    _require(k.dim() == 4 and k.shape == v.shape,
+             f"{name}: k/v must both be 4-d and of one shape")
+    _require(k.dtype in kv_dtypes and v.dtype == k.dtype,
+             f"{name}: k/v must be one of {kv_dtypes}")
+    Hkv, D = k.shape[1], k.shape[3]
     H = q.shape[-2]
     _require(q.shape[-1] == D and H % Hkv == 0,
-             f"{name}: q {tuple(q.shape)} vs pages {tuple(k_pages.shape)}")
+             f"{name}: q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
     _require(D % 4 == 0, f"{name}: head_dim {D} must be a multiple of 4")
     _require((H // Hkv) * D <= _ATTN_ACC_ELEMS,
              f"{name}: group*head_dim {(H // Hkv) * D} exceeds "
@@ -161,14 +167,24 @@ def _check_paged(name, q, k_pages, v_pages, rows, block_table):
     B = q.shape[0]
     _require(rows.dtype == torch.int32 and tuple(rows.shape) == (B,),
              f"{name}: lengths/base must be int32 ({B},)")
+    _contig(name, q=q, k=k, v=v, rows=rows)
+    # the kernels load four cache elements at a time
+    align = 4 * k.element_size()
+    _require(k.data_ptr() % align == 0 and v.data_ptr() % align == 0,
+             f"{name}: k/v must be {align}-byte aligned")
+    return Hkv, D
+
+
+def _check_paged(name, q, k_pages, v_pages, rows, block_table):
+    """Shared checks of the paged-attention wrappers; returns
+    (Hkv, ps, D, n_pg)."""
+    Hkv, D = _check_attn(name, q, k_pages, v_pages, rows, (torch.bfloat16,))
+    B = q.shape[0]
     _require(block_table.dtype == torch.int32 and block_table.dim() == 2
              and block_table.shape[0] == B,
              f"{name}: block_table must be int32 ({B}, n_pg)")
-    _contig(name, q=q, k_pages=k_pages, v_pages=v_pages, rows=rows,
-            block_table=block_table)
-    _require(k_pages.data_ptr() % 8 == 0 and v_pages.data_ptr() % 8 == 0,
-             f"{name}: page pools must be 8-byte aligned")
-    return Hkv, ps, D, block_table.shape[1]
+    _contig(name, block_table=block_table)
+    return Hkv, k_pages.shape[2], D, block_table.shape[1]
 
 
 def _attn_geometry(group: int, D: int, ps: int, C: int):
@@ -178,6 +194,41 @@ def _attn_geometry(group: int, D: int, ps: int, C: int):
     R, KT = cq * group, kt_pages * ps
     smem = 4 * (R * D + KT * (D + 1) + KT * D + R * KT + 3 * R)
     return cq, kt_pages, smem
+
+
+def mha_decode(q, k_cache, v_cache, lengths, *,
+               window: int = 0) -> torch.Tensor:
+    """One-token attention over a contiguous KV cache.
+
+    ``q`` (B, H, D) f32/bf16, ``k_cache``/``v_cache`` (B, Hkv, S, D) bf16
+    or float32, ``lengths`` (B,) int32 valid entries per row (the new
+    token included).  Returns (B, H, D) in q's dtype.  The kernel returns
+    zeros for a row with no valid key; the plain version, like the JAX
+    oracle, returns NaN there."""
+    name = "mha_decode"
+    if not _route(name, q, k_cache, v_cache, lengths):
+        return ref.mha_decode_ref(q, k_cache, v_cache, lengths,
+                                  window=window)
+    _require(q.dim() == 3 and k_cache.dim() == 4
+             and k_cache.shape[0] == q.shape[0],
+             f"{name}: q must be (B, H, D) and k/v (B, Hkv, S, D)")
+    Hkv, D = _check_attn(name, q, k_cache, v_cache, lengths,
+                         (torch.bfloat16, torch.float32))
+    B, H, _ = q.shape
+    S = k_cache.shape[2]
+    _require(S > 0, f"{name}: empty cache")
+    # one-position "pages": the body's tile walk over a contiguous row
+    _, kt, smem = _attn_geometry(H // Hkv, D, 1, 1)
+    _require(smem <= _SMEM_LIMIT, f"{name}: needs {smem} B shared memory")
+    out = torch.empty_like(q)
+    err = build.library().mha_decode(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
+        int(k_cache.dtype == torch.bfloat16), B, H, Hkv, S, D, int(window),
+        kt, _stream(q))
+    _check_launch(name, err)
+    mha_decode.launches += 1
+    return out
 
 
 def paged_mha_decode(q, k_pages, v_pages, lengths, block_table, *,
@@ -215,19 +266,16 @@ def paged_verify(q, k_pages, v_pages, base, block_table, *,
 
     ``q`` (B, C, H, D): query ``j`` of row ``b`` sits at ``base[b] + j``
     and attends every cached position at or below it, the chunk's own K/V
-    included.  ``anc`` (B, C, C) replaces the in-chunk causal mask with a
-    token tree's ancestor bitmask; it is exclusive with ``window`` and has
-    no CUDA kernel yet."""
+    included.  ``anc`` (B, C, C) int32 replaces the in-chunk causal mask
+    with a token tree's ancestor bitmask (query ``j`` attends ``base[b] +
+    i`` where ``anc[b, j, i]`` is set, and everything below ``base[b]``);
+    it is exclusive with ``window`` and launches the tree kernel."""
     name = "paged_verify"
     if anc is not None and window:
         raise ValueError("window and anc are mutually exclusive")
-    if not _route(name, q, k_pages, v_pages, base, block_table):
+    if not _route(name, q, k_pages, v_pages, base, block_table, anc):
         return ref.paged_verify_ref(q, k_pages, v_pages, base, block_table,
                                     window=window, anc=anc)
-    if anc is not None:
-        raise NotImplementedError(
-            "paged_verify(anc=...) has no CUDA kernel yet: the tree-masked "
-            "verify body is ROADMAP B5")
     _require(q.dim() == 4, f"{name}: q must be (B, C, H, D)")
     Hkv, ps, D, n_pg = _check_paged(name, q, k_pages, v_pages, base,
                                     block_table)
@@ -235,16 +283,27 @@ def paged_verify(q, k_pages, v_pages, base, block_table, *,
     cq, kt_pages, smem = _attn_geometry(H // Hkv, D, ps, C)
     _require(smem <= _SMEM_LIMIT, f"{name}: needs {smem} B shared memory")
     out = torch.empty_like(q)
-    err = build.library().paged_verify(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        base.data_ptr(), block_table.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, C, H, Hkv, ps, D, n_pg,
-        int(window), cq, kt_pages, _stream(q))
+    lib = build.library()
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            base.data_ptr(), block_table.data_ptr())
+    if anc is None:
+        err = lib.paged_verify(
+            *args, out.data_ptr(), int(q.dtype == torch.bfloat16), B, C, H,
+            Hkv, ps, D, n_pg, int(window), cq, kt_pages, _stream(q))
+        _check_launch(name, err)
+        paged_verify.launches += 1
+        return out
+    _require(anc.device == q.device and anc.dtype == torch.int32
+             and tuple(anc.shape) == (B, C, C),
+             f"{name}: anc must be int32 ({B}, {C}, {C}) on {q.device}")
+    _contig(name, anc=anc)
+    err = lib.paged_verify_tree(
+        *args, anc.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), B, C, H, Hkv, ps, D, n_pg, cq,
+        kt_pages, _stream(q))
     _check_launch(name, err)
-    paged_verify.launches += 1
+    paged_verify.tree_launches += 1
     return out
 
 
-quant_matmul.launches = 0
-paged_mha_decode.launches = 0
-paged_verify.launches = 0
+reset_launch_counts()

@@ -5,12 +5,21 @@ prefill and batched continuous decode on one NVIDIA H100.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
         --device cpu --requests 4 --max-new 6                         # CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --profile out/  # trace
+    PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram    # spec
+    PYTHONPATH=src python -m repro_torch.launch.serve --spec model \
+        --spec-k 8 --tree-branch 3                                    # tree
 
 Draws random weights from ``--seed``, calibrates SmoothQuant on synthetic
 prompts made with numpy from the same seed, serves ``--requests``
 requests of mixed prompt lengths greedily, and prints the engine's stats
 and the kernels' launch counts.  The counterpart of the JAX package's
 ``examples/serve_gpt2.py``.
+
+``--spec ngram|model`` serves with speculative decoding: k
+(``--spec-k``) draft tokens per slot from the n-gram proposer or from a
+draft model (the target's fp weights plus 0.25 of each tensor's std of
+seeded noise), verified as a chain, or as a token tree with up to
+``--tree-branch`` children per node.
 
 ``--profile DIR`` runs the serving loop under ``torch.profiler`` and
 writes its Chrome trace to ``DIR/serve_trace.json``.  It prints the
@@ -34,6 +43,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.serving.engine import ServeEngine, resolve_device
+from repro_torch.serving.speculative import SpecConfig
 
 
 def synthetic_prompts(rng: np.random.Generator, n: int, vocab: int,
@@ -56,6 +66,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
                     help="trace the serving loop with torch.profiler")
+    ap.add_argument("--spec", choices=("ngram", "model"),
+                    help="speculative decoding with this draft proposer")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens (tree nodes) per slot and tick")
+    ap.add_argument("--tree-branch", type=int, default=0,
+                    help="verify token trees of this branching (0: chains)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -66,10 +82,18 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     params = lm.init(cfg, gen, max_seq=args.max_seq, device=dev)
     rng = np.random.default_rng(args.seed)
     calib = [rng.integers(1, cfg.vocab_size, (2, min(64, args.max_seq)))]
+    spec = None
+    if args.spec:
+        draft = (noisy_copy(params, args.seed + 1)
+                 if args.spec == "model" else None)
+        spec = SpecConfig(k=args.spec_k, proposer=args.spec,
+                          draft_cfg=cfg if draft else None,
+                          draft_params=draft, tree=args.tree_branch > 0,
+                          branch=max(1, args.tree_branch))
     eng = ServeEngine(cfg, params, batch_slots=args.slots,
                       max_seq=args.max_seq, eos_id=-1, quantized=True,
                       calibration_batches=calib, chunk_size=args.chunk_size,
-                      seed=args.seed, device=dev)
+                      seed=args.seed, spec=spec, device=dev)
     hi = max(2, args.max_seq - args.max_new - 1)
     prompts = synthetic_prompts(rng, args.requests, cfg.vocab_size,
                                 min(3, hi), hi)
@@ -97,6 +121,23 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     print("kernel launches:", json.dumps(ops.launch_counts()))
     print("engine stats:", json.dumps(stats, sort_keys=True))
     return stats
+
+
+def noisy_copy(params, seed: int, sigma: float = 0.25):
+    """A draft model for ``--spec model``: every tensor of ``params`` plus
+    ``sigma`` of its own std of noise from a generator seeded ``seed``."""
+    gen = torch.Generator(device=params["embed"]["table"].device)
+    gen.manual_seed(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return t + sigma * t.std() * torch.randn(
+            t.shape, generator=gen, device=t.device, dtype=t.dtype)
+
+    return walk(params)
 
 
 def _profiler(dev: torch.device):

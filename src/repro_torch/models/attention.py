@@ -1,17 +1,23 @@
-"""Attention: the full-sequence path (calibration forward) and the paged
-serving paths.
+"""Attention: the full-sequence path (calibration forward), the paged
+serving paths and the contiguous (stacked) cache paths.
 
-Decode routes through the paged decode kernel (``ops.paged_mha_decode``)
-and chunked prefill through the paged verify kernel
-(``ops.paged_verify``); both attend in place over the page pool, with
-no gathered ``max_seq`` view.  The page pools are updated **in place**
-(``index_put_``): the functions return them only to keep the reference's
-call shape.
+Paged decode routes through the paged decode kernel
+(``ops.paged_mha_decode``), chunked prefill and speculative verify
+through the paged verify kernel (``ops.paged_verify``, causal or
+tree-masked with ``anc``); both attend in place over the page pool, with
+no gathered ``max_seq`` view.  On the contiguous ``(B, Hkv, S, hd)``
+cache (the draft model of speculative decoding) decode goes through the
+contiguous decode kernel (``ops.mha_decode``) and a chunk attends in
+plain PyTorch, as in the reference.  Caches and page pools are updated
+**in place** (``index_put_``): the functions return them only to keep
+the reference's call shape.
 
 Where the JAX reference relies on jnp's clamped gathers and dropped
 scatters, these functions mask explicitly (torch raises on out-of-range
-indices): inactive decode rows and out-of-range chunk positions resolve
-to the null page 0, whose content is never unmasked.
+indices, or would wrap a negative one): inactive decode rows and
+out-of-range chunk positions resolve to the null page 0, whose content
+is never unmasked, and contiguous-cache writes past the cache are
+dropped.
 """
 from __future__ import annotations
 
@@ -66,6 +72,85 @@ def full_attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     return linear(p["out"], out, name + ".out")
 
 
+def _write_rows(cache: torch.Tensor, new: torch.Tensor,
+                pos: torch.Tensor) -> None:
+    """cache (B, Hkv, S, hd) <- new (B, Hkv, hd) at position ``pos[b]``
+    per row, in place; a row whose position is outside the cache writes
+    nothing (the reference's dropped scatter).  Such a row rewrites its
+    slot 0 with that slot's own content, so no host sync is needed to
+    filter it."""
+    B, _, S, _ = cache.shape
+    rows = torch.arange(B, device=cache.device)
+    ok = (pos >= 0) & (pos < S)
+    idx = torch.where(ok, pos, 0)
+    cache[rows, :, idx] = torch.where(
+        ok[:, None, None], new.to(cache.dtype), cache[rows, :, idx])
+
+
+def decode_attention(
+    p: Dict,
+    x: torch.Tensor,  # (B, 1, D) current token
+    cfg: ModelConfig,
+    k_cache: torch.Tensor,  # (B, Hkv, S, hd) contiguous per-slot cache
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) i32 tokens already cached
+    *,
+    name: str = "",
+):
+    """One-token attention against the contiguous cache through the
+    contiguous decode kernel (``ops.mha_decode``).  The new token's K/V
+    are written at position ``lengths[b]`` first (a row at or past the
+    cache end writes nothing), then it attends ``lengths[b] + 1``
+    positions.  Returns ``(out (B, 1, D), k_cache, v_cache)``."""
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, cfg, x, name)
+    pos = lengths.long()
+    _write_rows(k_cache, k[:, 0], pos)
+    _write_rows(v_cache, v[:, 0], pos)
+    out = ops.mha_decode(q[:, 0].contiguous(), k_cache, v_cache,
+                         (lengths + 1).to(torch.int32))
+    out = out.reshape(B, 1, cfg.q_dim)
+    return linear(p["out"], out, name + ".out"), k_cache, v_cache
+
+
+def chunk_attention(
+    p: Dict,
+    x: torch.Tensor,  # (B, C, D) chunk of tokens
+    cfg: ModelConfig,
+    k_cache: torch.Tensor,  # (B, Hkv, S, hd) contiguous (slot-view) cache
+    v_cache: torch.Tensor,
+    positions: torch.Tensor,  # (B, C) absolute positions
+    *,
+    name: str = "",
+):
+    """Multi-token attention over the contiguous cache, in plain
+    PyTorch as in the reference: the chunk's K/V are written at their
+    positions first (positions outside the cache, such as a last prefill
+    chunk hanging past ``max_seq``, are dropped), then each query attends
+    every key at or below its position.  Returns ``(out (B, C, D),
+    k_cache, v_cache)``."""
+    B, C = x.shape[:2]
+    S = k_cache.shape[2]
+    q, k, v = _project_qkv(p, cfg, x, name)
+    pos = positions.long()
+    ok = (pos >= 0) & (pos < S)
+    b_idx = torch.arange(B, device=x.device)[:, None].expand(B, C)
+    k_cache[b_idx[ok], :, pos[ok]] = k[ok].to(k_cache.dtype)
+    v_cache[b_idx[ok], :, pos[ok]] = v[ok].to(v_cache.dtype)
+    group = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, C, cfg.n_kv_heads, group, cfg.head_dim)
+    scores = torch.einsum("bqhgd,bhkd->bhgqk", qg.float(),
+                          k_cache.float()) / (cfg.head_dim ** 0.5)
+    key_pos = torch.arange(S, device=x.device)[None, None, None, None, :]
+    mask = key_pos <= pos[:, None, None, :, None]
+    scores = torch.where(mask, scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bqhgd", probs.to(v_cache.dtype).float(),
+                       v_cache.float())
+    out = out.to(x.dtype).reshape(B, C, cfg.q_dim)
+    return linear(p["out"], out, name + ".out"), k_cache, v_cache
+
+
 def paged_decode_attention(
     p: Dict,
     x: torch.Tensor,  # (B, 1, D) current token
@@ -115,15 +200,21 @@ def paged_chunk_attention(
     positions: torch.Tensor,  # (B, C) absolute positions, contiguous per row
     block_tables: torch.Tensor,  # (B, n_pg) i32
     *,
+    anc: Optional[torch.Tensor] = None,  # (B, C, C) i32 ancestor bitmask
     name: str = "",
 ):
     """Multi-token attention in place over the paged cache (chunked
-    prefill).  The chunk's K/V are scattered into the pages the block
-    table names for each position, then the chunk queries attend through
-    the paged verify kernel with ``base = positions[:, 0]``.  Positions
-    whose block is past the table (a last chunk hanging past the cache)
-    resolve to the null page explicitly.  Returns
-    ``(out (B, C, D), k_pages, v_pages)``."""
+    prefill, speculative verify).  The chunk's K/V are scattered into the
+    pages the block table names for each position, then the chunk queries
+    attend through the paged verify kernel with ``base = positions[:,
+    0]``.  Positions whose block is past the table (a last chunk hanging
+    past the cache, a verify row parked at ``max_seq``) resolve to the
+    null page explicitly.  With ``anc`` (tree verify) query ``j`` attends
+    the row's prefix and exactly the chunk positions its bits name; the
+    K/V still land at the flat chunk positions.  (GPT-2's positions are
+    learned, so a tree node's logical position only moves its position
+    embedding, which :func:`repro_torch.models.lm.verify_chunk` adds.)
+    Returns ``(out (B, C, D), k_pages, v_pages)``."""
     B, C = x.shape[:2]
     ps, n_pg = k_pages.shape[2], block_tables.shape[1]
     q, k, v = _project_qkv(p, cfg, x, name)
@@ -137,6 +228,6 @@ def paged_chunk_attention(
     v_pages[page, :, off] = v.to(v_pages.dtype)
     out = ops.paged_verify(
         q.contiguous(), k_pages, v_pages,
-        positions[:, 0].to(torch.int32).contiguous(), block_tables)
+        positions[:, 0].to(torch.int32).contiguous(), block_tables, anc=anc)
     out = out.reshape(B, C, cfg.q_dim)
     return linear(p["out"], out, name + ".out"), k_pages, v_pages

@@ -6,9 +6,10 @@ GPT-2; the other kinds of the JAX package (``local_attn``, ``rglru``,
 
   * ``block_init``        — params for one layer
   * ``block_apply_seq``   — full-sequence path (calibration forward)
-  * ``block_apply_step``  — one-token decode against the page pool
-  * ``block_apply_chunk`` — a prefill chunk against the page pool
-  * ``block_init_cache``  — the layer's page pool
+  * ``block_apply_step``  — one-token decode against the page pool (with a
+    block table) or the contiguous cache (without)
+  * ``block_apply_chunk`` — a prefill or verify chunk, the same two ways
+  * ``block_init_cache``  — the layer's page pool or contiguous cache
 """
 from __future__ import annotations
 
@@ -54,42 +55,63 @@ def block_apply_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     return _ffn(p, x, cfg, name)
 
 
-def block_init_cache(cfg: ModelConfig, kind: str, n_pages: int,
-                     page_size: int, *, dtype=torch.bfloat16,
-                     device=None) -> Dict:
-    """The layer's page pool ``(n_pages, Hkv, page_size, head_dim)``."""
+def block_init_cache(cfg: ModelConfig, kind: str, batch: int, seq: int, *,
+                     dtype=torch.bfloat16, device=None) -> Dict:
+    """The layer's K/V ``(batch, Hkv, seq, head_dim)``: a page pool of
+    ``batch`` pages of ``seq`` tokens, or a contiguous cache of ``batch``
+    slots of ``seq`` positions."""
     _require_attn(kind)
-    shape = (n_pages, cfg.n_kv_heads, page_size, cfg.head_dim)
+    shape = (batch, cfg.n_kv_heads, seq, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def block_apply_step(p: Dict, x: torch.Tensor, cache: Dict,
                      lengths: torch.Tensor, cfg: ModelConfig, kind: str, *,
-                     block_table: torch.Tensor,
+                     block_table: Optional[torch.Tensor] = None,
                      active: Optional[torch.Tensor] = None,
                      name: str = ""):
-    """One decode token (B, 1, d) -> (x_out, cache); the page pool is
-    written in place."""
+    """One decode token (B, 1, d) -> (x_out, cache); the cache is written
+    in place.  With ``block_table`` the cache is the page pool and rows
+    outside ``active`` park their writes on the null page; without, it is
+    the contiguous per-slot cache, where a tag-along row's write at its
+    length stays masked until its next real write replaces it."""
     _require_attn(kind)
     h = apply_norm(p["ln1"], x, cfg.norm)
-    out, k_c, v_c = attention.paged_decode_attention(
-        p["attn"], h, cfg, cache["k"], cache["v"], lengths, block_table,
-        active=active, name=name + ".attn")
+    if block_table is None:
+        out, k_c, v_c = attention.decode_attention(
+            p["attn"], h, cfg, cache["k"], cache["v"], lengths,
+            name=name + ".attn")
+    else:
+        out, k_c, v_c = attention.paged_decode_attention(
+            p["attn"], h, cfg, cache["k"], cache["v"], lengths, block_table,
+            active=active, name=name + ".attn")
     x = _ffn(p, x + out, cfg, name)
     return x, {"k": k_c, "v": v_c}
 
 
 def block_apply_chunk(p: Dict, x: torch.Tensor, cache: Dict,
                       cfg: ModelConfig, kind: str, *,
-                      positions: torch.Tensor, block_tables: torch.Tensor,
+                      positions: torch.Tensor,
+                      block_tables: Optional[torch.Tensor] = None,
+                      anc: Optional[torch.Tensor] = None,
                       name: str = ""):
-    """One prefill chunk (B, C, d) -> (x_out, cache); the page pool is
-    written in place."""
+    """One prefill or verify chunk (B, C, d) -> (x_out, cache); the cache
+    is written in place: the page pool through ``block_tables`` (with an
+    optional tree mask ``anc``), or the contiguous cache without."""
     _require_attn(kind)
     h = apply_norm(p["ln1"], x, cfg.norm)
-    out, k_c, v_c = attention.paged_chunk_attention(
-        p["attn"], h, cfg, cache["k"], cache["v"], positions, block_tables,
-        name=name + ".attn")
+    if block_tables is None:
+        if anc is not None:
+            raise NotImplementedError(
+                "tree verify on the contiguous cache is not ported: the "
+                "port verifies on the paged layout")
+        out, k_c, v_c = attention.chunk_attention(
+            p["attn"], h, cfg, cache["k"], cache["v"], positions,
+            name=name + ".attn")
+    else:
+        out, k_c, v_c = attention.paged_chunk_attention(
+            p["attn"], h, cfg, cache["k"], cache["v"], positions,
+            block_tables, anc=anc, name=name + ".attn")
     x = _ffn(p, x + out, cfg, name)
     return x, {"k": k_c, "v": v_c}

@@ -1,12 +1,16 @@
 """Decoder-only language model: init, full-sequence forward, and the
-paged serving steps (``decode_step``, ``prefill_into_slot``).
+serving steps (``decode_step``, ``prefill_into_slot``, the speculative
+``verify_chunk`` and ``compact_accepted_path``).
 
 Parameters are ``{"embed": {"table"}, "layers": [block params...],
 "final_ln", "pos_embed"[, "lm_head"]}`` — one dict per layer, where the
 JAX package stacks layers on a ``periods`` axis for ``lax.scan``; the
 weight bridge (``repro_torch/bridge.py``) converts between the two.  The
-paged cache is ``{"layers": [{"k", "v"} page pools]}`` and is updated in
-place by the serving steps, which also return it.
+cache is ``{"layers": [{"k", "v"}]}``, per layer either a page pool
+``(P, Hkv, ps, hd)`` addressed through block tables (``layout="paged"``,
+the serving engine's) or a contiguous ``(B, Hkv, max_seq, hd)`` per-slot
+cache (``layout="stacked"``, the draft model's).  The serving steps
+update it in place and also return it.
 
 The stacks served are those of GPT-2: every layer global ``attn``,
 learned (or no) positions, no MoE and no encoder; anything else raises
@@ -86,30 +90,35 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     return _logits(params, cfg, x)
 
 
-def init_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                layout: str = "paged", dtype=torch.bfloat16,
                device=None) -> Dict:
-    """The paged KV cache: per layer a pool of ``n_pages`` pages of
-    ``page_size`` tokens, page 0 being the null page."""
-    if layout != "paged":
+    """The KV cache.  ``layout="paged"``: per layer a pool of ``batch``
+    pages of ``max_seq`` (= page size) tokens, page 0 being the null page.
+    ``layout="stacked"``: per layer ``batch`` contiguous slots of
+    ``max_seq`` positions.  (The reference's argument order; its default
+    layout is "stacked", this package's engine default is "paged".)"""
+    if layout not in ("paged", "stacked"):
         raise NotImplementedError(
-            f"cache layout {layout!r} is not ported: only 'paged' is")
+            f"cache layout {layout!r} is not ported: only 'paged' and "
+            "'stacked' are")
     check_supported(cfg)
     return {"layers": [
-        blocks.block_init_cache(cfg, cfg.block_kind(li), n_pages, page_size,
+        blocks.block_init_cache(cfg, cfg.block_kind(li), batch, max_seq,
                                 dtype=dtype, device=device)
         for li in range(cfg.n_layers)]}
 
 
 def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: Dict, lengths: torch.Tensor, *,
-                block_table: torch.Tensor,
+                block_table: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,
                 dtype=torch.bfloat16):
     """One auto-regressive step for every row: ``token`` (B, 1) enters at
-    position ``lengths[b]``.  Rows outside ``active`` ride along with
-    their writes parked on the null page.  Returns
-    ``(logits (B, V), cache)``."""
+    position ``lengths[b]``.  With ``block_table`` (B, n_pg) the cache is
+    the page pool and rows outside ``active`` ride along with their
+    writes parked on the null page; without, it is the stacked cache,
+    row ``b`` being slot ``b``.  Returns ``(logits (B, V), cache)``."""
     x = embed(params["embed"], token, dtype)  # (B, 1, d)
     if cfg.pos == "learned":
         # idle rows may sit at the table end: clamp explicitly (the
@@ -129,18 +138,24 @@ def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
 
 def prefill_into_slot(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                       cache: Dict, offset: int, *,
-                      block_table: torch.Tensor,
+                      block_table: Optional[torch.Tensor] = None,
+                      slot: Optional[int] = None,
                       valid: Optional[int] = None,
                       dtype=torch.bfloat16):
     """Chunked prefill: write one prompt chunk ``tokens`` (C,), right-padded
-    past ``valid`` real tokens, at absolute positions ``offset..`` of the
-    request whose block-table row is ``block_table`` (n_pg,), with one
-    forward call.  The chunk attends causally over itself and the
+    past ``valid`` real tokens, at absolute positions ``offset..`` of one
+    request, with one forward call: on the page pool through the
+    request's block-table row ``block_table`` (n_pg,), or, without a
+    table, into slot ``slot`` of the stacked cache (positions past the
+    cache are dropped).  The chunk attends causally over itself and the
     request's cache below ``offset``; padding lands above the prompt and
     stays masked by the length accounting.  Returns
     ``(logits (V,) f32 at chunk position valid - 1, cache)``."""
     C = tokens.shape[-1]
     valid = C if valid is None else int(valid)
+    if (block_table is None) == (slot is None):
+        raise ValueError("pass exactly one of block_table (paged cache) "
+                         "and slot (stacked cache)")
     tokens = tokens.reshape(1, C)
     positions = (offset + torch.arange(C, device=tokens.device))[None]
     x = embed(params["embed"], tokens, dtype)
@@ -148,12 +163,92 @@ def prefill_into_slot(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         # clipped gather: the last chunk may hang past the table end
         P = params["pos_embed"].shape[0]
         x = x + params["pos_embed"][positions.clamp(0, P - 1)].to(dtype)
-    bts = block_table[None]
-    layers = []
+    if block_table is None:
+        # the slot's rows of the stacked cache, as views written in place
+        view = [{k: t[slot:slot + 1] for k, t in c.items()}
+                for c in cache["layers"]]
+        bts = None
+    else:
+        view = cache["layers"]
+        bts = block_table[None]
     for li, layer_p in enumerate(params["layers"]):
-        x, c = blocks.block_apply_chunk(
-            layer_p, x, cache["layers"][li], cfg, cfg.block_kind(li),
+        x, _ = blocks.block_apply_chunk(
+            layer_p, x, view[li], cfg, cfg.block_kind(li),
             positions=positions, block_tables=bts, name=f"l{li}")
-        layers.append(c)
     logits = _logits(params, cfg, x[:, valid - 1:valid])
-    return logits[0, 0].float(), {"layers": layers}
+    return logits[0, 0].float(), cache
+
+
+def verify_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 cache: Dict, lengths: torch.Tensor, *,
+                 block_tables: torch.Tensor,
+                 anc: Optional[torch.Tensor] = None,
+                 depths: Optional[torch.Tensor] = None,
+                 dtype=torch.bfloat16):
+    """Score C tokens per row against the paged cache in ONE forward call
+    (speculative verification).  Row ``b``'s tokens occupy positions
+    ``lengths[b] .. lengths[b] + C - 1``; their K/V are written into the
+    pages the row's table names, and ``logits[b, i]`` is the next-token
+    distribution after ``tokens[b, :i + 1]``.  A row parked at
+    ``lengths[b] >= max_seq`` writes the null page only and its logits
+    must not be used.
+
+    Tree verification (``anc`` (B, C, C), ``depths`` (B, C)): position
+    ``j`` holds a tree node in DFS layout.  Its K/V still land at the flat
+    position ``lengths[b] + j``, it attends the row's prefix and exactly
+    the chunk positions ``anc[b, j]`` names (its root path), and its
+    position embedding is that of its logical position ``lengths[b] +
+    depths[b, j]``, so ``logits[b, j]`` follows the context plus ``j``'s
+    root path.  Returns ``(logits (B, C, V) f32, cache)``."""
+    B, C = tokens.shape
+    dev = tokens.device
+    base = lengths.long()[:, None]
+    positions = base + torch.arange(C, device=dev)[None]
+    x = embed(params["embed"], tokens, dtype)
+    if cfg.pos == "learned":
+        # logical positions drive the embedding; parked rows and padding
+        # read a clamped row, as the reference's clipped gather does
+        epos = positions if depths is None else base + depths.long()
+        P = params["pos_embed"].shape[0]
+        x = x + params["pos_embed"][epos.clamp(0, P - 1)].to(dtype)
+    if anc is not None:
+        anc = anc.to(torch.int32).contiguous()
+    for li, layer_p in enumerate(params["layers"]):
+        x, _ = blocks.block_apply_chunk(
+            layer_p, x, cache["layers"][li], cfg, cfg.block_kind(li),
+            positions=positions, block_tables=block_tables, anc=anc,
+            name=f"l{li}")
+    return _logits(params, cfg, x).float(), cache
+
+
+def compact_accepted_path(cfg: ModelConfig, cache: Dict, src: torch.Tensor,
+                          dst: torch.Tensor, *,
+                          block_tables: torch.Tensor) -> Dict:
+    """Copy an accepted tree path's K/V from its flat chunk positions
+    ``src`` (B, m) to the contiguous positions ``dst`` (B, m) plain decode
+    would have used, in every layer's page pool, through the block tables
+    as they were at verify time (call it before ``rewind`` releases
+    pages).  Entries whose ``dst`` lies outside the row's table are
+    dropped, never redirected onto a live page or the null page.  Every
+    source is read before any target is written, so overlapping paths
+    move correctly.  The indices are resolved on the device of
+    ``src``/``dst``/``block_tables`` (host tensors cost the card no
+    sync) and then moved to the pools'.  Returns the cache."""
+    bt = block_tables.long()
+    n_pg = bt.shape[1]
+    src, dst = src.long(), dst.long()
+    rows = torch.arange(src.shape[0], device=src.device)[:, None].expand(
+        src.shape)
+    ps = cache["layers"][0]["k"].shape[2]
+    keep = (dst >= 0) & (dst < n_pg * ps)
+    r, s_, d_ = rows[keep], src[keep], dst[keep]
+    blk_s = s_ // ps
+    pg_s = torch.where(blk_s < n_pg, bt[r, blk_s.clamp(0, n_pg - 1)], 0)
+    pg_d = bt[r, d_ // ps]
+    dev = cache["layers"][0]["k"].device
+    pg_s, off_s, pg_d, off_d = (t.to(dev) for t in
+                                (pg_s, s_ % ps, pg_d, d_ % ps))
+    for c in cache["layers"]:
+        for pool in c.values():
+            pool[pg_d, :, off_d] = pool[pg_s, :, off_s]
+    return cache

@@ -19,16 +19,30 @@ it.
   * **Per-request sampling** — one :func:`~repro_torch.serving.sampler.sample_batch`
     call per tick over per-slot parameters, drawn from the engine's
     ``torch.Generator``.
+  * **Speculative decoding** — with ``spec=SpecConfig(...)`` each decode
+    tick proposes up to k draft tokens per slot (n-gram lookup or a
+    draft model, :mod:`repro_torch.serving.speculative`), as a chain or
+    as a token tree, verifies every slot's draft in ONE chunked forward
+    call (:func:`repro_torch.models.lm.verify_chunk`), and emits 1..k+1
+    tokens through the distribution-preserving accept rules of
+    :mod:`repro_torch.serving.sampler`.  Greedy streams are token for
+    token those of plain decode; rejected K/V are dropped by
+    ``kv.rewind``, and an accepted tree path is first compacted to
+    contiguous positions (:func:`repro_torch.models.lm.
+    compact_accepted_path`).  A tick on which no slot proposes anything
+    falls back to the plain decode step.
 
-Every tick on the card goes through the three CUDA kernels: the MP
-kernel for each quantized linear, the paged decode kernel for the decode
-step and the paged verify kernel for each prefill chunk.  The engine runs
-on ``device`` (default ``"cuda"``) and raises if that device is missing;
-the CPU tests pass ``device="cpu"``, which takes the plain versions.
+Every tick on the card goes through the CUDA kernels: the MP kernel for
+each quantized linear, the paged decode kernel for the decode step, the
+paged verify kernel for each prefill chunk and chain verify, its tree
+body for a tree verify, and the contiguous decode kernel for each step
+of a draft model.  The engine runs on ``device`` (default ``"cuda"``)
+and raises if that device is missing; the CPU tests pass
+``device="cpu"``, which takes the plain versions.
 
-Not ported (they raise ``NotImplementedError``): speculative decoding
-(``spec=``), the stacked layout, replay prefill, ring tensor parallelism
-(``mesh=``) and over-commit admission.
+Not ported (they raise ``NotImplementedError``): the stacked target
+layout, replay prefill, ring tensor parallelism (``mesh=``) and
+over-commit admission.
 """
 from __future__ import annotations
 
@@ -45,6 +59,7 @@ from repro_torch.core.perfmodel import FPGAPerfModel
 from repro_torch.models import lm
 from repro_torch.models.layers import to_device
 from repro_torch.serving import sampler as samplers
+from repro_torch.serving import speculative
 from repro_torch.serving.admission import FIFOAdmission
 from repro_torch.serving.kv_cache import PagedCacheManager
 from repro_torch.serving.lifecycle import (DECODE, PREFILL, LifecycleMixin,
@@ -52,7 +67,7 @@ from repro_torch.serving.lifecycle import (DECODE, PREFILL, LifecycleMixin,
                                            latency_stats, submit_request)
 from repro_torch.serving.quantize import calibrate, quantize_model_params
 from repro_torch.serving.telemetry import (TID_ENGINE, Telemetry,
-                                           registry_counter)
+                                           linear_edges, registry_counter)
 
 
 def resolve_device(device) -> torch.device:
@@ -70,6 +85,12 @@ class ServeEngine(LifecycleMixin):
     model_calls = registry_counter("model_calls")
     prefill_calls = registry_counter("prefill_calls")
     stalled = registry_counter("stalled")
+    spec_ticks = registry_counter("spec_ticks")
+    spec_proposed = registry_counter("spec_proposed")
+    spec_accepted = registry_counter("spec_accepted")
+    spec_emitted = registry_counter("spec_emitted")
+    verify_touched_positions = registry_counter("verify_touched_positions")
+    verify_dense_positions = registry_counter("verify_dense_positions")
 
     def __init__(
         self,
@@ -91,12 +112,11 @@ class ServeEngine(LifecycleMixin):
         admission: Optional[FIFOAdmission] = None,
         mesh=None,
         act_dtype: Optional[torch.dtype] = None,
-        spec=None,
+        spec: Optional[speculative.SpecConfig] = None,
         telemetry: Optional[Telemetry] = None,
         device=None,
     ):
-        for what, bad in (("spec=", spec is not None),
-                          ("mesh=", mesh is not None),
+        for what, bad in (("mesh=", mesh is not None),
                           (f"prefill_mode={prefill_mode!r}",
                            prefill_mode not in ("auto", "chunked")),
                           (f"kv_layout={kv_layout!r}",
@@ -106,7 +126,7 @@ class ServeEngine(LifecycleMixin):
             if bad:
                 raise NotImplementedError(
                     f"ServeEngine({what}) is not ported: this engine serves "
-                    "the paged layout with chunked prefill and plain decode")
+                    "the paged layout with chunked prefill")
         lm.check_supported(cfg)
         self.tel = telemetry or Telemetry()
         self.device = resolve_device(device)
@@ -145,6 +165,21 @@ class ServeEngine(LifecycleMixin):
         self._topp = np.ones((batch_slots,), np.float32)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
 
+        self.spec = spec
+        self.proposer: Optional[speculative.DraftProposer] = None
+        self.adaptive: Optional[speculative.AdaptiveDraft] = None
+        if spec is not None:
+            if spec.k < 1:
+                raise ValueError(f"SpecConfig.k={spec.k} must be >= 1")
+            if spec.tree and spec.branch < 1:
+                raise ValueError(
+                    f"SpecConfig.branch={spec.branch} must be >= 1")
+            self.proposer = speculative.make_proposer(
+                spec, batch_slots, max_seq, chunk_size=self.chunk_size,
+                dtype=self.act_dtype, device=self.device)
+            self.proposer.tracer = self.tel.tracer
+            self.adaptive = speculative.AdaptiveDraft.from_spec(spec)
+
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.queue: deque = deque()
         self.finished: List[Request] = []
@@ -153,6 +188,15 @@ class ServeEngine(LifecycleMixin):
         self.model_calls = 0  # decode steps + prefill chunks
         self.prefill_calls = 0
         self.stalled = 0
+        self.spec_ticks = 0  # verify calls issued
+        self.spec_proposed = 0  # draft tokens submitted for verification
+        self.spec_accepted = 0  # draft tokens accepted
+        self.spec_emitted = 0  # tokens emitted off verify calls
+        # verify traffic in K/V positions per layer: the in-place paged
+        # verify touches each row's live pages; "dense" is what a gathered
+        # max_seq view per active row would move, there and back
+        self.verify_touched_positions = 0
+        self.verify_dense_positions = 0
         self.stalled_detail: Dict[str, List[int]] = {
             "queued": [], "in_flight": []}
         self.mdk_stats = sched.mdk_stats(cfg)
@@ -161,6 +205,10 @@ class ServeEngine(LifecycleMixin):
         self._h_ttft = reg.histogram("ttft_s")
         self._h_tpot = reg.histogram("tpot_s")
         self._h_tick = reg.histogram("tick_wall_s")
+        self._h_accept = (
+            reg.histogram("spec_accept_len",
+                          edges=linear_edges(0.0, spec.k + 2, spec.k + 2))
+            if spec is not None else None)
         # the paper's FPGA model's predicted cost per call, kept beside
         # the measured host time of the same call
         pm = FPGAPerfModel(cfg)
@@ -229,6 +277,9 @@ class ServeEngine(LifecycleMixin):
                 self.prefill_calls += 1
                 req.filled += ch.n
                 self.kv.advance(ch.slot, ch.n)
+                if self.proposer is not None:
+                    self.proposer.prefill_chunk(ch.slot, chunk, ch.start,
+                                                ch.n)
                 if req.filled == len(req.prompt):
                     # the first token comes straight off the prefill logits
                     slot = ch.slot
@@ -239,7 +290,12 @@ class ServeEngine(LifecycleMixin):
             decoding = [r is not None and r.state == DECODE
                         for r in self.slots]
             if any(decoding):
-                self._plain_decode(decoding)
+                if self.spec is None:
+                    self._plain_decode(decoding)
+                elif self.spec.tree:
+                    self._tree_spec_decode(np.asarray(decoding))
+                else:
+                    self._spec_decode(np.asarray(decoding))
                 did = True
         if did:
             self.ticks += 1
@@ -270,6 +326,183 @@ class ServeEngine(LifecycleMixin):
             if req is not None and req.state == DECODE and decoding[b]:
                 self._emit(req, int(sampled[b]), now)
 
+    def _count_verify(self, mask: np.ndarray, lengths: np.ndarray,
+                      written: np.ndarray) -> None:
+        live = -(-(lengths + written) // self.kv.page_size)
+        self.verify_touched_positions += int(
+            (live[mask] * self.kv.page_size).sum())
+        self.verify_dense_positions += 2 * int(mask.sum()) * self.max_seq
+
+    def _accept_args(self):
+        return (self.gen, self._dev(self._temp), self._dev(self._topk),
+                self._dev(self._topp))
+
+    def _spec_decode(self, decoding: np.ndarray) -> None:
+        """One chain-speculative decode tick: propose per slot, verify
+        every slot's draft in ONE chunked forward call, emit 1..k+1
+        tokens.
+
+        A decoding slot with cache length L verifies ``[cur_tok, d_1 ..
+        d_c]`` at positions ``L .. L+c`` (c capped by the request's
+        remaining budget and the cache, so writes stay inside the
+        admission-time reservation); other rows are parked at ``max_seq``
+        (their writes land on the null page, their logits go unused).
+        The accepted prefix commits through ``kv.rewind(slot, L+m+1)``,
+        which also releases pages grown for rejected positions."""
+        B, k = self.B, self.spec.k
+        tr = self.tel.tracer
+        lengths_h = self.kv.lengths.copy()
+        caps = speculative.draft_caps(self.slots, lengths_h, decoding, k,
+                                      self.max_seq, adaptive=self.adaptive)
+        with tr.span("spec.propose", "spec"):
+            draft, counts = self.proposer.propose(
+                self.slots, self.cur_tok, lengths_h, decoding, caps)
+        if not counts.any():
+            # accepting zero drafts IS plain sampling from position 0:
+            # the plain step emits the same stream for 1/(k+1) the width
+            self._plain_decode(list(decoding))
+            return
+        decoding = self._ensure_room(decoding, counts + 1)
+        toks = np.zeros((B, k + 1), np.int64)
+        toks[:, 0] = self.cur_tok[:, 0]
+        toks[:, 1:] = draft
+        vlen = np.where(decoding, lengths_h, self.max_seq).astype(np.int32)
+        t0 = time.perf_counter()
+        with tr.span("spec.verify", "spec", TID_ENGINE,
+                     ({"rows": int(decoding.sum()),
+                       "proposed": int(counts.sum()),
+                       "modeled_s": self._modeled_decode_s}
+                      if tr.enabled else None)):
+            self._count_verify(decoding, lengths_h, counts + 1)
+            logits, self.kv.cache = lm.verify_chunk(
+                self.params, self.cfg, self._dev(toks), self.kv.cache,
+                self._dev(vlen), block_tables=self._dev(self.kv.block_tables),
+                dtype=self.act_dtype)
+        self._c_dec_mod.value += self._modeled_decode_s
+        self._c_dec_meas.value += time.perf_counter() - t0
+        self.model_calls += 1
+        self.spec_ticks += 1
+        with tr.span("spec.accept", "spec"):
+            n_acc, next_tok = samplers.spec_accept_batch(
+                logits, self._dev(draft), self._dev(counts),
+                *self._accept_args())
+            n_acc, next_tok = n_acc.tolist(), next_tok.tolist()
+        now = time.monotonic()
+        for b in range(B):
+            req = self.slots[b]
+            if not decoding[b] or req is None:
+                continue
+            m = int(n_acc[b])
+            self._h_accept.record(m)
+            self.spec_proposed += int(counts[b])
+            self.spec_accepted += m
+            if self.adaptive is not None:
+                self.adaptive.observe(b, int(counts[b]), m)
+            L = int(lengths_h[b])
+            self._emit_spec(req, [int(t) for t in draft[b, :m]]
+                            + [int(next_tok[b])], L + m + 1, now)
+
+    def _emit_spec(self, req, tokens: List[int], new_len: int,
+                   now: float) -> None:
+        """Emit one verify's tokens for a request; if it lives on, commit
+        ``new_len`` cache positions (the current token and the accepted
+        drafts; the last emitted token becomes the current one)."""
+        for tok in tokens:
+            self._emit(req, tok, now)
+            self.spec_emitted += 1
+            if req.done:
+                return
+        self.kv.rewind(req.slot, new_len)
+        self.proposer.commit(req.slot, req.prompt + req.out, new_len)
+
+    def _tree_spec_decode(self, decoding: np.ndarray) -> None:
+        """One tree-speculative decode tick: propose a token tree per
+        slot, verify every node in ONE ancestor-masked chunked call, and
+        emit the longest accepted root-to-leaf path plus a corrective
+        token.
+
+        The chunk holds ``[cur_tok, node_1 .. node_n]`` in DFS order; node
+        ``j`` attends its root path only and takes the position embedding
+        of ``L + depth_j`` while its K/V land at flat position ``L + j``.
+        After :func:`~repro_torch.serving.sampler.spec_accept_tree` picks
+        the path, its K/V move to ``L+1 .. L+m``
+        (:func:`~repro_torch.models.lm.compact_accepted_path`, through the
+        block tables as they were at verify time), then ``kv.rewind``
+        drops the rejected branches."""
+        B, k = self.B, self.spec.k
+        C = k + 1
+        tr = self.tel.tracer
+        lengths_h = self.kv.lengths.copy()
+        caps = speculative.draft_caps(self.slots, lengths_h, decoding, k,
+                                      self.max_seq, adaptive=self.adaptive)
+        with tr.span("spec.propose", "spec"):
+            trees = self.proposer.propose_tree(
+                self.slots, self.cur_tok, lengths_h, decoding, caps,
+                branch=self.spec.branch)
+        tokens_a, parents, n_nodes, anc, depths = speculative.tree_arrays(
+            trees, k, C)
+        if not n_nodes.any():
+            self._plain_decode(list(decoding))
+            return
+        decoding = self._ensure_room(decoding, n_nodes + 1)
+        toks = np.zeros((B, C), np.int64)
+        toks[:, 0] = self.cur_tok[:, 0]
+        toks[:, 1:] = tokens_a
+        vlen = np.where(decoding, lengths_h, self.max_seq).astype(np.int32)
+        t0 = time.perf_counter()
+        with tr.span("spec.verify", "spec", TID_ENGINE,
+                     ({"rows": int(decoding.sum()),
+                       "proposed": int(n_nodes.sum()), "tree": True,
+                       "modeled_s": self._modeled_decode_s}
+                      if tr.enabled else None)):
+            self._count_verify(decoding, lengths_h, n_nodes + 1)
+            logits, self.kv.cache = lm.verify_chunk(
+                self.params, self.cfg, self._dev(toks), self.kv.cache,
+                self._dev(vlen), block_tables=self._dev(self.kv.block_tables),
+                anc=self._dev(anc.astype(np.int32)), depths=self._dev(depths),
+                dtype=self.act_dtype)
+        self._c_dec_mod.value += self._modeled_decode_s
+        self._c_dec_meas.value += time.perf_counter() - t0
+        self.model_calls += 1
+        self.spec_ticks += 1
+        with tr.span("spec.accept", "spec"):
+            _, acc, next_tok = samplers.spec_accept_tree(
+                logits, self._dev(tokens_a), self._dev(parents),
+                self._dev(n_nodes), *self._accept_args())
+            acc, next_tok = acc.cpu().numpy(), next_tok.tolist()
+        # accepted path per row in depth order (DFS layout: a parent's
+        # position precedes its children's, so ascending is root-to-leaf)
+        paths = [np.flatnonzero(acc[b, 1:]) + 1 if decoding[b]
+                 else np.zeros(0, np.int64) for b in range(B)]
+        src = np.full((B, k), self.max_seq, np.int64)
+        dst = np.full((B, k), self.max_seq, np.int64)
+        for b in range(B):
+            m = len(paths[b])
+            src[b, :m] = lengths_h[b] + paths[b]
+            dst[b, :m] = lengths_h[b] + 1 + np.arange(m)
+        if (src != dst).any():
+            # before any rewind, with the tables as they were at verify
+            # time; the indices are resolved on the host
+            with tr.span("spec.compact", "spec"):
+                self.kv.cache = lm.compact_accepted_path(
+                    self.cfg, self.kv.cache, torch.from_numpy(src),
+                    torch.from_numpy(dst),
+                    block_tables=torch.from_numpy(self.kv.block_tables))
+        now = time.monotonic()
+        for b in range(B):
+            req = self.slots[b]
+            if not decoding[b] or req is None:
+                continue
+            m = len(paths[b])
+            self._h_accept.record(m)
+            self.spec_proposed += int(n_nodes[b])
+            self.spec_accepted += m
+            if self.adaptive is not None:
+                self.adaptive.observe_tree(b, int(n_nodes[b]), m)
+            L = int(lengths_h[b])
+            self._emit_spec(req, [int(toks[b, j]) for j in paths[b]]
+                            + [int(next_tok[b])], L + m + 1, now)
+
     # ------------------------------------------------------------------
     def run(self, max_ticks: int = 10_000, *,
             on_stall: str = "raise") -> List[Request]:
@@ -280,7 +513,9 @@ class ServeEngine(LifecycleMixin):
         return self.tel.dump_trace(path)
 
     def stats(self) -> Dict[str, float]:
-        """Exactly the keys of ``telemetry.STATS_KEYS_ENGINE``."""
+        """Exactly the keys of ``telemetry.STATS_KEYS_ENGINE``, or with
+        speculation of ``STATS_KEYS_ENGINE_SPEC`` (plus the adaptive
+        sizer's two with ``adaptive=True``)."""
         out = latency_stats(self)
         emitted = sum(len(r.out) for r in self.finished) + sum(
             len(r.out) for r in self.slots if r is not None)
@@ -300,5 +535,25 @@ class ServeEngine(LifecycleMixin):
             "prefill_modeled_s": self._c_pref_mod.value,
             "prefill_measured_s": self._c_pref_meas.value,
         })
+        if self.spec is not None:
+            out.update({
+                "spec_ticks": self.spec_ticks,
+                "spec_proposed": self.spec_proposed,
+                "spec_accepted": self.spec_accepted,
+                "spec_emitted": self.spec_emitted,
+                "acceptance_rate": (
+                    self.spec_accepted / max(self.spec_proposed, 1)),
+                "tokens_per_verify_call": (
+                    self.spec_emitted / max(self.spec_ticks, 1)),
+                # draft-model forwards (0 for the n-gram proposer): the
+                # cost side that tokens_per_model_call leaves out
+                "draft_calls": getattr(self.proposer, "draft_calls", 0),
+                "verify_touched_positions": self.verify_touched_positions,
+                "verify_dense_positions": self.verify_dense_positions,
+                "spec_accept_len_p50": self._h_accept.quantile(0.5),
+                "spec_accept_len_p99": self._h_accept.quantile(0.99),
+            })
+            if self.adaptive is not None:
+                out.update(self.adaptive.stats())
         out.update(self.kv.stats())
         return out

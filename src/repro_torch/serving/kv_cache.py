@@ -2,9 +2,9 @@
 tables, refcounted pages and copy-free prefix sharing.
 
 A copy of the JAX package's ``PagedCacheManager``
-(``repro/serving/kv_cache.py``) for pure global-attention stacks, without
-the speculative ``rewind`` and the preemption ``evict_to_host`` /
-``restore`` round trip, which this package has not ported.
+(``repro/serving/kv_cache.py``) for pure global-attention stacks, with
+the speculative ``rewind`` and without the preemption ``evict_to_host``
+/ ``restore`` round trip, which this package has not ported.
 
 Correctness model: logical position ``p`` of a slot lives in page
 ``block_tables[slot, p // page_size]`` at offset ``p % page_size``;
@@ -74,6 +74,7 @@ class PagedCacheManager:
         self._refcount = np.zeros((n_pages,), np.int64)
         self._slot_pages: Dict[int, List[int]] = {}
         self._reserved: Dict[int, int] = {}  # slot -> pages still owed
+        self._min_len: Dict[int, int] = {}  # slot -> rewind floor (prompt)
         # prefix map: chained hash of full prompt pages -> page id.  The
         # hash only accelerates lookup: a match also requires the page's
         # exact tokens and predecessor page (_page_meta), so a collision
@@ -248,6 +249,9 @@ class PagedCacheManager:
                     pending.append((pid, (i + 1) * ps))
         self._slot_pages[slot] = pages
         self._reserved[slot] = total_pages - prompt_pages
+        # rewind floor: prompt pages may be prefix-shared or registered;
+        # rejected drafts always sit above them
+        self._min_len[slot] = plen
         self._pending_ready[slot] = pending
         self.block_tables[slot] = 0
         self.block_tables[slot, :len(pages)] = pages
@@ -263,6 +267,7 @@ class PagedCacheManager:
         for pid in self._slot_pages.pop(slot):
             self._release_page(pid)
         self._reserved.pop(slot, None)
+        self._min_len.pop(slot, None)
         self._pending_ready.pop(slot, None)
         self.block_tables[slot] = 0
         self.lengths[slot] = 0
@@ -291,14 +296,56 @@ class PagedCacheManager:
     def length_of(self, slot: int) -> int:
         return int(self.lengths[slot])
 
-    def ensure_decode_room(self, mask, n: int = 1) -> None:
+    def rewind(self, slot: int, new_len: int) -> None:
+        """Set a slot's length after a multi-token (speculative) write,
+        releasing the pages wholly past it.
+
+        A verify writes the current token and every draft token, then the
+        engine commits the accepted prefix: ``new_len`` may exceed the
+        current length while sitting below the pages
+        :meth:`ensure_decode_room` grew for the whole draft.  Pages whose
+        first position is at or past ``new_len`` return to the free pool
+        and to the slot's reservation, so pages held plus pages reserved
+        stay the request's worst case.  Rewinding below the prompt raises:
+        prompt pages may be prefix-shared, and rejected drafts only ever
+        sit above the prompt."""
+        if slot not in self._used_slots:
+            raise ValueError(f"rewind of unallocated slot {slot}")
+        if not self._min_len.get(slot, 0) <= new_len <= self.max_seq:
+            raise ValueError(
+                f"rewind of slot {slot} to {new_len} outside "
+                f"[prompt={self._min_len.get(slot, 0)}, "
+                f"max_seq={self.max_seq}]: prompt pages may be "
+                "prefix-shared (releasing them would tear another "
+                "request's sharing chain)")
+        keep = self.pages_for(new_len)
+        pages = self._slot_pages[slot]
+        if len(pages) < keep:
+            raise RuntimeError(
+                f"rewind of slot {slot} to {new_len} beyond its "
+                f"{len(pages)} allocated pages")
+        while len(pages) > keep:
+            pid = pages.pop()
+            if self._refcount[pid] != 1:
+                raise RuntimeError(
+                    f"rewind reached shared page {pid} of slot {slot} "
+                    f"(refcount {int(self._refcount[pid])})")
+            self._release_page(pid)
+            self._reserved[slot] = self._reserved.get(slot, 0) + 1
+            self.block_tables[slot, len(pages)] = 0
+        self.lengths[slot] = new_len
+
+    def ensure_decode_room(self, mask, n=1) -> None:
         """Grow block tables so every masked slot can take ``n`` more
-        tokens, drawing on its admission-time reservation."""
+        tokens (an int, or one count per slot: a speculative verify
+        writes each row's draft length + 1), drawing on its
+        admission-time reservation."""
+        ns = np.broadcast_to(np.asarray(n, np.int64), (self.B,))
         for slot, active in enumerate(mask):
             if not active:
                 continue
             pages = self._slot_pages[slot]
-            need = int(self.lengths[slot]) + n
+            need = int(self.lengths[slot]) + int(ns[slot])
             while len(pages) * self.page_size < need:
                 if self._reserved.get(slot, 0) <= 0:
                     raise RuntimeError(

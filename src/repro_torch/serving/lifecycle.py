@@ -3,10 +3,11 @@
 The happy path of the JAX package's state machine
 (``repro/serving/lifecycle.py``): ``QUEUED -> PREFILL -> DECODE -> DONE``,
 enforced by :func:`transition`.  :class:`LifecycleMixin` holds the slot
-bookkeeping of plain paged serving — FIFO admission, seating, emission
-(TTFT/TPOT accounting, retirement) and freeing.  The detours (preemption
-to host or recompute, cancel, migration) are not ported; with
-reservation pricing a decode never runs out of pages, so
+bookkeeping of paged serving — FIFO admission, seating, emission
+(TTFT/TPOT accounting, retirement) and freeing, with the speculative
+proposer's and adaptive draft sizer's slot hooks.  The detours
+(preemption to host or recompute, cancel, migration) are not ported;
+with reservation pricing a decode never runs out of pages, so
 :meth:`LifecycleMixin._ensure_room` only grows block tables.
 """
 from __future__ import annotations
@@ -136,10 +137,11 @@ def latency_stats(engine) -> Dict[str, float]:
 
 
 class LifecycleMixin:
-    """Slot bookkeeping of plain paged serving.  Host attributes: ``kv``,
+    """Slot bookkeeping of paged serving.  Host attributes: ``kv``,
     ``_share``, ``queue``, ``slots``, ``finished``, ``tel``, ``max_seq``,
     ``eos_id``, ``cur_tok``, ``_temp``/``_topk``/``_topp``,
-    ``_h_ttft``/``_h_tpot``."""
+    ``_h_ttft``/``_h_tpot``, ``proposer`` and ``adaptive`` (None without
+    speculation)."""
 
     def _admit(self) -> None:
         """Seat queued requests in FIFO order while they place; the head
@@ -168,6 +170,10 @@ class LifecycleMixin:
             tr.instant("req.admitted", "request", TID_REQUEST,
                        {"rid": req.rid, "slot": slot,
                         "shared_tokens": shared_tokens})
+        if self.proposer is not None:
+            self.proposer.alloc(slot, req.prompt, shared_tokens)
+        if self.adaptive is not None:
+            self.adaptive.alloc(slot)
         self._temp[slot] = req.sampling.temperature
         self._topk[slot] = req.sampling.top_k
         self._topp[slot] = req.sampling.top_p
@@ -204,11 +210,16 @@ class LifecycleMixin:
         stays set for post-mortem accounting)."""
         self.slots[req.slot] = None
         self.kv.free(req.slot)
+        if self.proposer is not None:
+            self.proposer.free(req.slot)
+        if self.adaptive is not None:
+            self.adaptive.free(req.slot)
         self.cur_tok[req.slot, 0] = 0
 
-    def _ensure_room(self, mask, n: int = 1) -> np.ndarray:
-        """Grow block tables for the masked rows' next ``n`` tokens; the
-        admission-time reservation guarantees the pages exist."""
+    def _ensure_room(self, mask, n=1) -> np.ndarray:
+        """Grow block tables for the masked rows' next ``n`` tokens (an
+        int, or one count per slot); the admission-time reservation
+        guarantees the pages exist."""
         mask = np.asarray(mask, bool).copy()
         self.kv.ensure_decode_room(mask, n)
         return mask

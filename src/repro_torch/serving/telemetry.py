@@ -13,7 +13,9 @@
     plus host work, not kernel time.
 
 ``STATS_KEYS_ENGINE`` documents exactly what ``ServeEngine.stats()``
-returns.
+returns, and ``STATS_KEYS_ENGINE_SPEC`` what it returns with
+speculation (plus ``adaptive_slots`` and ``adaptive_cap_mean`` under
+adaptive draft sizing).
 """
 from __future__ import annotations
 
@@ -66,6 +68,12 @@ def exponential_edges(lo: float = 1e-6, hi: float = 1e3,
     """Bucket edges, ``per_decade`` per decade over [lo, hi]."""
     n = int(round(math.log10(hi / lo) * per_decade))
     return [lo * 10 ** (i / per_decade) for i in range(n + 1)]
+
+
+def linear_edges(lo: float, hi: float, n: int) -> List[float]:
+    """``n`` equal buckets over [lo, hi] (``n + 1`` edges)."""
+    step = (hi - lo) / n
+    return [lo + i * step for i in range(n + 1)]
 
 
 class Histogram:
@@ -311,4 +319,13 @@ STATS_KEYS_ENGINE = frozenset({
     "mdk_mp_reuse",
     "pages_in_use", "pages_in_use_peak", "pages_allocated_total",
     "prefix_hit_pages", "n_free_pages", "cached_free_pages",
+})
+
+#: the keys a ``spec=SpecConfig(...)`` engine reports — the JAX package's
+#: ``STATS_KEYS_ENGINE_SPEC`` less the same lifecycle detours
+STATS_KEYS_ENGINE_SPEC = STATS_KEYS_ENGINE | frozenset({
+    "spec_ticks", "spec_proposed", "spec_accepted", "spec_emitted",
+    "acceptance_rate", "tokens_per_verify_call", "draft_calls",
+    "spec_accept_len_p50", "spec_accept_len_p99",
+    "verify_touched_positions", "verify_dense_positions",
 })

@@ -34,7 +34,8 @@ from repro_torch.configs import get_config
 from repro_torch.core import perfmodel, scheduler
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
-from repro_torch.serving import admission, kv_cache, sampler, telemetry
+from repro_torch.serving import (admission, kv_cache, sampler, speculative,
+                                 telemetry)
 from repro_torch.serving.engine import ServeEngine
 
 MAX_SEQ, PAGE, SLOTS, CHUNK, MAX_NEW = 64, 8, 3, 8, 6
@@ -116,7 +117,8 @@ def test_quantized_greedy_agreement(setup):
     assert te.act_dtype == torch.float32
     # on the CPU every wrapper took its plain version: nothing launched
     assert ops.launch_counts() == {
-        "mp_matmul": 0, "paged_mha_decode": 0, "paged_verify": 0}
+        "mp_matmul": 0, "paged_mha_decode": 0, "paged_verify": 0,
+        "paged_verify_tree": 0, "mha_decode": 0}
 
 
 def test_engine_without_card_raises(setup, monkeypatch):
@@ -129,7 +131,12 @@ def test_engine_without_card_raises(setup, monkeypatch):
 
 
 @pytest.mark.parametrize("kw", [
-    {"spec": object()}, {"kv_layout": "stacked"}, {"prefill_mode": "replay"},
+    # a draft model of a stack this package cannot run
+    {"spec": speculative.SpecConfig(
+        proposer="model", draft_params={},
+        draft_cfg=dataclasses.replace(get_config("gpt2-345m").reduced(),
+                                      block_pattern=("rglru",)))},
+    {"kv_layout": "stacked"}, {"prefill_mode": "replay"},
     {"mesh": object()},
     {"admission": dataclasses.make_dataclass("Over", [], namespace={
         "overcommit": True, "chunk_size": 8})()},
@@ -300,6 +307,17 @@ def test_launcher_serves_on_cpu(capsys, tmp_path, profile):
         assert "device busy: not measured (CPU run)" in out
         with open(tmp_path / "serve_trace.json") as f:
             assert json.load(f)["traceEvents"]
+
+
+@pytest.mark.parametrize("spec", [["--spec", "ngram"],
+                                  ["--spec", "model", "--tree-branch", "2"]])
+def test_launcher_serves_with_speculation_on_cpu(capsys, spec):
+    argv = ["--reduced", "--device", "cpu", "--requests", "3", "--max-new",
+            "5", "--slots", "2", "--chunk-size", "16", "--max-seq", "64"]
+    stats = serve.main(argv + spec)
+    assert stats["requests"] == 3 and stats["pages_in_use"] == 0
+    assert stats["spec_ticks"] > 0
+    assert (stats["draft_calls"] > 0) == ("model" in spec)
 
 
 def test_busy_share_counts_overlaps_once():

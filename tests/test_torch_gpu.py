@@ -133,9 +133,89 @@ def test_paged_verify_kernel_matches_plain_on_card(h100, window):
     assert _rel_err(got[:2], want[:2]) <= ATTN_REL_TOL
     assert bool(torch.isfinite(got).all())
     assert ops.launch_counts()["paged_verify"] == 1
-    with pytest.raises(NotImplementedError, match="B5"):
-        ops.paged_verify(q, kp, vp, base, bt, anc=torch.ones(
-            (B, C, C), dtype=torch.int32, device=h100))
+    assert ops.launch_counts()["paged_verify_tree"] == 0
+
+
+def _tree_anc(rng, B, C):
+    """Ancestor masks of random trees in DFS layout: node j hangs off a
+    random earlier position and sees its parent's path plus itself."""
+    anc = np.zeros((B, C, C), np.int32)
+    for b in range(B):
+        anc[b, 0, 0] = 1
+        for j in range(1, C):
+            anc[b, j] = anc[b, rng.integers(0, j)]
+            anc[b, j, j] = 1
+    return anc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [5, 9])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hkv,group", [(4, 2), (16, 1)])
+def test_paged_verify_tree_kernel_matches_plain_on_card(h100, C, qdtype,
+                                                        Hkv, group):
+    """The tree body on random trees and on a random mask that is not
+    triangular at all (a query may see later chunk positions), with bases
+    at and beside page edges and a row parked past its table; a
+    lower-triangular mask is bit-identical to the causal kernel."""
+    rng = np.random.default_rng(C + Hkv)
+    B, D, ps, n_pg = 5, 64, 16, 6
+    P = 1 + B * n_pg
+    kp, vp = _pool(rng, P, Hkv, ps, D, h100)
+    base_np = np.array([0, 15, 16, 45, n_pg * ps], np.int32)
+    bt = _block_table(rng, B, n_pg, P,
+                      np.minimum(-(-(base_np + C) // ps), n_pg), h100)
+    base = torch.from_numpy(base_np).to(h100)
+    q = torch.from_numpy(rng.standard_normal(
+        (B, C, Hkv * group, D)).astype(np.float32)).to(
+            device=h100, dtype=getattr(torch, qdtype))
+    ops.reset_launch_counts()
+    for anc_np in (_tree_anc(rng, B, C),
+                   rng.integers(0, 2, (B, C, C)).astype(np.int32)):
+        anc = torch.from_numpy(anc_np).to(h100)
+        got = ops.paged_verify(q, kp, vp, base, bt, anc=anc)
+        want = ref.paged_verify_ref(q, kp, vp, base, bt, anc=anc)
+        torch.cuda.synchronize()
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert _rel_err(got[:-1], want[:-1]) <= ATTN_REL_TOL
+        assert bool(torch.isfinite(got).all())
+    tril = torch.tril(torch.ones((B, C, C), dtype=torch.int32,
+                                 device=h100))
+    got = ops.paged_verify(q, kp, vp, base, bt, anc=tril)
+    causal = ops.paged_verify(q, kp, vp, base, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, causal)
+    assert ops.launch_counts()["paged_verify_tree"] == 3
+    assert ops.launch_counts()["paged_verify"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 7])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kvdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hkv,group,S", [(2, 2, 100), (16, 1, 64)])
+def test_mha_decode_kernel_matches_plain_on_card(h100, window, qdtype,
+                                                 kvdtype, Hkv, group, S):
+    """Ragged and tile-multiple cache widths, lengths from one key to the
+    whole row; a row with no valid key returns zeros (the plain version,
+    like the JAX oracle, returns NaN there, so it is left out of the
+    comparison)."""
+    rng = np.random.default_rng(window + Hkv + S)
+    B, D = 4, 64
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (B, Hkv, S, D)).astype(np.float32)).to(
+            device=h100, dtype=getattr(torch, kvdtype)) for _ in range(2))
+    lengths = torch.tensor([1, 37, S, 0], dtype=torch.int32, device=h100)
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * group, D)).astype(
+        np.float32)).to(device=h100, dtype=getattr(torch, qdtype))
+    ops.reset_launch_counts()
+    got = ops.mha_decode(q, k, v, lengths, window=window)
+    want = ref.mha_decode_ref(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert bool((got[3] == 0).all())
+    assert _rel_err(got[:3], want[:3]) <= ATTN_REL_TOL
+    assert ops.launch_counts()["mha_decode"] == 1
 
 
 @pytest.mark.gpu
@@ -165,3 +245,42 @@ def test_engine_on_card_runs_every_kernel(h100):
     assert n["paged_verify"] == L * s["prefill_calls"]
     assert n["paged_mha_decode"] == L * (s["model_calls"]
                                          - s["prefill_calls"])
+
+
+@pytest.mark.gpu
+def test_spec_engine_on_card_runs_the_new_kernels(h100):
+    """Tree speculation with a draft model on the card: the verify goes
+    through the tree-masked kernel and every draft decode step through
+    the contiguous decode kernel; chain speculation verifies through the
+    causal kernel.  Every request gets its tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.speculative import SpecConfig
+
+    cfg = get_config("gpt2-345m").reduced()
+    params = lm.init(cfg, torch.Generator(device=h100).manual_seed(0),
+                     max_seq=64, device=h100)
+    draft = lm.init(cfg, torch.Generator(device=h100).manual_seed(1),
+                    max_seq=64, device=h100)
+    L = cfg.n_layers
+    for spec in (SpecConfig(k=4, proposer="model", draft_cfg=cfg,
+                            draft_params=draft, tree=True, branch=2),
+                 SpecConfig(k=3)):
+        eng = ServeEngine(cfg, params, batch_slots=2, max_seq=64, eos_id=-1,
+                          chunk_size=16, act_dtype=torch.float32, spec=spec)
+        for n in (5, 30, 12):
+            eng.submit(([3, 4, 5] * n)[:n], max_new=6)
+        ops.reset_launch_counts()
+        done = eng.run()
+        s, n = eng.stats(), ops.launch_counts()
+        assert len(done) == 3 and all(len(r.out) == 6 for r in done)
+        assert s["spec_ticks"] > 0 and s["pages_in_use"] == 0
+        if spec.tree:
+            assert n["paged_verify_tree"] == L * s["spec_ticks"]
+            assert n["mha_decode"] > 0
+            assert n["paged_verify"] == L * s["prefill_calls"]
+        else:
+            assert n["paged_verify_tree"] == n["mha_decode"] == 0
+            assert n["paged_verify"] == L * (s["prefill_calls"]
+                                             + s["spec_ticks"])

@@ -5,7 +5,11 @@ kernel against its plain version on the card.
 
 Tolerances: the W8A8 product is bit-identical (exact integer sums, the
 same float32 epilogue order); attention with float32 queries agrees to
-``atol = rtol = 1e-5`` (float32 sums taken in another order).  XLA's CPU
+``atol = rtol = 1e-5`` (float32 sums taken in another order).  Against
+the Pallas kernels run in interpret mode, which keep the softmax
+probabilities in float32 where the plain versions round them to bf16
+before the PV product on bf16 caches, each output vector (row, query,
+head) agrees to ``1e-2`` of its own largest magnitude.  XLA's CPU
 backend cannot run the JAX verify oracle on bf16 pages (its bf16 x bf16
 -> f32 PV product, ROADMAP C1), so the verify sweeps hold float32 pages
 of bf16-representable values, and the bf16 rounding of the probabilities
@@ -17,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch import bridge
 from repro_torch.kernels import build, ops
@@ -25,6 +30,15 @@ ATOL = RTOL = 1e-5
 
 _jpaged_mha = jax.jit(jref.paged_mha_decode_ref, static_argnames="window")
 _jpaged_verify = jax.jit(jref.paged_verify_ref, static_argnames="window")
+#: per output vector, plain (bf16 probabilities) vs interpret (float32)
+VEC_REL_TOL = 1e-2
+
+
+def _vec_rel_err(got: np.ndarray, want: np.ndarray) -> float:
+    """The largest error of an output vector (the last axis) over that
+    vector's largest magnitude."""
+    err = np.abs(got - want).max(axis=-1)
+    return float((err / np.maximum(np.abs(want).max(axis=-1), 1e-30)).max())
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -93,11 +107,14 @@ def test_paged_mha_decode_plain_matches_ref(window, Hkv, group):
                                rtol=RTOL)
 
 
-@pytest.mark.parametrize("mode", ["causal", "window", "anc"])
+@pytest.mark.parametrize("mode", ["causal", "window", "anc", "anc_any"])
 def test_paged_verify_plain_matches_ref(mode):
     """Ragged bases, a row starting mid-page, and a row parked at the end
-    of its table (``base >= n_pg * ps``, output never read but finite)."""
-    rng = np.random.default_rng({"causal": 0, "window": 1, "anc": 2}[mode])
+    of its table (``base >= n_pg * ps``, output never read but finite).
+    ``anc`` is a lower-triangular tree mask, ``anc_any`` a random one
+    that lets queries see later chunk positions too."""
+    rng = np.random.default_rng(
+        {"causal": 0, "window": 1, "anc": 2, "anc_any": 3}[mode])
     B, C, Hkv, group, D, ps, n_pg = 3, 5, 2, 2, 16, 8, 4
     P = 1 + B * n_pg
     kb, vb, kt, vt = _pool(rng, P, Hkv, ps, D, jnp.float32)
@@ -109,6 +126,8 @@ def test_paged_verify_plain_matches_ref(mode):
     if mode == "anc":
         anc = np.tril(rng.integers(0, 2, (B, C, C))).astype(np.int32)
         anc[:, np.arange(C), np.arange(C)] = 1
+    elif mode == "anc_any":
+        anc = rng.integers(0, 2, (B, C, C)).astype(np.int32)
     want = _jpaged_verify(
         jnp.asarray(q), kb, vb, jnp.asarray(base), jnp.asarray(bt),
         window=window, anc=None if anc is None else jnp.asarray(anc))
@@ -142,6 +161,66 @@ def test_paged_verify_bf16_pages_single_position_matches_decode_ref(window):
                                rtol=RTOL)
 
 
+@pytest.mark.parametrize("tri", [True, False])
+def test_paged_verify_tree_plain_matches_interpret_kernel(tri):
+    """The plain tree-masked verify on bf16 pages against the Pallas tree
+    kernel (``_paged_verify_tree_kernel``) in interpret mode, on tree
+    masks and on a random mask, with a row parked past its table."""
+    rng = np.random.default_rng(20 + tri)
+    B, C, Hkv, group, D, ps, n_pg = 3, 6, 2, 2, 16, 8, 4
+    P = 1 + B * n_pg
+    kb, vb, kt, vt = _pool(rng, P, Hkv, ps, D)
+    base = np.array([0, 13, n_pg * ps], np.int32)
+    bt = _block_table(rng, B, n_pg, P, [1, 3, n_pg])
+    q = rng.standard_normal((B, C, Hkv * group, D)).astype(np.float32)
+    if tri:
+        anc = np.zeros((B, C, C), np.int32)
+        for b in range(B):
+            anc[b, 0, 0] = 1
+            for j in range(1, C):
+                anc[b, j] = anc[b, rng.integers(0, j)]
+                anc[b, j, j] = 1
+    else:
+        anc = rng.integers(0, 2, (B, C, C)).astype(np.int32)
+    want = jops.paged_verify(jnp.asarray(q), kb, vb, jnp.asarray(base),
+                             jnp.asarray(bt), anc=jnp.asarray(anc),
+                             backend="interpret")
+    got = ops.paged_verify(torch.from_numpy(q), kt, vt,
+                           torch.from_numpy(base), torch.from_numpy(bt),
+                           anc=torch.from_numpy(anc))
+    assert _vec_rel_err(_np(got)[:2], np.asarray(want)[:2]) <= VEC_REL_TOL
+
+
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("Hkv,group,S", [(2, 1, 24), (2, 2, 37)])
+@pytest.mark.parametrize("cache", ["float32", "bfloat16"])
+def test_mha_decode_plain_matches_ref_and_interpret_kernel(window, Hkv,
+                                                           group, S, cache):
+    """The contiguous decode attention (the draft model's) against the
+    JAX oracle and the Pallas ``_mha_kernel`` in interpret mode (which
+    pads S to its block; the port masks a ragged S itself), on rows of
+    one key to the whole cache."""
+    rng = np.random.default_rng(window + S + group)
+    B, D = 3, 16
+    dt = getattr(jnp, cache)
+    k = jnp.asarray(rng.standard_normal((B, Hkv, S, D)), jnp.bfloat16)
+    v = jnp.asarray(rng.standard_normal((B, Hkv, S, D)), jnp.bfloat16)
+    k, v = k.astype(dt), v.astype(dt)
+    lengths = np.array([1, 9, S], np.int32)
+    q = rng.standard_normal((B, Hkv * group, D)).astype(np.float32)
+    args = (jnp.asarray(q), k, v, jnp.asarray(lengths))
+    got = ops.mha_decode(torch.from_numpy(q),
+                         bridge.to_tensor(np.asarray(k)),
+                         bridge.to_tensor(np.asarray(v)),
+                         torch.from_numpy(lengths), window=window)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    want = jref.mha_decode_ref(*args, window=window)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=ATOL,
+                               rtol=RTOL)
+    kern = jops.mha_decode(*args, window=window, backend="interpret", bs=16)
+    assert _vec_rel_err(_np(got), np.asarray(kern)) <= VEC_REL_TOL
+
+
 def test_paged_verify_window_and_anc_are_exclusive():
     q = torch.zeros((1, 2, 1, 4))
     pages = torch.zeros((2, 1, 4, 4), dtype=torch.bfloat16)
@@ -170,7 +249,8 @@ def test_plain_path_counts_no_launch():
     ops.quant_matmul(x, torch.ones((4, 3), dtype=torch.int8),
                      torch.ones((2, 1)), torch.ones((1, 3)))
     assert ops.launch_counts() == {
-        "mp_matmul": 0, "paged_mha_decode": 0, "paged_verify": 0}
+        "mp_matmul": 0, "paged_mha_decode": 0, "paged_verify": 0,
+        "paged_verify_tree": 0, "mha_decode": 0}
 
 
 def test_gpt2_attention_geometry_fits_shared_memory():
@@ -205,5 +285,18 @@ def test_build_without_toolkit_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
     assert {p.name for p in build.sources()} == {
-        "mp_matmul.cu", "paged_mha.cu", "paged_verify.cu"}
+        "mha_decode.cu", "mp_matmul.cu", "paged_mha.cu", "paged_verify.cu"}
 
+
+
+def test_mdk_registry_names_the_reference_kernels():
+    """Each macro kernel kind maps to the wrapper of the same kernel as in
+    the reference (``"mha"`` to the contiguous decode attention, not its
+    paged sibling); ``ln_res`` is not ported yet."""
+    from repro.core import mdk as jmdk
+    from repro_torch.core import mdk
+
+    assert set(mdk.MDK_REGISTRY) == set(jmdk.MDK_REGISTRY) - {"ln_res"}
+    for kind, fn in mdk.MDK_REGISTRY.items():
+        assert fn.__name__ == jmdk.MDK_REGISTRY[kind].__name__
+    assert mdk.MDK_REGISTRY["mha"] is ops.mha_decode

@@ -57,7 +57,7 @@ def test_unsupported_stacks_raise():
         lm.init(cfg, torch.Generator().manual_seed(0), max_seq=16)
     with pytest.raises(NotImplementedError, match="layout"):
         lm.init_cache(get_config("gpt2-345m").reduced(), 4, PS,
-                      layout="stacked")
+                      layout="layers")
 
 
 def test_bridge_params_layout(model):
