@@ -19,12 +19,18 @@ is caught and continued:
    verify runs on trees built with ``TokenTree`` and on a random mask, and
    a lower-triangular mask must give output bit-identical to the causal
    kernel; the contiguous decode kernel returns zeros for an empty row.
+   ``ln_res`` (rows 8, 32, 256; widths 1024, 4096 and a ragged 1000;
+   LayerNorm and RMSNorm; x and res float32 and bf16): the new residual
+   bit-identical, ``scale`` within 1e-5 relative, ``y`` within one bf16
+   ulp, ``y_q`` within 1 and equal on at least 99.9% of elements.
 4. Timing: each kernel, its plain version and one PyTorch library call
    that computes the same function, timed with CUDA events per launch
    with the 50 MB L2 flushed before each launch (the serving loop streams
    ~300 MB of other weights and pages between two uses of one layer's),
    beside the least time the card could take (bytes over 3.35 TB/s or
-   operations over the dense peak of the operands' type).
+   operations over the dense peak of the operands' type).  No PyTorch
+   call computes ``ln_res``; ``F.layer_norm`` of the sum is printed beside
+   it as the norm alone.
 5. Serving: full-width ``gpt2-345m`` with random weights from a seeded
    generator, W8A8 SmoothQuant calibrated on seeded prompts, paged KV
    cache, chunk 32, 8 slots, ``max_seq`` 1024, 16 greedy requests with
@@ -33,7 +39,13 @@ is caught and continued:
    have launched.  Then one prompt is prefilled and decoded at full width
    on the card and on the CPU (plain versions) with the same weights, and
    the logits must agree.
-6. Speculative serving at full width, same engine settings, 8 requests
+6. MDK program: the 49 ``ln_res`` stages of the stage program
+   (``l{i}.ln1``, ``l{i}.ln2``, ``final_ln``) through
+   ``MDK_REGISTRY["ln_res"]`` with the full-width LayerNorm parameters, at
+   8 and 32 rows, each against the plain version; ``ln_res``'s launch
+   count is taken from this walk (the port, like the reference, calls it
+   from nowhere else).
+7. Speculative serving at full width, same engine settings, 8 requests
    of 64 new tokens: (a) chain speculation with the n-gram proposer, k 4,
    on prompts that repeat short token runs; (b) tree speculation with a
    draft model, k 8, branch 3, the draft being the target's fp weights
@@ -42,20 +54,33 @@ is caught and continued:
    Each run's launch counts are zeroed before and read after it; the
    tree run must launch the tree-masked verify and the contiguous decode
    kernel.  Each run's streams are held against plain decode of the same
-   prompts on the card under the rule of phase 7, the two computations
-   being decode steps along the shared history and verify calls of the
-   run's width over it, each in a batch of the engine's 8 rows.
-7. Reduced-config agreement: the reduced config served by the engine on
-   the card and on the CPU with the same W8A8 weights (batched slots,
-   chunked prefill, a shared prefix), plainly, with chain speculation and
-   with tree speculation.  The free-running greedy agreement of the
-   served streams is printed.  Each pair of streams must be equal up to
-   where it parts, and every parting must be a near-tie: fed the shared
-   history, the two computations' logits agree to ``LOGIT_REL_TOL`` of
-   their range, and each one's margin of its own token over the other's
-   is at most twice their largest logit difference, the most that
-   difference can overturn.
-8. One ``kernels`` JSON line, then the device JSON line last.
+   prompts on the card under the near-tie rule of phase 10, the two
+   computations being decode steps along the shared history and verify
+   calls of the run's width over it, each in a batch of the engine's 8
+   rows.
+8. Stacked serving: the same engine on the stacked layout (a contiguous
+   ``max_seq`` region per slot; the contiguous decode kernel as the
+   target's decode), plainly and with chain speculation on phase 7's
+   chain prompts, each held against phase 7's paged run of the same
+   prompts and variant under the near-tie rule.
+9. Over-commit and preemption: paged, ``OvercommitAdmission`` on a pool
+   too small for the requests' reservations; at least one preemption to
+   host and one by recompute, one queued and one seated request
+   cancelled; pages drain to 0; streams held against an uninterrupted run
+   under the near-tie rule.
+10. Reduced-config agreement: the reduced config served by the engine on
+    the card and on the CPU with the same W8A8 weights (batched slots,
+    chunked prefill, a shared prefix), plainly, with chain speculation
+    and with tree speculation.  The free-running greedy agreement of the
+    served streams is printed.  Each pair of streams must be equal up to
+    where it parts, and every parting must be a near-tie: fed the shared
+    history, the two computations' logits agree to ``LOGIT_REL_TOL`` of
+    their range, and each one's margin of its own token over the other's
+    is at most twice their largest logit difference, the most that
+    difference can overturn.
+11. One ``kernels`` JSON line (six kernels, each with its launches on its
+    own path and per run), the total time, the card's name and power
+    limit, then the device JSON line last.
 """
 from __future__ import annotations
 
@@ -73,11 +98,17 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import scheduler  # noqa: E402
+from repro_torch.core.mdk import MDK_REGISTRY  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.layers import to_device  # noqa: E402
+from repro_torch.serving.admission import (  # noqa: E402
+    FIFOAdmission, OvercommitAdmission)
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
+from repro_torch.serving.lifecycle import (  # noqa: E402
+    DECODE, PREEMPTED_HOST, PREEMPTED_RECOMPUTE)
 from repro_torch.serving.speculative import (SpecConfig,  # noqa: E402
                                              TokenTree, tree_arrays)
 from repro_torch.serving.quantize import (calibrate,  # noqa: E402
@@ -103,6 +134,15 @@ AGREE_MAX_SEQ, AGREE_PAGE, AGREE_CHUNK = 128, 16, 16
 #: speculative serving: chain k, tree k and branch, draft noise (std)
 CHAIN_K, TREE_K, TREE_BRANCH, DRAFT_SIGMA = 4, 8, 3, 0.25
 SPEC_REQUESTS, SPEC_NEW, SPEC_PROMPT_LENS = 8, 64, (16, 512)
+#: ln_res against its plain version: rows, widths (one ragged), and the
+#: shapes timed (a decode tick's and a large batch's rows at GPT-2's width)
+LN_ROWS, LN_WIDTHS, LN_TIMED = (8, 32, 256), (1024, 4096, 1000), (8, 256)
+#: ln_res tolerances: y within one bf16 ulp, scale within 1e-5 relative,
+#: y_q within 1 everywhere and equal on this share of elements
+LN_SCALE_RTOL, LN_YQ_EQUAL = 1e-5, 0.999
+#: the over-commit phase's page pool (pages of 16, the null page included):
+#: every prompt fits, the requests' reservations together do not
+OVERCOMMIT_PAGES = 97
 
 
 class SmokeFailure(RuntimeError):
@@ -238,6 +278,8 @@ def kernel_phase(dev, timer):
 
     # -- mp_matmul: every (K, N) of the model at M = 1, slots, chunk
     layer = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    prefill = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "library_ms": 0.0}
     mp_err = 0.0
     for K, N in MP_SHAPES:
         for M in (1, SLOTS, CHUNK):
@@ -265,11 +307,16 @@ def kernel_phase(dev, timer):
             print(f"mp_matmul M={M} K={K} N={N}: bit-identical, kernel "
                   f"{t:.4f} ms, plain {tp:.4f} ms, library {lib} ms, bound "
                   f"{b:.5f} ms ({by})")
+            n = MP_PER_LAYER[(K, N)]
             if M == SLOTS:
-                n = MP_PER_LAYER[(K, N)]
                 layer["ms"] += n * t
                 layer["plain_ms"] += n * tp
                 layer["bound_ms"] += n * b
+            if M == CHUNK:
+                prefill["ms"] += n * t
+                prefill["plain_ms"] += n * tp
+                prefill["bound_ms"] += n * b
+                prefill["library_ms"] += n * tl
     for out_dtype, bias in ((torch.bfloat16, False), (torch.float32, True)):
         x, w, xs, ws, bb = mp_inputs(rng, 5, 1000, 300, dev, bias=bias)
         got = ops.quant_matmul(x, w, xs, ws, bb, out_dtype=out_dtype)
@@ -285,7 +332,14 @@ def kernel_phase(dev, timer):
         "plain_ms": layer["plain_ms"],
         "bound_ms": layer["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
-        "shape": f"one decoder layer's 6 calls at M={SLOTS}"}
+        "shape": f"one decoder layer's 6 calls at M={SLOTS}",
+        **{f"prefill_{k}": v for k, v in prefill.items()},
+        "prefill_shape": f"one decoder layer's 6 calls at M={CHUNK}; "
+                         "library: torch._int_mm and the same epilogue"}
+    print(f"mp_matmul one layer at M={CHUNK}: kernel {prefill['ms']:.4f} ms, "
+          f"plain {prefill['plain_ms']:.4f} ms, library "
+          f"{prefill['library_ms']:.4f} ms, bound "
+          f"{prefill['bound_ms']:.5f} ms")
 
     # -- paged_mha_decode: B = slots, GPT-2 heads, max_seq 1024
     H, D = 16, 64
@@ -383,6 +437,7 @@ def kernel_phase(dev, timer):
     entries["paged_verify"].update(chain_verify_timing(dev, timer, rng))
     entries["paged_verify_tree"] = tree_verify_phase(dev, timer, rng)
     entries["mha_decode"] = mha_decode_phase(dev, timer, rng)
+    entries["ln_res"] = ln_res_phase(dev, timer, rng)
     return entries
 
 
@@ -604,6 +659,154 @@ def mha_decode_phase(dev, timer, rng):
         "shape": f"B={B} H={H} D={D} S={S} float32 cache"}
 
 
+def bf16_ulp(a):
+    """The spacing of bf16 values around float32 ``a``."""
+    mag = a.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def ln_res_check(got, want):
+    """``got`` against ``want`` (ln_res outputs) under the stated
+    tolerances: the new residual bit-identical, ``scale`` within
+    ``LN_SCALE_RTOL``, ``y`` within one bf16 ulp per element, ``y_q``
+    within 1 and equal on ``LN_YQ_EQUAL`` of elements.  Returns (faults,
+    largest y error, share of equal y_q)."""
+    bad = []
+    gy, wy = got[0].float(), want[0].float()
+    if [t.dtype for t in got] != [t.dtype for t in want] \
+            or [t.shape for t in got] != [t.shape for t in want]:
+        bad.append("dtypes or shapes differ")
+        return bad, float("inf"), 0.0
+    if not torch.equal(got[1], want[1]):
+        bad.append("r not bit-identical")
+    if not ((got[3] - want[3]).abs() <= LN_SCALE_RTOL * want[3].abs()).all():
+        bad.append(f"scale beyond {LN_SCALE_RTOL} relative")
+    if not ((gy - wy).abs() <= torch.maximum(bf16_ulp(gy),
+                                             bf16_ulp(wy))).all():
+        bad.append("y beyond one bf16 ulp")
+    dq = (got[2].int() - want[2].int()).abs()
+    eq = (dq == 0).float().mean().item()
+    if dq.max().item() > 1 or eq < LN_YQ_EQUAL:
+        bad.append(f"y_q beyond 1 or equal on < {LN_YQ_EQUAL}")
+    return bad, (gy - wy).abs().max().item(), eq
+
+
+def ln_res_inputs(rng, B, D, dtype, dev, mean=0.0):
+    x = torch.from_numpy(3 * rng.standard_normal((B, D)).astype(np.float32))
+    res = torch.from_numpy((rng.standard_normal((B, D)) + mean).astype(
+        np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, D).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.standard_normal(D)).astype(np.float32))
+    return x.to(dev, dtype), res.to(dev, dtype), w.to(dev), b.to(dev)
+
+
+def ln_res_bytes(B, D, x_bytes, r_bytes):
+    """x and res read once, w and b, then y (bf16), r, y_q, scale."""
+    return B * D * (x_bytes + r_bytes) + 8 * D + B * D * (2 + r_bytes + 1) \
+        + 4 * B
+
+
+def ln_res_phase(dev, timer, rng):
+    """The Fused LN&Res kernel against its plain version: rows 8, 32 and
+    256, widths 1024, 4096 and a ragged 1000, LayerNorm and RMSNorm, x and
+    res in float32 and bf16 (one row block with a large mean).  Then
+    timed at B 8 and B 256 x D 1024 (float32 x and res), beside
+    ``F.layer_norm`` of the sum (the norm alone: no residual output and no
+    quantization)."""
+    worst, worst_eq = 0.0, 1.0
+    for kind in ("layernorm", "rmsnorm"):
+        for dtype in (torch.float32, torch.bfloat16):
+            for B in LN_ROWS:
+                for D in LN_WIDTHS:
+                    x, res, w, b = ln_res_inputs(
+                        rng, B, D, dtype, dev,
+                        mean=3000.0 if B == 32 else 0.0)
+                    got = ops.ln_res(x, res, w, b, kind=kind)
+                    want = ref.ln_res_ref(x, res, w, b, kind=kind)
+                    torch.cuda.synchronize()
+                    bad, err, eq = ln_res_check(got, want)
+                    check(not bad, f"ln_res {kind} {dtype} B={B} D={D}: "
+                          f"{bad}")
+                    worst, worst_eq = max(worst, err), min(worst_eq, eq)
+            print(f"ln_res {kind} x/res {dtype}: B {LN_ROWS} x D "
+                  f"{LN_WIDTHS} within tolerance (r bit-identical, scale "
+                  f"<= {LN_SCALE_RTOL} rel, y <= 1 bf16 ulp, y_q <= 1)")
+    print(f"ln_res: largest y error {worst:.3e}, smallest share of equal "
+          f"y_q {worst_eq:.6f} (>= {LN_YQ_EQUAL})")
+    timed = {}
+    D = 1024
+    for B in LN_TIMED:
+        x, res, w, b = ln_res_inputs(rng, B, D, torch.float32, dev)
+        t = timer.ms(lambda: ops.ln_res(x, res, w, b))
+        tp = timer.ms(lambda: ref.ln_res_ref(x, res, w, b))
+        tn = timer.ms(lambda: F.layer_norm(x + res, (D,), w, b))
+        bnd, by = bound_ms(ln_res_bytes(B, D, 4, 4), 12 * B * D, "f32")
+        timed[B] = (t, tp, tn, bnd, by)
+        print(f"ln_res B={B} D={D} float32: kernel {t:.4f} ms, plain "
+              f"{tp:.4f} ms, library none (F.layer_norm of the sum, the "
+              f"norm alone: {tn:.4f} ms), bound {bnd:.6f} ms ({by})")
+    (t, tp, tn, bnd, by), big = timed[LN_TIMED[0]], timed[LN_TIMED[1]]
+    return {
+        "name": "ln_res", "route": "cuda",
+        "source": "src/repro_torch/csrc/ln_res.cu",
+        "replaces": "src/repro/kernels/ln_res_kernel.py:64",
+        "max_abs_err": worst, "ms": t, "plain_ms": tp, "bound_ms": bnd,
+        "bound_by": by, "library_ms": None,
+        "shape": f"B={LN_TIMED[0]} D={D} float32 x/res, layernorm",
+        "norm_only_ms": tn, f"B{LN_TIMED[1]}_ms": big[0],
+        f"B{LN_TIMED[1]}_plain_ms": big[1],
+        f"B{LN_TIMED[1]}_norm_only_ms": big[2],
+        f"B{LN_TIMED[1]}_bound_ms": big[3]}
+
+
+def mdk_program_phase(dev, qparams, cfg):
+    """Walk the ``ln_res`` stages of the per-token stage program
+    (``l{i}.ln1``, ``l{i}.ln2``, ``final_ln``) through
+    ``MDK_REGISTRY["ln_res"]``, with each stage's LayerNorm weight and
+    bias from the full-width parameters, at a decode tick's rows and a
+    prefill chunk's; each output against the plain version.  Returns the
+    kernel's launches in this walk."""
+    phase("MDK program (ln_res stages through MDK_REGISTRY, full width)")
+    stages = [st for st in scheduler.model_program(cfg)
+              if st.kernel == "ln_res"]
+    check(len(stages) == 2 * cfg.n_layers + 1,
+          f"MDK program: {len(stages)} ln_res stages")
+    fn = MDK_REGISTRY["ln_res"]
+    check(fn is ops.ln_res, "MDK_REGISTRY['ln_res'] is not ops.ln_res")
+
+    def norm_params(name):
+        if name == "final_ln":
+            return qparams["final_ln"]
+        li, which = name[1:].split(".")
+        return qparams["layers"][int(li)][which]
+
+    rng = np.random.default_rng(5)
+    runs = []
+    ops.reset_launch_counts()
+    for rows in (SLOTS, CHUNK):
+        for st in stages:
+            x, res, _, _ = ln_res_inputs(rng, rows, cfg.d_model,
+                                         torch.float32, dev)
+            p = norm_params(st.name)
+            runs.append((st.name, rows, x, res, p,
+                         fn(x, res, p["w"], p.get("b"), kind=cfg.norm)))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["ln_res"]
+    worst = 0.0
+    for name, rows, x, res, p, got in runs:
+        want = ref.ln_res_ref(x, res, p["w"], p.get("b"), kind=cfg.norm)
+        bad, err, _ = ln_res_check(got, want)
+        check(not bad, f"MDK stage {name} rows {rows}: {bad}")
+        worst = max(worst, err)
+    check(launches == len(runs), f"MDK program: {launches} ln_res launches "
+          f"for {len(runs)} stage calls")
+    print(f"MDK program: {len(stages)} ln_res stages ({stages[0].name} .. "
+          f"{stages[-1].name}) x rows ({SLOTS}, {CHUNK}) through "
+          f"MDK_REGISTRY['ln_res']: {launches} launches, each within "
+          f"tolerance of the plain version (largest y error {worst:.3e})")
+    return launches
+
+
 def serving_phase(dev):
     phase("serving (full-width gpt2-345m, W8A8, paged, chunked prefill)")
     cfg = get_config("gpt2-345m")
@@ -694,28 +897,39 @@ def serving_phase(dev):
 
 
 def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
-                 page=AGREE_PAGE, chunk=AGREE_CHUNK, rows=1, verify=0):
+                 page=AGREE_PAGE, chunk=AGREE_CHUNK, rows=1, verify=0,
+                 layout="paged"):
     """The model's next-token logits after ``prompt`` and then each token
-    of ``forced`` fed back in turn (teacher forcing), through the paged
-    prefill chunks and decode steps the engine runs, on ``dev``.  With
-    ``verify`` the forced tokens go through speculative verify calls of
-    that width (the verify kernel) instead of decode steps (the decode
-    kernel).  The request is row 0 of a batch of ``rows`` (the others
-    parked), so every call has the engine's shapes: the float32 matrix
-    products round differently at different row counts."""
-    n_pg = max_seq // page
-    cache = lm.init_cache(cfg, 1 + n_pg, page, device=dev)
-    bt = torch.arange(1, 1 + n_pg, dtype=torch.int32, device=dev)
+    of ``forced`` fed back in turn (teacher forcing), through the prefill
+    chunks and decode steps the engine runs, on ``dev``, on the paged or
+    the stacked cache.  With ``verify`` the forced tokens go through
+    speculative verify calls of that width instead of decode steps.  The
+    request is row 0 of a batch of ``rows`` (the others parked), so every
+    call has the engine's shapes: the float32 matrix products round
+    differently at different row counts."""
+    lengths = torch.full((rows,), max_seq, dtype=torch.int32)
+    if layout == "paged":
+        n_pg = max_seq // page
+        cache = lm.init_cache(cfg, 1 + n_pg, page, device=dev)
+        bt = torch.arange(1, 1 + n_pg, dtype=torch.int32, device=dev)
+        bts = torch.zeros((rows, n_pg), dtype=torch.int32, device=dev)
+        bts[0] = bt
+        active = torch.zeros(rows, dtype=torch.bool, device=dev)
+        active[0] = True
+        into = {"block_table": bt}
+        step = {"block_table": bts, "active": active}
+        ver = {"block_tables": bts}
+    else:
+        cache = lm.init_cache(cfg, rows, max_seq, layout="stacked",
+                              device=dev)
+        into, step, ver = {"slot": 0}, {}, {}
     for off in range(0, len(prompt), chunk):
         piece = prompt[off:off + chunk]
         toks = torch.zeros(chunk, dtype=torch.int64)
         toks[:len(piece)] = torch.tensor(piece)
         lg, cache = lm.prefill_into_slot(
             params, cfg, toks.to(dev), cache, off, valid=len(piece),
-            block_table=bt, dtype=torch.float32)
-    bts = torch.zeros((rows, n_pg), dtype=torch.int32, device=dev)
-    bts[0] = bt
-    lengths = torch.full((rows,), max_seq, dtype=torch.int32)
+            dtype=torch.float32, **into)
     if verify:
         for off in range(0, len(forced), verify):
             piece = forced[off:off + verify]
@@ -724,25 +938,24 @@ def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
             lengths[0] = len(prompt) + off
             lgs, cache = lm.verify_chunk(
                 params, cfg, toks.to(dev), cache, lengths.to(dev),
-                block_tables=bts, dtype=torch.float32)
+                dtype=torch.float32, **ver)
             lg = lgs[0, len(piece) - 1]
         return lg.float().cpu()
-    active = torch.zeros(rows, dtype=torch.bool, device=dev)
-    active[0] = True
     for i, t in enumerate(forced):
         toks = torch.zeros((rows, 1), dtype=torch.int64)
         toks[0, 0] = t
         lengths[0] = len(prompt) + i
         lg, cache = lm.decode_step(
             params, cfg, toks.to(dev), cache, lengths.to(dev),
-            block_table=bts, active=active, dtype=torch.float32)
+            dtype=torch.float32, **step)
         lg = lg[0]
     return lg.float().cpu()
 
 
 def hold_streams(what, streams, prompts, logits_fns, n_new):
     """Two computations' served streams (``streams = (a, b)``, rid ->
-    tokens) must be equal up to where a pair parts, and each parting must
+    tokens; ``prompts`` indexed by rid) must be equal up to where a pair
+    parts, and each parting must
     be a near-tie: fed the shared history, the two computations' logits
     (``logits_fns = (fa, fb)``, each ``(prompt, history) -> logits``)
     agree to ``LOGIT_REL_TOL`` of their range, and each one's margin of
@@ -750,8 +963,8 @@ def hold_streams(what, streams, prompts, logits_fns, n_new):
     difference.  Returns the free-running agreement."""
     a_out, b_out = streams
     fa, fb = logits_fns
-    check(sorted(a_out) == sorted(b_out) == list(range(len(prompts))),
-          f"{what}: a request was not served")
+    check(sorted(a_out) == sorted(b_out), f"{what}: a request was not "
+          "served by both")
     total = sum(len(o) for o in b_out.values())
     free = sum(x == y for rid, o in b_out.items()
                for x, y in zip(o, a_out[rid]))
@@ -795,10 +1008,52 @@ def repetitive_prompts(rng, n, vocab, lo, hi):
     return out
 
 
+def engine_run(label, eng, prompts, max_new, *, drive=None):
+    """Submit ``prompts``, zero the launch counters and the peak-memory
+    mark, then run the engine to the end (``drive(eng)`` ticks it first,
+    for runs that preempt or cancel on the way).  Prints tokens/s, TTFT
+    and TPOT; returns (rid -> tokens, stats, launches, peak bytes)."""
+    for p in prompts:
+        eng.submit(p, max_new=max_new)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if drive is not None:
+        drive(eng)
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    s = eng.stats()
+    toks = sum(len(r.out) for r in done)
+    check(all(len(r.out) == max_new for r in done),
+          f"{label}: a request did not produce its tokens")
+    print(f"{label}: {len(done)} requests ({sum(map(len, prompts))} prompt "
+          f"tokens submitted, {toks} new) in {wall:.3f} s: "
+          f"{toks / wall:.1f} tok/s; TTFT p50 {s['p50_ttft_s'] * 1e3:.1f} ms "
+          f"p99 {s['p99_ttft_s'] * 1e3:.1f} ms; TPOT p50 "
+          f"{s['p50_tpot_s'] * 1e3:.2f} ms p99 {s['p99_tpot_s'] * 1e3:.2f} "
+          f"ms; tokens per model call {s['tokens_per_model_call']:.3f}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"{label} launches: {json.dumps(launches)}")
+    return ({r.rid: r.out for r in done}, s, launches,
+            torch.cuda.max_memory_allocated())
+
+
+def w8a8_engine(cfg, qparams, dev, **kw):
+    """An engine on the W8A8 weights of phase 5, run as a W8A8 engine runs
+    them (float32 activations), at the serving shapes."""
+    return ServeEngine(cfg, qparams, batch_slots=SLOTS, max_seq=MAX_SEQ,
+                       eos_id=-1, act_dtype=torch.float32, chunk_size=CHUNK,
+                       page_size=PAGE, seed=0, device=dev, **kw)
+
+
 def spec_serving_phase(dev, qparams, cfg):
     """Phase 6: full-width speculative serving, chain + n-gram and tree +
     draft model, each held against plain decode of the same prompts on
-    the card.  Returns each run's launch counts."""
+    the card.  Returns each run's launch counts, and the chain run's
+    prompts and (spec, plain) streams."""
     phase("speculative serving (full-width gpt2-345m, W8A8, paged)")
     rng = np.random.default_rng(3)
     n_req, max_new, (lo, hi) = SPEC_REQUESTS, SPEC_NEW, SPEC_PROMPT_LENS
@@ -816,40 +1071,16 @@ def spec_serving_phase(dev, qparams, cfg):
                   for n in np.linspace(lo, hi, n_req)]),
     }
     L = cfg.n_layers
-    out = {}
+    out, kept = {}, {}
     for name, (spec, prompts) in runs.items():
         streams = []
         for sp in (spec, None):
-            # the W8A8 weights of phase 5, run as a W8A8 engine runs them
-            eng = ServeEngine(cfg, qparams, batch_slots=SLOTS,
-                              max_seq=MAX_SEQ, eos_id=-1,
-                              act_dtype=torch.float32, chunk_size=CHUNK,
-                              page_size=PAGE, seed=0, spec=sp, device=dev)
-            for p in prompts:
-                eng.submit(p, max_new=max_new)
-            torch.cuda.synchronize()
-            ops.reset_launch_counts()
-            t0 = time.perf_counter()
-            done = eng.run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = ops.launch_counts()
-            s = eng.stats()
-            toks = sum(len(r.out) for r in done)
-            check(len(done) == n_req
-                  and all(len(r.out) == max_new for r in done),
-                  f"spec {name}: not every request produced its tokens")
-            streams.append({r.rid: r.out for r in done})
             label = f"{name} spec" if sp is not None else f"{name} plain"
-            print(f"{label}: {n_req} requests ({sum(map(len, prompts))} "
-                  f"prompt tokens, {toks} new) in {wall:.3f} s: "
-                  f"{toks / wall:.1f} tok/s; TTFT p50 "
-                  f"{s['p50_ttft_s'] * 1e3:.1f} ms p99 "
-                  f"{s['p99_ttft_s'] * 1e3:.1f} ms; TPOT p50 "
-                  f"{s['p50_tpot_s'] * 1e3:.2f} ms p99 "
-                  f"{s['p99_tpot_s'] * 1e3:.2f} ms; tokens per model call "
-                  f"{s['tokens_per_model_call']:.3f}")
-            print(f"{label} launches: {json.dumps(launches)}")
+            got, s, launches, _ = engine_run(
+                label, w8a8_engine(cfg, qparams, dev, spec=sp), prompts,
+                max_new)
+            check(len(got) == n_req, f"{label}: a request was not served")
+            streams.append(got)
             if sp is None:
                 continue
             print(f"{label}: acceptance {s['acceptance_rate']:.3f} "
@@ -881,8 +1112,183 @@ def spec_serving_phase(dev, qparams, cfg):
         fb = (lambda p, h: logits_after(qparams, cfg, p, h, dev, **shape))
         hold_streams(f"{name} spec vs plain on the card", streams, prompts,
                      (fa, fb), max_new)
+        kept[name] = (prompts, streams)
     del draft
+    return out, kept["chain"]
+
+
+def stacked_phase(dev, qparams, cfg, prompts, paged_streams):
+    """Full-width W8A8 serving on the stacked layout (one contiguous
+    ``max_seq`` region per slot; decode through the contiguous decode
+    kernel, chunks in plain PyTorch), plainly and with chain speculation
+    (n-gram, k ``CHAIN_K``) on phase 7's chain prompts.  Each run's
+    streams are held against the paged run of the same prompts and
+    variant from phase 7 under the near-tie rule.  Returns each run's
+    launch counts."""
+    phase("stacked serving (full-width gpt2-345m, W8A8, stacked cache)")
+    L, max_new = cfg.n_layers, SPEC_NEW
+    shape = dict(max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK, rows=SLOTS)
+    out = {}
+    for name, spec, paged in (("plain", None, paged_streams[1]),
+                              ("chain", SpecConfig(k=CHAIN_K),
+                               paged_streams[0])):
+        eng = w8a8_engine(cfg, qparams, dev, kv_layout="stacked", spec=spec)
+        check(eng.kv_layout == "stacked", "stacked: wrong layout")
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for c in eng.kv.cache["layers"] for t in c.values())
+        got, s, launches, peak = engine_run(f"stacked {name}", eng, prompts,
+                                            max_new)
+        check(len(got) == len(prompts), f"stacked {name}: a request was "
+              "not served")
+        decodes = s["model_calls"] - s["prefill_calls"] - s.get(
+            "spec_ticks", 0)
+        print(f"stacked {name}: target decode steps {decodes}, mha_decode "
+              f"launches {launches['mha_decode']}; stacked cache "
+              f"{cache_bytes / 2**30:.3f} GiB "
+              f"({cache_bytes:,} B) within the peak {peak / 2**30:.3f} GiB")
+        check(peak >= cache_bytes, f"stacked {name}: peak below the cache")
+        check(launches["mp_matmul"] == 6 * L * s["model_calls"]
+              and launches["mha_decode"] == L * decodes
+              and (decodes > 0 or spec is not None)
+              and launches["paged_mha_decode"] == launches["paged_verify"]
+              == launches["paged_verify_tree"] == 0,
+              f"stacked {name}: launch counts {launches} do not match the "
+              "calls")
+        check(s["slots_in_use"] == 0 and s["slots_in_use_peak"] == SLOTS,
+              f"stacked {name}: slots in use {s['slots_in_use']}")
+        if spec is not None:
+            print(f"stacked chain: acceptance {s['acceptance_rate']:.3f} "
+                  f"({s['spec_accepted']}/{s['spec_proposed']}), "
+                  f"{s['spec_ticks']} verify calls")
+        print(f"stacked {name} stats:", json.dumps(s, sort_keys=True))
+        width = {} if spec is None else {"verify": spec.k + 1}
+        fa = (lambda p, h, w=width: logits_after(
+            qparams, cfg, p, h, dev, layout="stacked", **w, **shape))
+        fb = (lambda p, h, w=width: logits_after(qparams, cfg, p, h, dev,
+                                                 **w, **shape))
+        hold_streams(f"stacked {name} vs paged {name} on the card",
+                     (got, paged), prompts, (fa, fb), max_new)
+        out[f"stacked {name}"] = launches
     return out
+
+
+def overcommit_phase(dev, qparams, cfg):
+    """Full-width W8A8 paged serving under ``OvercommitAdmission`` on a
+    pool of ``OVERCOMMIT_PAGES`` pages that holds every prompt but not
+    the requests' reservations together.  At least one preemption to host
+    and one by recompute happen (forced through ``_preempt`` when the
+    policy has not picked that mode by then), one queued and one seated
+    request are cancelled, and ``pages_in_use`` drains to 0.  Streams are
+    held against an uninterrupted run of the same prompts (reservation
+    admission on a full pool): equal up to where a pair parts, each
+    parting a near-tie between the uninterrupted computation and the one
+    the resumed request took (a recompute prefills ``prompt + out[:-1]``
+    in chunks where the uninterrupted run decoded it).  Returns the
+    over-commit run's launch counts."""
+    phase("over-commit and preemption (full-width gpt2-345m, W8A8, paged)")
+    rng = np.random.default_rng(4)
+    n_req, max_new = SPEC_REQUESTS, SPEC_NEW
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in np.linspace(*SPEC_PROMPT_LENS, n_req)]
+    want, ws, _, _ = engine_run("uninterrupted (reservation, full pool)",
+                                w8a8_engine(cfg, qparams, dev), prompts,
+                                max_new)
+    reserve = FIFOAdmission(cfg, chunk_size=CHUNK)
+    priced = sum(reserve.page_price(len(p), max_new, page_size=PAGE,
+                                    max_seq=MAX_SEQ) for p in prompts)
+    print(f"reservation prices the {n_req} requests at {priced} pages; the "
+          f"over-commit pool has {OVERCOMMIT_PAGES - 1}")
+    check(priced > OVERCOMMIT_PAGES - 1, "over-commit: pool not too small")
+
+    eng = w8a8_engine(cfg, qparams, dev, n_pages=OVERCOMMIT_PAGES,
+                      admission=OvercommitAdmission(cfg, chunk_size=CHUNK))
+    log = []  # (rid, outputs at preemption, mode)
+    preempt = eng._preempt
+
+    def logged(req, mode="auto"):
+        n = len(req.out)
+        preempt(req, mode)
+        log.append((req.rid, n, req.state))
+
+    eng._preempt = logged
+    cancelled, forced = [], []
+
+    def drive(e):
+        cancelled.append(e.queue[-1].rid)  # still queued
+        check(e.cancel(cancelled[0]), "over-commit: queued cancel failed")
+        last = 0  # tick of the last forced step
+        for tick in range(1, 400):
+            if not (e.queue or any(r is not None for r in e.slots)):
+                break
+            e.tick()
+            modes = {m for _, _, m in log}
+            dec = [r for r in e.slots if r is not None and r.state == DECODE
+                   and len(r.out) >= 4]
+            if not dec or tick < last + 4:
+                continue
+            if PREEMPTED_RECOMPUTE not in modes:
+                forced.append(dec[0].rid)
+                e._preempt(dec[0], "recompute")
+            elif PREEMPTED_HOST not in modes:
+                forced.append(dec[-1].rid)
+                e._preempt(dec[-1], "host")
+            elif len(cancelled) == 1:
+                cancelled.append(dec[-1].rid)
+                check(e.cancel(cancelled[1]), "over-commit: seated cancel "
+                      "failed")
+            else:
+                return
+            last = tick
+
+    got, s, launches, _ = engine_run("over-commit", eng, prompts, max_new,
+                                     drive=drive)
+    modes = [m for _, _, m in log]
+    print(f"over-commit: preemptions {s['preemptions']} (host "
+          f"{s['preempt_host']}, recompute {s['preempt_recompute']}), "
+          f"restores {s['restores']}, evicted {s['evicted_bytes_total']:,.0f}"
+          f" B, cancelled {s['cancelled']} (rids {cancelled}), pages in use "
+          f"peak {s['pages_in_use_peak']}, now {s['pages_in_use']}; "
+          f"preempted (rid, outputs, mode): {log}, of which forced "
+          f"through _preempt: rids {forced}")
+    print("over-commit stats:", json.dumps(s, sort_keys=True))
+    check(modes.count(PREEMPTED_HOST) >= 1
+          and modes.count(PREEMPTED_RECOMPUTE) >= 1,
+          "over-commit: not both preemption modes happened")
+    check(s["cancelled"] == 2 and len(cancelled) == 2,
+          "over-commit: two cancels expected")
+    check(s["pages_in_use"] == 0, "over-commit: pages did not drain")
+    check(sorted(got) == sorted(set(range(n_req)) - set(cancelled)),
+          "over-commit: the surviving requests were not all served")
+    check(launches["mp_matmul"] > 0 and launches["paged_verify"] > 0
+          and launches["paged_mha_decode"] > 0,
+          "over-commit: a kernel of the paged path was never launched")
+    # the computation each surviving request took: recompute resumes
+    # prefill prompt + out[:m-1] and decode from there
+    resumed = {tuple(prompts[rid]): n for rid, n, m in log
+               if m == PREEMPTED_RECOMPUTE and n > 0}
+    host = sorted({rid for rid, _, m in log if m == PREEMPTED_HOST}
+                  - set(cancelled))
+    shape = dict(max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK, rows=SLOTS)
+
+    def fa(p, h):
+        n = resumed.get(tuple(p))
+        if n is None or len(h) < n:
+            return logits_after(qparams, cfg, p, h, dev, **shape)
+        return logits_after(qparams, cfg, p + h[:n - 1], h[n - 1:], dev,
+                            **shape)
+
+    fb = (lambda p, h: logits_after(qparams, cfg, p, h, dev, **shape))
+    hold_streams("over-commit vs uninterrupted on the card",
+                 (got, {rid: want[rid] for rid in got}), prompts, (fa, fb),
+                 max_new)
+    parted = [rid for rid in host if got[rid] != want[rid]]
+    print(f"over-commit: host-restored requests {host} equal the "
+          f"uninterrupted streams: {not parted}")
+    print(f"uninterrupted run beside it: TTFT p50 "
+          f"{ws['p50_ttft_s'] * 1e3:.1f} ms, TPOT p50 "
+          f"{ws['p50_tpot_s'] * 1e3:.2f} ms, pages in use peak "
+          f"{ws['pages_in_use_peak']}")
+    return launches
 
 
 def agreement_phase(dev):
@@ -945,29 +1351,39 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    device_phase()
+    smi = device_phase()
     build_phase()
     timer = Timer(dev)
     entries = kernel_phase(dev, timer)
     del timer
     launches, qparams, cfg = serving_phase(dev)
-    spec_launches = spec_serving_phase(dev, qparams, cfg)
+    ln_launches = mdk_program_phase(dev, qparams, cfg)
+    spec_launches, chain_run = spec_serving_phase(dev, qparams, cfg)
+    stacked_launches = stacked_phase(dev, qparams, cfg, *chain_run)
+    oc_launches = overcommit_phase(dev, qparams, cfg)
     del qparams
     agreement_phase(dev)
     phase("kernels")
+    by_run = {"plain": launches,
+              **{f"{run} spec": n for run, n in spec_launches.items()},
+              **stacked_launches, "over-commit": oc_launches,
+              "MDK program": {"ln_res": ln_launches}}
+    # each kernel's count from the run of its own path: plain paged
+    # serving for the first slice's three, the tree run for the tree
+    # verify, the stacked target's decode for mha_decode, the MDK program
+    # walk for ln_res
+    own = {"paged_verify_tree": "tree spec", "mha_decode": "stacked plain",
+           "ln_res": "MDK program"}
     kernels = []
     for name, e in entries.items():
         e = dict(e)
-        # each kernel's count from the run of its own path: plain serving
-        # for the first slice's three, the tree run for the two it added
-        own = spec_launches["tree"] if name in (
-            "paged_verify_tree", "mha_decode") else launches
-        e["launches"] = own[name]
-        e["launches_by_run"] = {
-            "plain": launches[name],
-            **{f"{run} spec": n[name] for run, n in spec_launches.items()}}
+        e["launches"] = by_run[own.get(name, "plain")][name]
+        e["launches_by_run"] = {run: n.get(name, 0)
+                                for run, n in by_run.items()}
+        check(e["launches"] > 0, f"kernel {name} never launched on its path")
         kernels.append(e)
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    check(len(kernels) == 6, f"{len(kernels)} kernels in the line")
+    print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,9 @@ token, how many stages each kernel instance serves; ``MDK_REGISTRY`` maps
 a kernel kind to the kernel wrapper that executes it, as the JAX
 package's does: ``"mp"`` to the Fused MP kernel, ``"mha"`` to the Fused
 MHA kernel on the contiguous cache (``ops.mha_decode``; the paged decode
-kernel is its block-table sibling, ``ops.paged_mha_decode``).  It lists
-only the kernels this package has: the fused LN&Res kernel is not ported
-yet.
+kernel is its block-table sibling, ``ops.paged_mha_decode``) and
+``"ln_res"`` to the Fused LN&Res kernel (``ops.ln_res``), which, as in
+the JAX package, no model code calls: this registry is its entry point.
 """
 from __future__ import annotations
 
@@ -45,4 +45,5 @@ class MDKStats:
 MDK_REGISTRY: Dict[str, Callable] = {
     "mp": ops.quant_matmul,
     "mha": ops.mha_decode,
+    "ln_res": ops.ln_res,
 }

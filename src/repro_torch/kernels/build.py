@@ -4,8 +4,9 @@ Each source is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a`` (H100); the objects are linked into
 ``build/repro_torch/libkernels.so`` at the repository root and loaded
 with ``ctypes``.  The library exposes a plain C interface: every pointer
-and the CUDA stream are passed as ``c_void_p``, sizes as ``c_int``, and
-each entry returns ``cudaGetLastError()`` after its launches.
+and the CUDA stream are passed as ``c_void_p``, sizes as ``c_int``, an
+epsilon as ``c_float``, and each entry returns ``cudaGetLastError()``
+after its launches.
 
 The build happens at first use and is skipped while a stamp of the
 sources and flags matches, so a process pays it once.  Nothing here runs
@@ -30,7 +31,7 @@ LIB_NAME = "libkernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signatures: name -> argument types (restype is c_int for all)
 SIGNATURES = {
     # x_q, w_q, x_scale, w_scale, bias, y, part, M, N, K, splits, out_bf16,
@@ -48,6 +49,9 @@ SIGNATURES = {
     # q, k_cache, v_cache, lengths, out, q_bf16, kv_bf16,
     # B, H, Hkv, S, D, window, kt, stream
     "mha_decode": [_P] * 5 + [_I] * 9 + [_P],
+    # x, res, w, b, y, rn, yq, scale, x_bf16, res_bf16, B, D, rms, eps,
+    # stream
+    "ln_res": [_P] * 8 + [_I] * 5 + [_F, _P],
 }
 
 

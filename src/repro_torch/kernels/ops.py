@@ -13,8 +13,9 @@ launches its kernel: for ``quant_matmul`` that call launches two CUDA
 functions, ``mp_matmul_kernel`` (the int32 GEMM) and
 ``mp_splitk_epilogue``, and counts once; ``paged_verify`` counts its
 causal and its tree-masked launches apart (``launches``,
-``tree_launches``).  Unlike the TPU wrappers these pad nothing: the
-kernels mask their own ragged edges.
+``tree_launches``).  ``ln_res`` is reached only through
+``core/mdk.MDK_REGISTRY["ln_res"]``, as in the JAX package.  Unlike the
+TPU wrappers these pad nothing: the kernels mask their own ragged edges.
 """
 from __future__ import annotations
 
@@ -86,7 +87,8 @@ def launch_counts() -> Dict[str, int]:
             "paged_mha_decode": paged_mha_decode.launches,
             "paged_verify": paged_verify.launches,
             "paged_verify_tree": paged_verify.tree_launches,
-            "mha_decode": mha_decode.launches}
+            "mha_decode": mha_decode.launches,
+            "ln_res": ln_res.launches}
 
 
 def reset_launch_counts() -> None:
@@ -95,6 +97,7 @@ def reset_launch_counts() -> None:
     paged_verify.launches = 0
     paged_verify.tree_launches = 0
     mha_decode.launches = 0
+    ln_res.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +307,53 @@ def paged_verify(q, k_pages, v_pages, base, block_table, *,
     _check_launch(name, err)
     paged_verify.tree_launches += 1
     return out
+
+
+def ln_res(x, res, weight, bias=None, *, kind: str = "layernorm",
+           eps: float = 1e-5):
+    """Fused residual add + LayerNorm/RMSNorm + scale/shift + per-token
+    int8 quantization (the paper's Fused LN&Res kernel).
+
+    ``x``, ``res`` (B, D) float32 or bf16 (each its own), ``weight`` and
+    ``bias`` (D,); ``bias=None`` is zeros.  Returns ``(y bf16 (B, D), r
+    (B, D) in res's dtype, y_q int8 (B, D), scale float32 (B, 1))``."""
+    name = "ln_res"
+    if kind not in ("layernorm", "rmsnorm"):
+        raise ValueError(f"{name}: unknown norm kind {kind!r}")
+    D = x.shape[-1]
+    if bias is None:
+        bias = torch.zeros((D,), dtype=torch.float32, device=x.device)
+    if not _route(name, x, res, weight, bias):
+        return ref.ln_res_ref(x, res, weight, bias, kind=kind, eps=eps)
+    _require(x.dim() == 2 and res.shape == x.shape,
+             f"{name}: x {tuple(x.shape)} and res {tuple(res.shape)} must "
+             "be one (B, D) shape")
+    B = x.shape[0]
+    _require(B > 0 and D > 0, f"{name}: empty input")
+    for k, t in (("x", x), ("res", res)):
+        _require(t.dtype in (torch.float32, torch.bfloat16),
+                 f"{name}: {k} must be float32 or bfloat16, got {t.dtype}")
+    _require(tuple(weight.shape) == (D,) and tuple(bias.shape) == (D,),
+             f"{name}: weight and bias must be ({D},)")
+    # the kernel keeps the row in shared memory as float32, beside 384
+    # bytes of reduction scratch
+    _require(4 * D <= _SMEM_LIMIT - 384,
+             f"{name}: D={D} exceeds one block's shared memory")
+    w32 = weight.float().contiguous()
+    b32 = bias.float().contiguous()
+    _contig(name, x=x, res=res)
+    y = torch.empty((B, D), dtype=torch.bfloat16, device=x.device)
+    rn = torch.empty_like(res)
+    yq = torch.empty((B, D), dtype=torch.int8, device=x.device)
+    scale = torch.empty((B, 1), dtype=torch.float32, device=x.device)
+    err = build.library().ln_res(
+        x.data_ptr(), res.data_ptr(), w32.data_ptr(), b32.data_ptr(),
+        y.data_ptr(), rn.data_ptr(), yq.data_ptr(), scale.data_ptr(),
+        int(x.dtype == torch.bfloat16), int(res.dtype == torch.bfloat16), B,
+        D, int(kind == "rmsnorm"), float(eps), _stream(x))
+    _check_launch(name, err)
+    ln_res.launches += 1
+    return y, rn, yq, scale
 
 
 reset_launch_counts()

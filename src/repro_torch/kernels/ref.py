@@ -135,3 +135,46 @@ def paged_verify_ref(
     p = torch.where(valid.any(dim=-1, keepdim=True), p, 0.0)
     out = torch.einsum("bhgcs,bhsd->bchgd", p.to(v.dtype).float(), v.float())
     return out.reshape(B, C, H, D).to(q.dtype)
+
+
+def ln_res_ref(
+    x: torch.Tensor,  # (B, D) block output
+    res: torch.Tensor,  # (B, D) running residual
+    weight: torch.Tensor,  # (D,)
+    bias: Optional[torch.Tensor],  # (D,) or None (skips the add)
+    *,
+    kind: str = "layernorm",  # layernorm | rmsnorm
+    eps: float = 1e-5,
+):
+    """Residual add, norm, scale and shift, then per-token symmetric int8
+    quantization.  Returns ``(y bf16, new residual in res's dtype, y_q
+    int8, scale f32 (B, 1))``.  ``scale`` is taken over the float32
+    ``y``, before its bf16 rounding.
+
+    Two choices keep this version bit for bit with the CUDA kernel while
+    computing the reference's function: the sums behind the mean and the
+    variance are taken in float64 (exact or nearly, whatever their
+    order, then rounded to float32 once; a float32 sum in another order
+    would move the mean of a row with a large mean, and with it every
+    output near zero, by far more than a bf16 ulp of that output), and
+    the normalisation divides by an IEEE square root where the reference
+    multiplies by ``rsqrt``."""
+    D = x.shape[-1]
+    r = x.float() + res.float()
+    if kind == "layernorm":
+        mu = (r.double().sum(dim=-1, keepdim=True) / D).float()
+        d = r - mu
+        var = (d.double().square().sum(dim=-1, keepdim=True) / D).float()
+        y = d * (1.0 / torch.sqrt(var + eps))
+    elif kind == "rmsnorm":
+        ms = (r.double().square().sum(dim=-1, keepdim=True) / D).float()
+        y = r * (1.0 / torch.sqrt(ms + eps))
+    else:
+        raise ValueError(f"unknown norm kind {kind!r}")
+    y = y * weight.float()[None, :]
+    if bias is not None:
+        y = y + bias.float()[None, :]
+    amax = y.abs().amax(dim=-1, keepdim=True)
+    scale = amax.clamp(min=1e-6) / 127.0
+    y_q = torch.round(y / scale).clamp(-127, 127).to(torch.int8)
+    return y.to(torch.bfloat16), r.to(res.dtype), y_q, scale

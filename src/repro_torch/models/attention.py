@@ -6,9 +6,10 @@ Paged decode routes through the paged decode kernel
 through the paged verify kernel (``ops.paged_verify``, causal or
 tree-masked with ``anc``); both attend in place over the page pool, with
 no gathered ``max_seq`` view.  On the contiguous ``(B, Hkv, S, hd)``
-cache (the draft model of speculative decoding) decode goes through the
-contiguous decode kernel (``ops.mha_decode``) and a chunk attends in
-plain PyTorch, as in the reference.  Caches and page pools are updated
+cache (``kv_layout="stacked"``, and the draft model of speculative
+decoding) decode goes through the contiguous decode kernel
+(``ops.mha_decode``) and a chunk attends in plain PyTorch, causal or
+tree-masked, as in the reference.  Caches and page pools are updated
 **in place** (``index_put_``): the functions return them only to keep
 the reference's call shape.
 
@@ -121,28 +122,46 @@ def chunk_attention(
     v_cache: torch.Tensor,
     positions: torch.Tensor,  # (B, C) absolute positions
     *,
+    anc: Optional[torch.Tensor] = None,  # (B, C, C) tree ancestor bitmask
     name: str = "",
 ):
     """Multi-token attention over the contiguous cache, in plain
     PyTorch as in the reference: the chunk's K/V are written at their
     positions first (positions outside the cache, such as a last prefill
-    chunk hanging past ``max_seq``, are dropped), then each query attends
-    every key at or below its position.  Returns ``(out (B, C, D),
-    k_cache, v_cache)``."""
+    chunk hanging past ``max_seq`` or a verify row parked there, write
+    nothing), then each query attends every key at or below its position.
+    With ``anc`` (tree verify) query ``i`` attends every key below the
+    chunk's base ``positions[:, 0]`` and exactly the chunk positions
+    ``anc[b, i]`` names.  Returns ``(out (B, C, D), k_cache, v_cache)``."""
     B, C = x.shape[:2]
     S = k_cache.shape[2]
     q, k, v = _project_qkv(p, cfg, x, name)
     pos = positions.long()
+    # a position outside the cache rewrites its row's position 0 with that
+    # position's own content (no boolean indexing: that would wait for the
+    # device); a row that writes position 0 itself starts at 0 and, C being
+    # at most S, has no position outside the cache
     ok = (pos >= 0) & (pos < S)
+    idx = torch.where(ok, pos, 0)
     b_idx = torch.arange(B, device=x.device)[:, None].expand(B, C)
-    k_cache[b_idx[ok], :, pos[ok]] = k[ok].to(k_cache.dtype)
-    v_cache[b_idx[ok], :, pos[ok]] = v[ok].to(v_cache.dtype)
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        cache[b_idx, :, idx] = torch.where(
+            ok[..., None, None], new.to(cache.dtype), cache[b_idx, :, idx])
     group = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(B, C, cfg.n_kv_heads, group, cfg.head_dim)
     scores = torch.einsum("bqhgd,bhkd->bhgqk", qg.float(),
                           k_cache.float()) / (cfg.head_dim ** 0.5)
-    key_pos = torch.arange(S, device=x.device)[None, None, None, None, :]
-    mask = key_pos <= pos[:, None, None, :, None]
+    ar_s = torch.arange(S, device=x.device)
+    if anc is not None:
+        base = pos[:, :1]  # (B, 1)
+        rel = ar_s[None] - base  # (B, S) chunk-relative key position
+        in_chunk = (rel >= 0) & (rel < C)
+        bits = torch.gather(anc.bool(), 2,
+                            rel.clamp(0, C - 1)[:, None, :].expand(B, C, S))
+        mask = ((ar_s[None] < base)[:, None, :]
+                | (in_chunk[:, None, :] & bits))[:, None, None]
+    else:
+        mask = ar_s[None, None, None, None, :] <= pos[:, None, None, :, None]
     scores = torch.where(mask, scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bqhgd", probs.to(v_cache.dtype).float(),

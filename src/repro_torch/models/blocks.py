@@ -97,17 +97,14 @@ def block_apply_chunk(p: Dict, x: torch.Tensor, cache: Dict,
                       anc: Optional[torch.Tensor] = None,
                       name: str = ""):
     """One prefill or verify chunk (B, C, d) -> (x_out, cache); the cache
-    is written in place: the page pool through ``block_tables`` (with an
-    optional tree mask ``anc``), or the contiguous cache without."""
+    is written in place: the page pool through ``block_tables``, or the
+    contiguous cache without; ``anc`` is an optional tree mask on
+    either."""
     _require_attn(kind)
     h = apply_norm(p["ln1"], x, cfg.norm)
     if block_tables is None:
-        if anc is not None:
-            raise NotImplementedError(
-                "tree verify on the contiguous cache is not ported: the "
-                "port verifies on the paged layout")
         out, k_c, v_c = attention.chunk_attention(
-            p["attn"], h, cfg, cache["k"], cache["v"], positions,
+            p["attn"], h, cfg, cache["k"], cache["v"], positions, anc=anc,
             name=name + ".attn")
     else:
         out, k_c, v_c = attention.paged_chunk_attention(

@@ -7,10 +7,12 @@ Parameters are ``{"embed": {"table"}, "layers": [block params...],
 JAX package stacks layers on a ``periods`` axis for ``lax.scan``; the
 weight bridge (``repro_torch/bridge.py``) converts between the two.  The
 cache is ``{"layers": [{"k", "v"}]}``, per layer either a page pool
-``(P, Hkv, ps, hd)`` addressed through block tables (``layout="paged"``,
-the serving engine's) or a contiguous ``(B, Hkv, max_seq, hd)`` per-slot
-cache (``layout="stacked"``, the draft model's).  The serving steps
-update it in place and also return it.
+``(P, Hkv, ps, hd)`` addressed through block tables (``layout="paged"``)
+or a contiguous ``(B, Hkv, max_seq, hd)`` per-slot cache
+(``layout="stacked"``, which the draft model uses too).  The serving
+steps update it in place and also return it;
+:func:`gather_request_cache` / :func:`scatter_request_cache` copy one
+request's share of it to host memory and back (preemption to host).
 
 The stacks served are those of GPT-2: every layer global ``attn``,
 learned (or no) positions, no MoE and no encoder; anything else raises
@@ -179,19 +181,50 @@ def prefill_into_slot(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     return logits[0, 0].float(), cache
 
 
+def gather_request_cache(cfg: ModelConfig, cache: Dict, slot: int, *,
+                         page_ids=None) -> Dict:
+    """Copy one request's cache to host memory (preemption to host): slot
+    ``slot`` of a stacked cache, or with ``page_ids`` the request's pages
+    of the page pool, in block-table order.  Returns ``{"layers": [{"k",
+    "v"}]}`` of CPU tensors that no later write to the cache touches;
+    :func:`scatter_request_cache` is its inverse."""
+    idx = slot if page_ids is None else torch.as_tensor(
+        list(page_ids), dtype=torch.long,
+        device=cache["layers"][0]["k"].device)
+    return {"layers": [{k: t[idx].to("cpu", copy=True)
+                        for k, t in layer.items()}
+                       for layer in cache["layers"]]}
+
+
+def scatter_request_cache(cfg: ModelConfig, cache: Dict, blob: Dict,
+                          slot: int, *, page_ids=None) -> Dict:
+    """Write a :func:`gather_request_cache` snapshot back into slot
+    ``slot`` of a stacked cache, or into the pages ``page_ids`` (the
+    restore target's, in block-table order; they need not be the pages it
+    was gathered from).  In place; returns the cache."""
+    idx = slot if page_ids is None else torch.as_tensor(
+        list(page_ids), dtype=torch.long,
+        device=cache["layers"][0]["k"].device)
+    for layer, saved in zip(cache["layers"], blob["layers"]):
+        for k, t in layer.items():
+            t[idx] = saved[k].to(t.device, t.dtype)
+    return cache
+
+
 def verify_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                  cache: Dict, lengths: torch.Tensor, *,
-                 block_tables: torch.Tensor,
+                 block_tables: Optional[torch.Tensor] = None,
                  anc: Optional[torch.Tensor] = None,
                  depths: Optional[torch.Tensor] = None,
                  dtype=torch.bfloat16):
-    """Score C tokens per row against the paged cache in ONE forward call
+    """Score C tokens per row against the cache in ONE forward call
     (speculative verification).  Row ``b``'s tokens occupy positions
     ``lengths[b] .. lengths[b] + C - 1``; their K/V are written into the
-    pages the row's table names, and ``logits[b, i]`` is the next-token
+    pages the row's table names (``block_tables``), or into slot ``b`` of
+    the stacked cache (without), and ``logits[b, i]`` is the next-token
     distribution after ``tokens[b, :i + 1]``.  A row parked at
-    ``lengths[b] >= max_seq`` writes the null page only and its logits
-    must not be used.
+    ``lengths[b] >= max_seq`` writes nothing (the null page, or a dropped
+    write) and its logits must not be used.
 
     Tree verification (``anc`` (B, C, C), ``depths`` (B, C)): position
     ``j`` holds a tree node in DFS layout.  Its K/V still land at the flat
@@ -223,29 +256,40 @@ def verify_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def compact_accepted_path(cfg: ModelConfig, cache: Dict, src: torch.Tensor,
                           dst: torch.Tensor, *,
-                          block_tables: torch.Tensor) -> Dict:
+                          block_tables: Optional[torch.Tensor] = None
+                          ) -> Dict:
     """Copy an accepted tree path's K/V from its flat chunk positions
     ``src`` (B, m) to the contiguous positions ``dst`` (B, m) plain decode
-    would have used, in every layer's page pool, through the block tables
-    as they were at verify time (call it before ``rewind`` releases
-    pages).  Entries whose ``dst`` lies outside the row's table are
-    dropped, never redirected onto a live page or the null page.  Every
-    source is read before any target is written, so overlapping paths
-    move correctly.  The indices are resolved on the device of
-    ``src``/``dst``/``block_tables`` (host tensors cost the card no
-    sync) and then moved to the pools'.  Returns the cache."""
-    bt = block_tables.long()
-    n_pg = bt.shape[1]
+    would have used, in every layer: through the block tables as they
+    were at verify time (call it before ``rewind`` releases pages), or,
+    without, in row ``b`` of the stacked cache.  Entries whose ``dst``
+    lies outside the row's table or cache are dropped, never redirected
+    onto live K/V or the null page.  Every source is read before any
+    target is written, so overlapping paths move correctly.  The indices
+    are resolved on the device of ``src``/``dst``/``block_tables`` (host
+    tensors cost the card no sync) and then moved to the cache's.
+    Returns the cache."""
     src, dst = src.long(), dst.long()
     rows = torch.arange(src.shape[0], device=src.device)[:, None].expand(
         src.shape)
+    dev = cache["layers"][0]["k"].device
+    if block_tables is None:
+        S = cache["layers"][0]["k"].shape[2]
+        keep = (dst >= 0) & (dst < S)
+        r, s_, d_ = (t[keep].to(dev) for t in (rows, src.clamp(0, S - 1),
+                                               dst))
+        for c in cache["layers"]:
+            for t in c.values():
+                t[r, :, d_] = t[r, :, s_]
+        return cache
+    bt = block_tables.long()
+    n_pg = bt.shape[1]
     ps = cache["layers"][0]["k"].shape[2]
     keep = (dst >= 0) & (dst < n_pg * ps)
     r, s_, d_ = rows[keep], src[keep], dst[keep]
     blk_s = s_ // ps
     pg_s = torch.where(blk_s < n_pg, bt[r, blk_s.clamp(0, n_pg - 1)], 0)
     pg_d = bt[r, d_ // ps]
-    dev = cache["layers"][0]["k"].device
     pg_s, off_s, pg_d, off_d = (t.to(dev) for t in
                                 (pg_s, s_ % ps, pg_d, d_ % ps))
     for c in cache["layers"]:

@@ -1,8 +1,13 @@
-"""Admission pricing and the per-tick prefill schedule.
+"""Admission pricing, the preemption victim policy and the per-tick
+prefill schedule.
 
 Requests are priced in KV-cache pages: the worst-case lifetime footprint
 (prompt plus every token it may generate, capped at the cache), net of
-prefix-shared pages — the formula ``PagedCacheManager.alloc`` enforces.
+prefix-shared pages — the formula ``PagedCacheManager.alloc`` enforces —
+or, under :class:`OvercommitAdmission`, the prompt alone, with
+preemption (:func:`victim_order`) covering a pool that runs dry.  On the
+stacked layout every request takes one slot; :meth:`FIFOAdmission.
+slot_price` is its per-layer footprint in positions.
 Each tick, prompt chunks ride along with the batched decode up to a token
 budget derived from the analytic stage program: decode streams every
 weight through the MP kernel anyway, so the budget is however many
@@ -39,6 +44,15 @@ def derive_prefill_budget(cfg: ModelConfig, chunk_size: int, *,
     return max(chunk_size, min(fit, 8 * chunk_size))
 
 
+def victim_order(candidates, pages_of):
+    """Preemption victim policy: seated requests in eviction order —
+    lowest priority first, most pages first (``pages_of``: pages held, or
+    the stacked layout's committed length), newest (highest rid) first.
+    Returns a new list."""
+    return sorted(candidates,
+                  key=lambda r: (r.priority, -pages_of(r), -r.rid))
+
+
 class FIFOAdmission:
     """FIFO admission + per-tick prefill-chunk budget."""
 
@@ -61,6 +75,19 @@ class FIFOAdmission:
         total = -(-min(prompt_len + max_new, max_seq) // page_size)
         return max(0, total - shared_tokens // page_size)
 
+    def slot_price(self, cfg: ModelConfig, prompt_len: int, max_new: int,
+                   *, max_seq: int) -> int:
+        """Admission price of one request in contiguous-slot positions: the
+        per-layer maximum of its lifetime footprint.  A global-attention
+        layer pins ``min(len, max_seq)`` positions; the engine's request
+        ceiling (``seq_ceiling``) is this formula taken past the cache."""
+        toks = prompt_len + max_new
+        price = 1
+        for kind in cfg.block_pattern:
+            if kind == "attn":
+                price = max(price, min(toks, max_seq))
+        return price
+
     def plan_chunks(self, prefilling: Sequence[Tuple[int, int, int]]
                     ) -> List[PrefillChunk]:
         """This tick's prompt chunks from (slot, prompt_len, filled)
@@ -78,3 +105,28 @@ class FIFOAdmission:
             out.append(PrefillChunk(slot=slot, start=filled, n=n))
             budget -= n
         return out
+
+
+class OvercommitAdmission(FIFOAdmission):
+    """Over-commit admission with preemption: a request is admitted when
+    its *prompt* pages fit and the pool's occupancy stays under
+    ``watermark * (n_pages - 1)``; decode growth claims from the free
+    pool, and when that runs dry the engine preempts a victim to host
+    memory or to a recompute requeue instead of refusing arrivals."""
+
+    overcommit = True
+
+    def __init__(self, cfg: ModelConfig, *, watermark: float = 1.0,
+                 **kwargs):
+        super().__init__(cfg, **kwargs)
+        if not 0.0 < watermark <= 1.0:
+            raise ValueError(f"watermark must be in (0, 1], got "
+                             f"{watermark}")
+        self.watermark = watermark
+
+    def page_price(self, prompt_len: int, max_new: int, *, page_size: int,
+                   max_seq: int, shared_tokens: int = 0) -> int:
+        """Admission price in pages: the prompt alone, net of
+        prefix-shared pages."""
+        total = -(-min(prompt_len, max_seq) // page_size)
+        return max(0, total - shared_tokens // page_size)

@@ -1,4 +1,4 @@
-"""Continuous-batching serving engine over the paged KV cache.
+"""Continuous-batching serving engine.
 
 The paper's schedule: a fixed set of cache slots runs one batched decode
 step every tick, and prompt work rides along in chunks without stalling
@@ -9,10 +9,14 @@ it.
     (one forward call per chunk; ``ceil(P / chunk_size)`` calls per
     prompt), within a per-tick token budget from
     :mod:`repro_torch.serving.admission`.
-  * **Paged KV cache** — :class:`~repro_torch.serving.kv_cache.PagedCacheManager`
-    allocates pages through per-request block tables, prices admission in
-    pages, and shares full prompt pages copy-free between requests with a
-    common prefix.
+  * **KV layouts** — ``kv_layout="paged"``:
+    :class:`~repro_torch.serving.kv_cache.PagedCacheManager` allocates
+    pages through per-request block tables, prices admission in pages,
+    and shares full prompt pages copy-free between requests with a
+    common prefix.  ``"stacked"``:
+    :class:`~repro_torch.serving.kv_cache.SlotCacheManager` gives each
+    request one contiguous ``max_seq`` region.  ``"auto"`` pages when
+    ``page_size`` divides ``max_seq``.  Both give the same greedy tokens.
   * **Quantized serving** — ``quantized=True`` calibrates SmoothQuant on
     ``calibration_batches`` and runs every linear through the Fused MP
     kernel; the activation stream between kernels stays float32.
@@ -31,18 +35,25 @@ it.
     contiguous positions (:func:`repro_torch.models.lm.
     compact_accepted_path`).  A tick on which no slot proposes anything
     falls back to the plain decode step.
+  * **Request lifecycle** — :mod:`repro_torch.serving.lifecycle`:
+    priority / deadline ordered admission, over-commit admission
+    (``admission=OvercommitAdmission(...)``, paged) with preemption to
+    host memory or by recompute when the pool runs dry, and
+    ``cancel(rid)``.
 
 Every tick on the card goes through the CUDA kernels: the MP kernel for
-each quantized linear, the paged decode kernel for the decode step, the
-paged verify kernel for each prefill chunk and chain verify, its tree
-body for a tree verify, and the contiguous decode kernel for each step
-of a draft model.  The engine runs on ``device`` (default ``"cuda"``)
-and raises if that device is missing; the CPU tests pass
+each quantized linear; on the paged layout the paged decode kernel for
+the decode step, the paged verify kernel for each prefill chunk and chain
+verify, and its tree body for a tree verify; on the stacked layout the
+contiguous decode kernel for the decode step (a chunk attends in plain
+PyTorch there, as in the reference); and the contiguous decode kernel
+for each step of a draft model.  The engine runs on ``device`` (default
+``"cuda"``) and raises if that device is missing; the CPU tests pass
 ``device="cpu"``, which takes the plain versions.
 
-Not ported (they raise ``NotImplementedError``): the stacked target
-layout, replay prefill, ring tensor parallelism (``mesh=``) and
-over-commit admission.
+Not ported (they raise ``NotImplementedError``): replay prefill and ring
+tensor parallelism (``mesh=``); stacks other than global attention raise
+in :func:`repro_torch.models.lm.check_supported`.
 """
 from __future__ import annotations
 
@@ -61,7 +72,7 @@ from repro_torch.models.layers import to_device
 from repro_torch.serving import sampler as samplers
 from repro_torch.serving import speculative
 from repro_torch.serving.admission import FIFOAdmission
-from repro_torch.serving.kv_cache import PagedCacheManager
+from repro_torch.serving.kv_cache import PagedCacheManager, SlotCacheManager
 from repro_torch.serving.lifecycle import (DECODE, PREFILL, LifecycleMixin,
                                            Request, drain_engine,
                                            latency_stats, submit_request)
@@ -105,7 +116,7 @@ class ServeEngine(LifecycleMixin):
         seed: int = 0,
         chunk_size: int = 32,
         prefill_mode: str = "auto",  # auto | chunked
-        kv_layout: str = "auto",  # auto | paged
+        kv_layout: str = "auto",  # auto | paged | stacked
         page_size: int = 16,
         n_pages: Optional[int] = None,
         prefix_sharing: bool = True,
@@ -118,15 +129,14 @@ class ServeEngine(LifecycleMixin):
     ):
         for what, bad in (("mesh=", mesh is not None),
                           (f"prefill_mode={prefill_mode!r}",
-                           prefill_mode not in ("auto", "chunked")),
-                          (f"kv_layout={kv_layout!r}",
-                           kv_layout not in ("auto", "paged")),
-                          ("over-commit admission",
-                           getattr(admission, "overcommit", False))):
+                           prefill_mode not in ("auto", "chunked"))):
             if bad:
                 raise NotImplementedError(
-                    f"ServeEngine({what}) is not ported: this engine serves "
-                    "the paged layout with chunked prefill")
+                    f"ServeEngine({what}) is not ported: this engine "
+                    "serves with chunked prefill on one device")
+        if kv_layout not in ("auto", "paged", "stacked"):
+            raise ValueError(f"kv_layout={kv_layout!r} must be 'auto', "
+                             "'paged' or 'stacked'")
         lm.check_supported(cfg)
         self.tel = telemetry or Telemetry()
         self.device = resolve_device(device)
@@ -147,7 +157,6 @@ class ServeEngine(LifecycleMixin):
                                        else torch.bfloat16)
         self.params = params
         self.prefill_mode = "chunked"
-        self.kv_layout = "paged"
         self.admission = admission or FIFOAdmission(
             cfg, chunk_size=self.chunk_size)
         if self.admission.chunk_size > self.chunk_size:
@@ -155,10 +164,39 @@ class ServeEngine(LifecycleMixin):
                 "admission schedules chunks larger than the engine's "
                 f"prefill buffer ({self.admission.chunk_size} > "
                 f"{self.chunk_size})")
-        self.kv = PagedCacheManager(
-            cfg, batch_slots, max_seq, page_size=page_size, n_pages=n_pages,
-            prefix_sharing=prefix_sharing, device=self.device)
-        self._share = prefix_sharing
+        # preemption / restore / cancel counters, and the over-commit flag
+        # taken from the admission policy
+        self._init_lifecycle()
+        # a probe one position past the cache: a stack whose slot
+        # footprint saturates below max_seq would lift the request
+        # ceiling; every global-attention stack keeps it
+        probe = self.admission.slot_price(cfg, max_seq + 1, 0,
+                                          max_seq=max_seq + 1)
+        self.seq_ceiling: Optional[int] = (
+            None if probe <= max_seq and cfg.pos != "learned" else max_seq)
+        if kv_layout == "auto":
+            # page only with a page size that divides max_seq
+            kv_layout = "paged" if max_seq % page_size == 0 else "stacked"
+        self.kv_layout = kv_layout
+        self.paged = kv_layout == "paged"
+        if self.paged:
+            if max_seq % page_size:
+                raise ValueError(
+                    f"page_size={page_size} must divide max_seq={max_seq} "
+                    "(pass page_size explicitly or pick a page-multiple "
+                    "max_seq)")
+            self.kv = PagedCacheManager(
+                cfg, batch_slots, max_seq, page_size=page_size,
+                n_pages=n_pages, prefix_sharing=prefix_sharing,
+                device=self.device, overcommit=self.overcommit,
+                watermark=getattr(self.admission, "watermark", 1.0))
+        else:
+            # a slot holds a request's whole lifetime: nothing to
+            # over-commit, so an over-commit policy only orders the queue
+            self.kv = SlotCacheManager(cfg, batch_slots, max_seq,
+                                       device=self.device)
+        # prefix sharing links pages: the paged layout only
+        self._share = self.paged and prefix_sharing
         self.cur_tok = np.zeros((batch_slots, 1), np.int64)
         self._temp = np.zeros((batch_slots,), np.float32)
         self._topk = np.zeros((batch_slots,), np.int64)
@@ -243,12 +281,13 @@ class ServeEngine(LifecycleMixin):
             with tr.span("admit"):
                 self._admit()
             did = False
+            # a recompute resume prefills its context, prompt + out[:-1]
             prefilling = sorted(
                 (r for r in self.slots
                  if r is not None and r.state == PREFILL),
                 key=lambda r: r.rid)
             plan = self.admission.plan_chunks(
-                [(r.slot, len(r.prompt), r.filled) for r in prefilling])
+                [(r.slot, len(r.context), r.filled) for r in prefilling])
             for ch in plan:
                 req = self.slots[ch.slot]
                 if not self.kv.has_room(ch.slot, ch.n):
@@ -258,7 +297,7 @@ class ServeEngine(LifecycleMixin):
                         f"{self.kv.length_of(ch.slot)}, max_seq="
                         f"{self.max_seq})")
                 chunk = np.zeros((self.chunk_size,), np.int64)
-                chunk[:ch.n] = req.prompt[ch.start:ch.start + ch.n]
+                chunk[:ch.n] = req.context[ch.start:ch.start + ch.n]
                 t0 = time.perf_counter()
                 with tr.span("prefill.chunk", "stage", TID_ENGINE,
                              ({"rid": req.rid, "slot": ch.slot,
@@ -266,11 +305,13 @@ class ServeEngine(LifecycleMixin):
                                "modeled_s":
                                ch.n * self._modeled_prefill_tok_s}
                               if tr.enabled else None)):
+                    where = ({"block_table": self._dev(
+                        self.kv.block_tables[ch.slot])} if self.paged
+                        else {"slot": ch.slot})
                     logits, self.kv.cache = lm.prefill_into_slot(
                         self.params, self.cfg, self._dev(chunk),
                         self.kv.cache, ch.start, valid=ch.n,
-                        block_table=self._dev(self.kv.block_tables[ch.slot]),
-                        dtype=self.act_dtype)
+                        dtype=self.act_dtype, **where)
                 self._c_pref_mod.value += ch.n * self._modeled_prefill_tok_s
                 self._c_pref_meas.value += time.perf_counter() - t0
                 self.model_calls += 1
@@ -280,11 +321,11 @@ class ServeEngine(LifecycleMixin):
                 if self.proposer is not None:
                     self.proposer.prefill_chunk(ch.slot, chunk, ch.start,
                                                 ch.n)
-                if req.filled == len(req.prompt):
-                    # the first token comes straight off the prefill logits
-                    slot = ch.slot
-                    tok = self._sample(logits[None], [slot])[0]
-                    self._emit(req, tok, time.monotonic())
+                if req.filled == len(req.context):
+                    # a fresh request's first token comes straight off the
+                    # prefill logits; a recompute resume emits nothing
+                    self._finish_prefill(req, lambda: self._sample(
+                        logits[None], [req.slot])[0])
                 did = True
 
             decoding = [r is not None and r.state == DECODE
@@ -304,9 +345,15 @@ class ServeEngine(LifecycleMixin):
     def _plain_decode(self, decoding) -> None:
         """One single-token batched decode step over all slots; rows that
         are not decoding ride along with their writes parked."""
+        # under over-commit a dry pool preempts a victim here and clears
+        # its row
         decoding = self._ensure_room(decoding)
+        if not decoding.any():
+            return
         tr = self.tel.tracer
         t0 = time.perf_counter()
+        where = ({"block_table": self._dev(self.kv.block_tables),
+                  "active": self._dev(decoding)} if self.paged else {})
         with tr.span("decode.step", "stage", TID_ENGINE,
                      ({"rows": int(decoding.sum()),
                        "modeled_s": self._modeled_decode_s}
@@ -314,8 +361,7 @@ class ServeEngine(LifecycleMixin):
             logits, self.kv.cache = lm.decode_step(
                 self.params, self.cfg, self._dev(self.cur_tok),
                 self.kv.cache, self._dev(self.kv.lengths),
-                block_table=self._dev(self.kv.block_tables),
-                active=self._dev(decoding), dtype=self.act_dtype)
+                dtype=self.act_dtype, **where)
         self._c_dec_mod.value += self._modeled_decode_s
         self._c_dec_meas.value += time.perf_counter() - t0
         self.model_calls += 1
@@ -328,10 +374,16 @@ class ServeEngine(LifecycleMixin):
 
     def _count_verify(self, mask: np.ndarray, lengths: np.ndarray,
                       written: np.ndarray) -> None:
+        if not self.paged:
+            return
         live = -(-(lengths + written) // self.kv.page_size)
         self.verify_touched_positions += int(
             (live[mask] * self.kv.page_size).sum())
         self.verify_dense_positions += 2 * int(mask.sum()) * self.max_seq
+
+    def _tables(self) -> Optional[torch.Tensor]:
+        """The block tables on the device, or None on the stacked layout."""
+        return self._dev(self.kv.block_tables) if self.paged else None
 
     def _accept_args(self):
         return (self.gen, self._dev(self._temp), self._dev(self._topk),
@@ -346,7 +398,8 @@ class ServeEngine(LifecycleMixin):
         d_c]`` at positions ``L .. L+c`` (c capped by the request's
         remaining budget and the cache, so writes stay inside the
         admission-time reservation); other rows are parked at ``max_seq``
-        (their writes land on the null page, their logits go unused).
+        (their writes land on the null page or are dropped, their logits go
+        unused).
         The accepted prefix commits through ``kv.rewind(slot, L+m+1)``,
         which also releases pages grown for rejected positions."""
         B, k = self.B, self.spec.k
@@ -362,7 +415,11 @@ class ServeEngine(LifecycleMixin):
             # the plain step emits the same stream for 1/(k+1) the width
             self._plain_decode(list(decoding))
             return
+        # room for the verify's writes before vlen is derived: an
+        # over-committed pool may preempt one of the decoding rows itself
         decoding = self._ensure_room(decoding, counts + 1)
+        if not decoding.any():
+            return
         toks = np.zeros((B, k + 1), np.int64)
         toks[:, 0] = self.cur_tok[:, 0]
         toks[:, 1:] = draft
@@ -376,7 +433,7 @@ class ServeEngine(LifecycleMixin):
             self._count_verify(decoding, lengths_h, counts + 1)
             logits, self.kv.cache = lm.verify_chunk(
                 self.params, self.cfg, self._dev(toks), self.kv.cache,
-                self._dev(vlen), block_tables=self._dev(self.kv.block_tables),
+                self._dev(vlen), block_tables=self._tables(),
                 dtype=self.act_dtype)
         self._c_dec_mod.value += self._modeled_decode_s
         self._c_dec_meas.value += time.perf_counter() - t0
@@ -445,6 +502,8 @@ class ServeEngine(LifecycleMixin):
             self._plain_decode(list(decoding))
             return
         decoding = self._ensure_room(decoding, n_nodes + 1)
+        if not decoding.any():
+            return
         toks = np.zeros((B, C), np.int64)
         toks[:, 0] = self.cur_tok[:, 0]
         toks[:, 1:] = tokens_a
@@ -458,7 +517,7 @@ class ServeEngine(LifecycleMixin):
             self._count_verify(decoding, lengths_h, n_nodes + 1)
             logits, self.kv.cache = lm.verify_chunk(
                 self.params, self.cfg, self._dev(toks), self.kv.cache,
-                self._dev(vlen), block_tables=self._dev(self.kv.block_tables),
+                self._dev(vlen), block_tables=self._tables(),
                 anc=self._dev(anc.astype(np.int32)), depths=self._dev(depths),
                 dtype=self.act_dtype)
         self._c_dec_mod.value += self._modeled_decode_s
@@ -487,7 +546,8 @@ class ServeEngine(LifecycleMixin):
                 self.kv.cache = lm.compact_accepted_path(
                     self.cfg, self.kv.cache, torch.from_numpy(src),
                     torch.from_numpy(dst),
-                    block_tables=torch.from_numpy(self.kv.block_tables))
+                    block_tables=(torch.from_numpy(self.kv.block_tables)
+                                  if self.paged else None))
         now = time.monotonic()
         for b in range(B):
             req = self.slots[b]
@@ -515,7 +575,8 @@ class ServeEngine(LifecycleMixin):
     def stats(self) -> Dict[str, float]:
         """Exactly the keys of ``telemetry.STATS_KEYS_ENGINE``, or with
         speculation of ``STATS_KEYS_ENGINE_SPEC`` (plus the adaptive
-        sizer's two with ``adaptive=True``)."""
+        sizer's two with ``adaptive=True``); a stacked engine reports the
+        slot pool's three keys in place of the page pool's six."""
         out = latency_stats(self)
         emitted = sum(len(r.out) for r in self.finished) + sum(
             len(r.out) for r in self.slots if r is not None)
@@ -535,6 +596,7 @@ class ServeEngine(LifecycleMixin):
             "prefill_modeled_s": self._c_pref_mod.value,
             "prefill_measured_s": self._c_pref_meas.value,
         })
+        out.update(self.lifecycle_stats())
         if self.spec is not None:
             out.update({
                 "spec_ticks": self.spec_ticks,

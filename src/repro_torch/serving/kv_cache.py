@@ -1,21 +1,33 @@
-"""The paged KV-cache manager: a global page pool, per-request block
-tables, refcounted pages and copy-free prefix sharing.
+"""KV-cache managers for the serving engine: contiguous slots and pages.
 
-A copy of the JAX package's ``PagedCacheManager``
-(``repro/serving/kv_cache.py``) for pure global-attention stacks, with
-the speculative ``rewind`` and without the preemption ``evict_to_host``
-/ ``restore`` round trip, which this package has not ported.
+Copies of the JAX package's managers (``repro/serving/kv_cache.py``) for
+pure global-attention stacks, behind one engine-facing seam (alloc /
+free / advance / lengths / has_room / rewind / evict_to_host / restore):
 
-Correctness model: logical position ``p`` of a slot lives in page
-``block_tables[slot, p // page_size]`` at offset ``p % page_size``;
+  * :class:`SlotCacheManager` — ``batch_slots`` contiguous regions of
+    ``max_seq`` positions, one per request (``kv_layout="stacked"``);
+    its ``rewind`` is mask-only.
+  * :class:`PagedCacheManager` — a global page pool, per-request block
+    tables, refcounted pages and copy-free prefix sharing
+    (``kv_layout="paged"``).
+
+Correctness model for pages: logical position ``p`` of a slot lives in
+page ``block_tables[slot, p // page_size]`` at offset ``p % page_size``;
 entries past a slot's allocated pages name the null page 0, whose content
 is never unmasked, because attention only reads positions below the
 slot's length and the engine grows a length only after its pages exist.
 Only *full* prompt pages enter the prefix map, so a shared page is never
 written again.  A freed prefix page is *cached*: it keeps its content and
 map entry until a fresh claim needs it, so a later request with the same
-prefix resurrects it.  At admission every request reserves its
-worst-case page count, so decode-time growth cannot fail.
+prefix resurrects it.  In reservation mode every request reserves its
+worst-case page count at admission, so decode-time growth cannot fail;
+in over-commit mode (``overcommit=True``) only the prompt is priced, and
+growth past the pool raises :class:`PagePoolExhausted` for the engine to
+preempt a victim.
+
+Preemption to host (``evict_to_host`` / ``restore``) copies a request's
+cache rows (stacked) or pages (paged, in block-table order) to host
+memory and scatters them back verbatim into a fresh slot or fresh pages.
 """
 from __future__ import annotations
 
@@ -29,6 +41,127 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
 
 
+class PagePoolExhausted(RuntimeError):
+    """Mid-decode page growth found the pool empty.  Only the over-commit
+    admission mode can raise this (reservation mode pre-pays every
+    request's worst-case lifetime); the engine catches it and preempts a
+    victim."""
+
+
+def blob_nbytes(blob: Dict) -> int:
+    """Host bytes an ``evict_to_host`` snapshot occupies."""
+    return int(sum(t.numel() * t.element_size()
+                   for layer in blob["kv"]["layers"] for t in layer.values()))
+
+
+class SlotCacheManager:
+    """The slot pool, per-slot lengths and the contiguous cache.
+
+    ``cache`` holds ``batch_slots`` rows of ``max_seq`` positions per layer
+    (on ``device``); ``lengths`` is a host array the engine sends to the
+    device once per call.  Freeing is mask-only: a slot's stale content
+    stays below nothing, since its length restarts at 0."""
+
+    def __init__(self, cfg: ModelConfig, batch_slots: int, max_seq: int, *,
+                 dtype=torch.bfloat16, device=None):
+        self.cfg = cfg
+        self.B = batch_slots
+        self.max_seq = max_seq
+        self.cache = lm.init_cache(cfg, batch_slots, max_seq,
+                                   layout="stacked", dtype=dtype,
+                                   device=device)
+        self.lengths = np.zeros((batch_slots,), np.int32)
+        # heap-backed free list: lowest slot first, as the reference
+        self._free: List[int] = list(range(batch_slots))
+        heapq.heapify(self._free)
+        self._used: set = set()
+        self.slots_in_use_peak = 0
+
+    # -- slot lifecycle -------------------------------------------------
+    def alloc(self) -> Optional[int]:
+        """Claim a free slot (length reset to 0), or None if none is free."""
+        if not self._free:
+            return None
+        slot = heapq.heappop(self._free)
+        self._used.add(slot)
+        self.slots_in_use_peak = max(self.slots_in_use_peak, len(self._used))
+        self.lengths[slot] = 0
+        return slot
+
+    def free(self, slot: int) -> None:
+        """Return a slot to the pool; its stale content stays masked."""
+        if slot not in self._used:
+            raise ValueError(f"free of unallocated slot {slot}")
+        self._used.discard(slot)
+        heapq.heappush(self._free, slot)
+        self.lengths[slot] = 0
+
+    # -- preemption: host round trip ------------------------------------
+    def evict_to_host(self, slot: int) -> Dict:
+        """Snapshot a slot's cache rows to host memory and free the slot."""
+        if slot not in self._used:
+            raise ValueError(f"evict of unallocated slot {slot}")
+        blob = {"layout": "stacked", "length": int(self.lengths[slot]),
+                "kv": lm.gather_request_cache(self.cfg, self.cache, slot)}
+        self.free(slot)
+        return blob
+
+    def restore(self, blob: Dict, *,
+                lifetime_tokens: Optional[int] = None) -> Optional[int]:
+        """Re-seat a host snapshot into a fresh slot; returns the slot, or
+        None when no slot is free."""
+        slot = self.alloc()
+        if slot is None:
+            return None
+        self.lengths[slot] = blob["length"]
+        self.cache = lm.scatter_request_cache(self.cfg, self.cache,
+                                              blob["kv"], slot)
+        return slot
+
+    def pages_held(self, slot: int) -> int:
+        """Victim-policy weight: the stacked layout has no pages, so the
+        footprint is the slot's committed length."""
+        return int(self.lengths[slot])
+
+    # -- length accounting ---------------------------------------------
+    def advance(self, slot: int, n: int) -> None:
+        """Record n prefill tokens written to a slot."""
+        self.lengths[slot] += n
+
+    def advance_mask(self, mask) -> None:
+        """Advance every masked slot by one token (one decode tick)."""
+        self.lengths += np.asarray(mask, np.int32)
+
+    def rewind(self, slot: int, new_len: int) -> None:
+        """Set a slot's valid length after a multi-token (speculative)
+        write, mask-only: lengths gate attention, so the K/V of rejected
+        positions above ``new_len`` are never read and the next write
+        there replaces them.  ``new_len`` may exceed the current length
+        (the verify writes before the engine commits)."""
+        if slot not in self._used:
+            raise ValueError(f"rewind of unallocated slot {slot}")
+        if not 0 <= new_len <= self.max_seq:
+            raise ValueError(
+                f"rewind of slot {slot} to {new_len} outside the cache "
+                f"(max_seq={self.max_seq})")
+        self.lengths[slot] = new_len
+
+    def length_of(self, slot: int) -> int:
+        return int(self.lengths[slot])
+
+    # -- introspection --------------------------------------------------
+    def has_room(self, slot: int, n: int = 1) -> bool:
+        return self.length_of(slot) + n <= self.max_seq
+
+    def stats(self) -> Dict[str, int]:
+        """The slot analogue of ``PagedCacheManager.stats``."""
+        return {
+            "slots_in_use": len(self._used),
+            "slots_in_use_peak": self.slots_in_use_peak,
+            "n_free_slots": len(self._free),
+        }
+
+
 class PagedCacheManager:
     """Page-pool KV cache: block tables, refcounts, and prefix sharing.
 
@@ -39,7 +172,8 @@ class PagedCacheManager:
     def __init__(self, cfg: ModelConfig, batch_slots: int, max_seq: int, *,
                  page_size: int = 16, n_pages: Optional[int] = None,
                  prefix_sharing: bool = True, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, overcommit: bool = False,
+                 watermark: float = 1.0):
         if max_seq % page_size:
             raise ValueError(
                 f"page_size={page_size} must divide max_seq={max_seq}")
@@ -55,6 +189,15 @@ class PagedCacheManager:
             raise ValueError("need at least the null page and one real page")
         self.n_pages = n_pages
         self.prefix_sharing = prefix_sharing
+        # over-commit: price prompts only and admit fresh requests while
+        # occupancy stays under watermark * usable pages; decode growth
+        # past the pool raises PagePoolExhausted
+        self.overcommit = overcommit
+        if not 0.0 < watermark <= 1.0:
+            raise ValueError(
+                f"watermark={watermark} must be in (0, 1]: it is the "
+                "occupancy fraction fresh admissions may fill")
+        self.watermark = watermark
         self.cache = lm.init_cache(cfg, n_pages, page_size, layout="paged",
                                    dtype=dtype, device=device)
         self.lengths = np.zeros((batch_slots,), np.int32)
@@ -210,7 +353,15 @@ class PagedCacheManager:
                 f"{self.max_seq}); admitting it would corrupt the mask")
         total_pages = self.pages_for(min(plen + max_new, self.max_seq))
         prompt_pages = self.pages_for(plen)
-        if total_pages > self.n_pages - 1:
+        if self.overcommit:
+            # only the prompt must fit: decode growth is preemption's
+            # problem, not admission's
+            if prompt_pages > self.n_pages - 1:
+                raise ValueError(
+                    f"prompt needs {prompt_pages} pages but the pool only "
+                    f"has {self.n_pages - 1}; it can never be admitted "
+                    "(raise n_pages or shorten the prompt)")
+        elif total_pages > self.n_pages - 1:
             raise ValueError(
                 f"request needs {total_pages} pages but the pool only has "
                 f"{self.n_pages - 1}; it can never be admitted (raise "
@@ -222,7 +373,13 @@ class PagedCacheManager:
         n_shared = len(shared_pids)
         # resurrecting a cached (refcount-0) page consumes a free page
         n_cached = sum(1 for pid in shared_pids if self._refcount[pid] == 0)
-        if (total_pages - n_shared) + n_cached > self.available_pages:
+        if self.overcommit:
+            fresh = (prompt_pages - n_shared) + n_cached
+            if (fresh > self.n_free_pages
+                    or self.pages_in_use + fresh
+                    > self.watermark * (self.n_pages - 1)):
+                return None
+        elif (total_pages - n_shared) + n_cached > self.available_pages:
             return None
 
         slot = heapq.heappop(self._free_slots)
@@ -248,7 +405,8 @@ class PagedCacheManager:
                     self._page_meta[pid] = (pages[i - 1] if i else 0, toks)
                     pending.append((pid, (i + 1) * ps))
         self._slot_pages[slot] = pages
-        self._reserved[slot] = total_pages - prompt_pages
+        self._reserved[slot] = (0 if self.overcommit
+                                else total_pages - prompt_pages)
         # rewind floor: prompt pages may be prefix-shared or registered;
         # rejected drafts always sit above them
         self._min_len[slot] = plen
@@ -272,6 +430,64 @@ class PagedCacheManager:
         self.block_tables[slot] = 0
         self.lengths[slot] = 0
         heapq.heappush(self._free_slots, slot)
+
+    # -- preemption: host round trip ------------------------------------
+    def evict_to_host(self, slot: int) -> Dict:
+        """Snapshot a slot's pages (in block-table order) to host memory
+        and free the slot.  Shared pages are copied, then released by the
+        free; the restore scatters onto fresh, unshared pages."""
+        if slot not in self._used_slots:
+            raise ValueError(f"evict of unallocated slot {slot}")
+        pages = list(self._slot_pages[slot])
+        blob = {"layout": "paged", "length": int(self.lengths[slot]),
+                "min_len": self._min_len.get(slot, 0),
+                "n_pages": len(pages),
+                "kv": lm.gather_request_cache(self.cfg, self.cache, slot,
+                                              page_ids=pages)}
+        self.free(slot)
+        return blob
+
+    def restore(self, blob: Dict, *,
+                lifetime_tokens: Optional[int] = None) -> Optional[int]:
+        """Re-seat a host snapshot: claim a slot and fresh pages (the same
+        count, any ids: the block table re-maps them), scatter the content
+        back and resume the length where it stopped.  Returns the slot, or
+        None (wait).  Restores bypass the over-commit watermark (the
+        request paid admission once) but need the pages; in reservation
+        mode the rest of the worst-case lifetime (``lifetime_tokens``) is
+        reserved again."""
+        need = blob["n_pages"]
+        if not self._free_slots:
+            return None
+        if self.overcommit:
+            if need > self.n_free_pages:
+                return None
+            reserve = 0
+        else:
+            total = self.pages_for(min(
+                blob["length"] if lifetime_tokens is None
+                else lifetime_tokens, self.max_seq))
+            reserve = max(0, total - need)
+            if need + reserve > self.available_pages:
+                return None
+        slot = heapq.heappop(self._free_slots)
+        self._used_slots.add(slot)
+        pages = [self._claim_page() for _ in range(need)]
+        self._slot_pages[slot] = pages
+        self._reserved[slot] = reserve
+        self._min_len[slot] = blob["min_len"]
+        self._pending_ready[slot] = []
+        self.block_tables[slot] = 0
+        self.block_tables[slot, :len(pages)] = pages
+        self.lengths[slot] = blob["length"]
+        self.cache = lm.scatter_request_cache(self.cfg, self.cache,
+                                              blob["kv"], slot,
+                                              page_ids=pages)
+        return slot
+
+    def pages_held(self, slot: int) -> int:
+        """Victim-policy weight: pages currently backing the slot."""
+        return len(self._slot_pages.get(slot, ()))
 
     # -- length accounting ---------------------------------------------
     def advance(self, slot: int, n: int) -> None:
@@ -331,7 +547,9 @@ class PagedCacheManager:
                     f"rewind reached shared page {pid} of slot {slot} "
                     f"(refcount {int(self._refcount[pid])})")
             self._release_page(pid)
-            self._reserved[slot] = self._reserved.get(slot, 0) + 1
+            if not self.overcommit:
+                # over-commit holds no reservation to credit back
+                self._reserved[slot] = self._reserved.get(slot, 0) + 1
             self.block_tables[slot, len(pages)] = 0
         self.lengths[slot] = new_len
 
@@ -339,7 +557,8 @@ class PagedCacheManager:
         """Grow block tables so every masked slot can take ``n`` more
         tokens (an int, or one count per slot: a speculative verify
         writes each row's draft length + 1), drawing on its
-        admission-time reservation."""
+        admission-time reservation, or under over-commit on the free pool
+        (raising :class:`PagePoolExhausted` when it is empty)."""
         ns = np.broadcast_to(np.asarray(n, np.int64), (self.B,))
         for slot, active in enumerate(mask):
             if not active:
@@ -347,12 +566,19 @@ class PagedCacheManager:
             pages = self._slot_pages[slot]
             need = int(self.lengths[slot]) + int(ns[slot])
             while len(pages) * self.page_size < need:
-                if self._reserved.get(slot, 0) <= 0:
+                if self._reserved.get(slot, 0) > 0:
+                    pid = self._claim_page()
+                    self._reserved[slot] -= 1
+                elif self.overcommit:
+                    if self.n_free_pages == 0:
+                        raise PagePoolExhausted(
+                            f"slot {slot} page growth to {need} tokens "
+                            "found the over-committed pool empty")
+                    pid = self._claim_page()
+                else:
                     raise RuntimeError(
                         f"slot {slot} page growth to {need} tokens exceeds "
                         "its admission-time reservation")
-                pid = self._claim_page()
-                self._reserved[slot] -= 1
                 self.block_tables[slot, len(pages)] = pid
                 pages.append(pid)
 

@@ -15,6 +15,7 @@ decoding's accept rules, which keep every row's sampling distribution.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -23,9 +24,16 @@ _NEG_INF = -1e30
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
+    """Per-request sampling; ``priority`` and ``deadline_s`` feed
+    admission, not sampling: a higher priority admits (and preempts)
+    first, and an absolute ``time.monotonic()`` deadline orders the queue
+    within a priority class.  The defaults give exact FIFO admission."""
+
     temperature: float = 0.0  # <= 0 -> greedy
     top_k: int = 0  # <= 0 -> no top-k filter
     top_p: float = 1.0  # >= 1 -> no nucleus filter
+    priority: int = 0  # higher admits first, preempts lower
+    deadline_s: Optional[float] = None  # absolute time.monotonic() SLO
 
 
 GREEDY = SamplingParams()

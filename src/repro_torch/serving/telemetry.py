@@ -305,9 +305,10 @@ class Telemetry:
         return path
 
 
-#: every key ``ServeEngine.stats()`` returns (paged, no speculation) —
-#: the JAX package's ``STATS_KEYS_ENGINE`` less the preemption / cancel /
-#: eviction counters of the lifecycle detours this package has not ported
+#: every key ``ServeEngine.stats()`` returns on a paged engine without
+#: speculation — the JAX package's ``STATS_KEYS_ENGINE`` (a stacked engine
+#: reports ``slots_in_use`` / ``slots_in_use_peak`` / ``n_free_slots`` in
+#: place of the six page-pool keys, as the reference's does)
 STATS_KEYS_ENGINE = frozenset({
     "ticks", "model_calls", "prefill_calls", "stalled",
     "stalled_queued", "stalled_in_flight", "tokens_per_model_call",
@@ -317,12 +318,16 @@ STATS_KEYS_ENGINE = frozenset({
     "decode_modeled_s", "decode_measured_s",
     "prefill_modeled_s", "prefill_measured_s",
     "mdk_mp_reuse",
+    # request lifecycle: preemption / restore / cancel counters and the
+    # evicted-bytes footprint
+    "preemptions", "preempt_host", "preempt_recompute", "restores",
+    "cancelled", "evicted_bytes_total", "evicted_bytes_p99",
     "pages_in_use", "pages_in_use_peak", "pages_allocated_total",
     "prefix_hit_pages", "n_free_pages", "cached_free_pages",
 })
 
 #: the keys a ``spec=SpecConfig(...)`` engine reports — the JAX package's
-#: ``STATS_KEYS_ENGINE_SPEC`` less the same lifecycle detours
+#: ``STATS_KEYS_ENGINE_SPEC``
 STATS_KEYS_ENGINE_SPEC = STATS_KEYS_ENGINE | frozenset({
     "spec_ticks", "spec_proposed", "spec_accepted", "spec_emitted",
     "acceptance_rate", "tokens_per_verify_call", "draft_calls",

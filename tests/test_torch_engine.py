@@ -101,8 +101,7 @@ def test_stats_keys_and_refcounts_drain(fp_pair):
     _, _, te, _ = fp_pair
     s = te.stats()
     assert set(s) == telemetry.STATS_KEYS_ENGINE
-    # the reference's keys less the lifecycle detours not ported here
-    assert telemetry.STATS_KEYS_ENGINE < jtelemetry.STATS_KEYS_ENGINE
+    assert telemetry.STATS_KEYS_ENGINE == jtelemetry.STATS_KEYS_ENGINE
     assert s["pages_in_use"] == 0 and s["requests"] == 6
     assert all(te.kv.refcount(p) == 0 for p in range(te.kv.n_pages))
     assert not te.kv.block_tables.any() and not te.kv.lengths.any()
@@ -118,7 +117,7 @@ def test_quantized_greedy_agreement(setup):
     # on the CPU every wrapper took its plain version: nothing launched
     assert ops.launch_counts() == {
         "mp_matmul": 0, "paged_mha_decode": 0, "paged_verify": 0,
-        "paged_verify_tree": 0, "mha_decode": 0}
+        "paged_verify_tree": 0, "mha_decode": 0, "ln_res": 0}
 
 
 def test_engine_without_card_raises(setup, monkeypatch):
@@ -136,10 +135,7 @@ def test_engine_without_card_raises(setup, monkeypatch):
         proposer="model", draft_params={},
         draft_cfg=dataclasses.replace(get_config("gpt2-345m").reduced(),
                                       block_pattern=("rglru",)))},
-    {"kv_layout": "stacked"}, {"prefill_mode": "replay"},
-    {"mesh": object()},
-    {"admission": dataclasses.make_dataclass("Over", [], namespace={
-        "overcommit": True, "chunk_size": 8})()},
+    {"prefill_mode": "replay"}, {"mesh": object()},
 ])
 def test_unported_engine_options_raise(setup, kw):
     _, cfg, _, tparams, _, _ = setup

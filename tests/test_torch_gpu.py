@@ -14,7 +14,10 @@ largest magnitude.  The normalisation is per vector because the vectors'
 scales differ: a row with one key returns a value row of the cache (order
 1), a row with a thousand keys an average of them (order 0.05), and a
 fault on the long row, such as a page left out, must not hide under the
-short row's scale.
+short row's scale.  ``ln_res`` keeps the new residual bit-identical,
+``scale`` within 1e-5 relative, ``y`` within one bf16 ulp per element and
+``y_q`` within 1 everywhere and equal on at least 99.9% of elements (the
+kernel takes its sums in another order than the plain version).
 """
 import numpy as np
 import pytest
@@ -284,3 +287,121 @@ def test_spec_engine_on_card_runs_the_new_kernels(h100):
             assert n["paged_verify_tree"] == n["mha_decode"] == 0
             assert n["paged_verify"] == L * (s["prefill_calls"]
                                              + s["spec_ticks"])
+
+
+def _bf16_ulp(a: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values around float32 ``a``."""
+    mag = a.abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def _ln_res_faults(got, want):
+    """What ``got`` gets wrong against ``want`` under the module's
+    ``ln_res`` tolerances; an empty list when it holds."""
+    bad = []
+    if not torch.equal(got[1], want[1]):
+        bad.append("r not bit-identical")
+    if not ((got[3] - want[3]).abs() <= 1e-5 * want[3].abs()).all():
+        bad.append("scale beyond 1e-5 relative")
+    gy, wy = got[0].float(), want[0].float()
+    if not ((gy - wy).abs() <= torch.maximum(_bf16_ulp(gy),
+                                             _bf16_ulp(wy))).all():
+        bad.append("y beyond one bf16 ulp")
+    dq = (got[2].int() - want[2].int()).abs()
+    if dq.max().item() > 1 or (dq == 0).float().mean().item() < 0.999:
+        bad.append("y_q beyond 1 or equal on < 99.9%")
+    return bad
+
+
+def _ln_res_inputs(rng, B, D, dtype, dev, mean=0.0):
+    x = torch.from_numpy(3 * rng.standard_normal((B, D)).astype(np.float32))
+    res = torch.from_numpy((rng.standard_normal((B, D)) + mean).astype(
+        np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, D).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.standard_normal(D)).astype(np.float32))
+    return (x.to(dev, dtype), res.to(dev, dtype), w.to(dev), b.to(dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,D", [(8, 1024), (256, 1024), (32, 4096),
+                                 (5, 1000), (3, 8192), (2, 16384)])
+def test_ln_res_kernel_matches_plain_on_card(h100, kind, dtype, B, D):
+    """Decode and prefill rows at GPT-2's width, wider rows (up to one
+    that needs more than 48 KB of shared memory), a ragged D, and a row
+    with a large mean; one launch counted per call."""
+    rng = np.random.default_rng(B + D)
+    x, res, w, b = _ln_res_inputs(rng, B, D, getattr(torch, dtype), h100,
+                                  mean=3000.0 if B == 5 else 0.0)
+    ops.reset_launch_counts()
+    got = ops.ln_res(x, res, w, b, kind=kind)
+    assert ops.launch_counts()["ln_res"] == 1
+    want = ref.ln_res_ref(x, res, w, b, kind=kind)
+    torch.cuda.synchronize()
+    assert [t.shape for t in got] == [t.shape for t in want]
+    assert [t.dtype for t in got] == [t.dtype for t in want]
+    assert _ln_res_faults(got, want) == []
+
+
+@pytest.mark.gpu
+def test_ln_res_check_rejects_a_one_pass_variance(h100):
+    """A planted fault: the variance taken as E[r^2] - mean^2 on rows
+    with a large mean (float32 cancellation) must fail the check that
+    the kernel passes."""
+    rng = np.random.default_rng(1)
+    x, res, w, b = _ln_res_inputs(rng, 8, 1024, torch.float32, h100,
+                                  mean=3000.0)
+    want = ref.ln_res_ref(x, res, w, b)
+    assert _ln_res_faults(ops.ln_res(x, res, w, b), want) == []
+    r = x + res
+    mu = r.mean(-1, keepdim=True)
+    var = (r * r).mean(-1, keepdim=True) - mu * mu
+    y = (r - mu) * (1.0 / torch.sqrt(var.clamp_min(0) + 1e-5)) * w + b
+    sc = y.abs().amax(-1, keepdim=True).clamp(min=1e-6) / 127.0
+    planted = (y.to(torch.bfloat16), r,
+               torch.round(y / sc).clamp(-127, 127).to(torch.int8), sc)
+    assert _ln_res_faults(planted, want)
+
+
+@pytest.mark.gpu
+def test_stacked_and_overcommit_engines_on_card(h100):
+    """The stacked layout decodes the target through the contiguous
+    decode kernel; an over-committed paged pool preempts (a host restore
+    and a recompute resume) and drains.  Every request gets its tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.admission import OvercommitAdmission
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = get_config("gpt2-345m").reduced()
+    params = lm.init(cfg, torch.Generator(device=h100).manual_seed(0),
+                     max_seq=64, device=h100)
+    L = cfg.n_layers
+    eng = ServeEngine(cfg, params, batch_slots=2, max_seq=64, eos_id=-1,
+                      chunk_size=16, kv_layout="stacked")
+    for n in (5, 30, 12):
+        eng.submit(list(range(1, n + 1)), max_new=4)
+    ops.reset_launch_counts()
+    done = eng.run()
+    s, n = eng.stats(), ops.launch_counts()
+    assert len(done) == 3 and all(len(r.out) == 4 for r in done)
+    assert n["mha_decode"] == L * (s["model_calls"] - s["prefill_calls"])
+    assert n["paged_mha_decode"] == n["paged_verify"] == 0
+
+    eng = ServeEngine(cfg, params, batch_slots=3, max_seq=64, eos_id=-1,
+                      chunk_size=8, page_size=16, n_pages=4,
+                      prefix_sharing=False,
+                      admission=OvercommitAdmission(cfg, chunk_size=8))
+    for n in (10, 10, 10):
+        eng.submit(list(range(n, 2 * n)), max_new=20)
+    for _ in range(4):
+        eng.tick()
+    dec = [r for r in eng.slots if r is not None and r.out]
+    if dec:
+        eng._preempt(dec[0], "recompute")
+    done = eng.run()
+    s = eng.stats()
+    assert len(done) == 3 and all(len(r.out) == 20 for r in done)
+    assert s["preemptions"] >= 1 and s["restores"] == s["preemptions"]
+    assert s["pages_in_use"] == 0

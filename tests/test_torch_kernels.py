@@ -14,6 +14,14 @@ backend cannot run the JAX verify oracle on bf16 pages (its bf16 x bf16
 -> f32 PV product, ROADMAP C1), so the verify sweeps hold float32 pages
 of bf16-representable values, and the bf16 rounding of the probabilities
 is held against the JAX decode oracle through a one-position verify.
+
+``ln_res`` (the Fused LN&Res kernel) against the reference and its
+Pallas kernel in interpret mode: the new residual bit-identical (one
+float32 add, one cast), ``scale`` within 1e-5 relative, ``y`` within one
+bf16 ulp per element, ``y_q`` within 1 everywhere and equal on at least
+99.9% of elements (the port divides by an IEEE square root where the
+reference multiplies by ``rsqrt``, and takes the means in another order,
+so a value on a rounding boundary may land one step apart).
 """
 import jax
 import jax.numpy as jnp
@@ -248,9 +256,10 @@ def test_plain_path_counts_no_launch():
     x = torch.ones((2, 4), dtype=torch.int8)
     ops.quant_matmul(x, torch.ones((4, 3), dtype=torch.int8),
                      torch.ones((2, 1)), torch.ones((1, 3)))
+    ops.ln_res(torch.ones((2, 4)), torch.ones((2, 4)), torch.ones(4))
     assert ops.launch_counts() == {
         "mp_matmul": 0, "paged_mha_decode": 0, "paged_verify": 0,
-        "paged_verify_tree": 0, "mha_decode": 0}
+        "paged_verify_tree": 0, "mha_decode": 0, "ln_res": 0}
 
 
 def test_gpt2_attention_geometry_fits_shared_memory():
@@ -285,18 +294,80 @@ def test_build_without_toolkit_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
     assert {p.name for p in build.sources()} == {
-        "mha_decode.cu", "mp_matmul.cu", "paged_mha.cu", "paged_verify.cu"}
+        "ln_res.cu", "mha_decode.cu", "mp_matmul.cu", "paged_mha.cu",
+        "paged_verify.cu"}
 
 
 
 def test_mdk_registry_names_the_reference_kernels():
     """Each macro kernel kind maps to the wrapper of the same kernel as in
     the reference (``"mha"`` to the contiguous decode attention, not its
-    paged sibling); ``ln_res`` is not ported yet."""
+    paged sibling), and the registry has the reference's keys."""
     from repro.core import mdk as jmdk
     from repro_torch.core import mdk
 
-    assert set(mdk.MDK_REGISTRY) == set(jmdk.MDK_REGISTRY) - {"ln_res"}
+    assert set(mdk.MDK_REGISTRY) == set(jmdk.MDK_REGISTRY)
     for kind, fn in mdk.MDK_REGISTRY.items():
         assert fn.__name__ == jmdk.MDK_REGISTRY[kind].__name__
     assert mdk.MDK_REGISTRY["mha"] is ops.mha_decode
+    assert mdk.MDK_REGISTRY["ln_res"] is ops.ln_res
+
+
+# ---------------------------------------------------------------------------
+# ln_res
+
+
+def _bf16_ulp(a: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 values around float32 ``a`` (8 significand
+    bits); subnormal magnitudes take the smallest normal's spacing."""
+    mag = np.maximum(np.abs(a), np.float32(2.0 ** -126))
+    return np.exp2(np.floor(np.log2(mag)) - 7).astype(np.float32)
+
+
+def assert_ln_res_close(got, want):
+    """``got`` (the port's torch outputs) against ``want`` (the JAX
+    package's) under the tolerances of the module docstring."""
+    y, r, yq, sc = (np.asarray(jnp.asarray(w).astype(jnp.float32))
+                    if w.dtype != jnp.int8 else np.asarray(w) for w in want)
+    gy, gr = got[0].float().numpy(), got[1].float().numpy()
+    gq, gs = got[2].numpy(), got[3].numpy()
+    assert got[0].dtype == torch.bfloat16 and got[2].dtype == torch.int8
+    assert gs.shape == sc.shape and gy.shape == y.shape
+    np.testing.assert_array_equal(gr, r)
+    np.testing.assert_allclose(gs, sc, rtol=1e-5, atol=0)
+    assert (np.abs(gy - y) <= np.maximum(_bf16_ulp(y), _bf16_ulp(gy))).all()
+    dq = np.abs(gq.astype(np.int32) - yq.astype(np.int32))
+    assert dq.max() <= 1 and (dq == 0).mean() >= 0.999
+
+
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("B,D,bias", [(8, 1024, True), (3, 1000, True),
+                                      (33, 257, False), (1, 64, True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_res_plain_matches_ref_and_interpret_kernel(kind, B, D, bias,
+                                                        dtype):
+    """The plain version against ``ref.ln_res_ref`` and against the
+    Pallas kernel (``_ln_res_kernel``) in interpret mode, as the JAX
+    package's own kernel tests run it; rows with a large mean too."""
+    rng = np.random.default_rng(B * D + len(kind) + len(dtype))
+    x = rng.standard_normal((B, D)).astype(np.float32) * 3
+    res = (rng.standard_normal((B, D)) + rng.uniform(-50, 50, (B, 1))
+           ).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, D).astype(np.float32)
+    b = (0.1 * rng.standard_normal(D)).astype(np.float32) if bias else None
+    jx, jr = (jnp.asarray(a).astype(dtype) for a in (x, res))
+    jb = None if b is None else jnp.asarray(b)
+    tx, tr = (bridge.to_tensor(np.asarray(a)) for a in (jx, jr))
+    got = ops.ln_res(tx, tr, torch.from_numpy(w),
+                     None if b is None else torch.from_numpy(b), kind=kind)
+    assert got[1].dtype == tr.dtype
+    assert_ln_res_close(got, jref.ln_res_ref(jx, jr, jnp.asarray(w), jb,
+                                             kind=kind))
+    assert_ln_res_close(got, jops.ln_res(jx, jr, jnp.asarray(w), jb,
+                                         kind=kind, backend="interpret"))
+
+
+def test_ln_res_refuses_an_unknown_norm():
+    with pytest.raises(ValueError, match="unknown norm kind"):
+        ops.ln_res(torch.ones((1, 4)), torch.ones((1, 4)), torch.ones(4),
+                   kind="batchnorm")
