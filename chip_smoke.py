@@ -18,7 +18,11 @@ is caught and continued:
    own scale and not to that of a row with one key).  The tree-masked
    verify runs on trees built with ``TokenTree`` and on a random mask, and
    a lower-triangular mask must give output bit-identical to the causal
-   kernel; the contiguous decode kernel returns zeros for an empty row.
+   kernel.  Both verify bodies run on rows whose keys end on a key-split
+   edge of the split-KV geometry, just past it and a page past it, at
+   base 0, at the end of the table and parked, for chunks of 5, 9 and 32,
+   and two calls must give bit-identical output (a fixed merge order).
+   The contiguous decode kernel returns zeros for an empty row.
    ``ln_res`` (rows 8, 32, 256; widths 1024, 4096 and a ragged 1000;
    LayerNorm and RMSNorm; x and res float32 and bf16): the new residual
    bit-identical, ``scale`` within 1e-5 relative, ``y`` within one bf16
@@ -28,7 +32,8 @@ is caught and continued:
    with the 50 MB L2 flushed before each launch (the serving loop streams
    ~300 MB of other weights and pages between two uses of one layer's),
    beside the least time the card could take (bytes over 3.35 TB/s or
-   operations over the dense peak of the operands' type).  No PyTorch
+   operations over the dense peak of the operands' type); the verify
+   timings print their split geometry.  No PyTorch
    call computes ``ln_res``; ``F.layer_norm`` of the sum is printed beside
    it as the norm alone.
 5. Serving: full-width ``gpt2-345m`` with random weights from a seeded
@@ -78,7 +83,10 @@ is caught and continued:
     their range, and each one's margin of its own token over the other's
     is at most twice their largest logit difference, the most that
     difference can overturn.
-11. One ``kernels`` JSON line (six kernels, each with its launches on its
+11. The device time of each of the verify's two CUDA functions at the
+    three timed verify shapes (``torch.profiler``), last of the measuring
+    phases because the profiler leaves later launches slower.
+12. One ``kernels`` JSON line (six kernels, each with its launches on its
     own path and per run), the total time, the card's name and power
     limit, then the device JSON line last.
 """
@@ -145,6 +153,11 @@ LN_SCALE_RTOL, LN_YQ_EQUAL = 1e-5, 0.999
 OVERCOMMIT_PAGES = 97
 
 
+#: the timed verify calls, profiled by CUDA function after the serving
+#: phases (``by_kernel_phase``)
+PROFILED = {}
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -186,6 +199,26 @@ class Timer:
             pairs.append((e0, e1))
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+    def by_kernel(self, fn, key: str, iters: int = 10) -> str:
+        """Device time per call of each CUDA function whose name holds
+        ``key``, from ``torch.profiler`` over ``iters`` calls with the L2
+        flushed before each, as a line of text; "not measured" where the
+        trace holds no device time."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush_buf.zero_()
+                fn()
+            torch.cuda.synchronize()
+        parts = []
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0)
+            if key in e.key and us:
+                name = e.key.split("(")[0].replace("void ", "")
+                parts.append(f"{name} {us / iters / 1e3:.4f} ms")
+        return "by kernel: " + ("; ".join(parts) or "not measured")
 
 
 def bound_ms(nbytes: float, ops_: float, kind: str):
@@ -267,6 +300,61 @@ def build_phase():
     build.library()
     print(f"built {path.name} from {len(build.sources())} sources in "
           f"{secs:.2f} s")
+
+
+def verify_geometry(q, kp, bt):
+    """The split-KV geometry ``ops.paged_verify`` launches for these
+    operands, as a line of text."""
+    B, C, H, D = q.shape
+    Hkv, ps = kp.shape[1], kp.shape[2]
+    g = ops._verify_geometry(B, C, H, Hkv, ps, D, bt.shape[1])
+    return (f"geometry: {g.nq} queries x {g.q_tiles} query tiles, "
+            f"{g.splits} splits of {g.pps} pages, "
+            f"{B * Hkv * g.q_tiles * g.splits} blocks, {g.smem} B shared, "
+            f"{4 * g.scratch} B scratch")
+
+
+def verify_split_edges(dev, rng):
+    """Both verify bodies at the serving widths on rows whose keys end on
+    the last position of key split 0, on the first of split 1 and a page
+    past it, at base 0, at the end of the table, mid-table and parked;
+    chunks of 5, 9 and 32, q float32 and bf16.  Each case is held to its
+    plain version per output vector, and a second call must give
+    bit-identical output."""
+    H, D, n_pg = 16, 64, MAX_SEQ // PAGE
+    worst = 0.0
+    for C in (5, 9, 32):
+        g = ops._verify_geometry(SLOTS, C, H, H, PAGE, D, n_pg)
+        edge = g.pps * PAGE
+        base_np = np.array([edge - C, edge - C + 1, edge - C + 1 + PAGE, 0,
+                            MAX_SEQ - C, 2 * edge - C, MAX_SEQ // 2,
+                            MAX_SEQ], np.int32)
+        q, kp, vp, bt = pool_inputs(rng, SLOTS, H, D, dev, (SLOTS, C, H, D))
+        base = torch.from_numpy(base_np).to(dev)
+        bt = live_table(bt, np.minimum(base_np + C, MAX_SEQ))
+        tree = torch.from_numpy(tree_arrays(
+            token_trees(rng, SLOTS, C - 1, 2), C - 1, C)[3].astype(
+                np.int32)).to(dev)
+        for qd in (torch.float32, torch.bfloat16):
+            qq = q.to(qd)
+            for anc in (None, tree):
+                what = (f"paged_verify{'_tree' if anc is not None else ''} "
+                        f"split edges C={C} q={qd}")
+                got = ops.paged_verify(qq, kp, vp, base, bt, anc=anc)
+                again = ops.paged_verify(qq, kp, vp, base, bt, anc=anc)
+                want = ref.paged_verify_ref(qq, kp, vp, base, bt, anc=anc)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got[:-1], want[:-1])
+                check(rel <= ATTN_REL_TOL, f"{what}: rel err {rel}")
+                check(bool(torch.isfinite(got).all()),
+                      f"{what}: non-finite output")
+                check(torch.equal(got, again),
+                      f"{what}: two calls differ")
+                worst = max(worst, rel)
+        print(f"paged_verify split edges C={C} (splits of {g.pps} pages) "
+              f"bases {base_np.tolist()}: causal and tree, q float32 and "
+              f"bf16, within {ATTN_REL_TOL} per vector (worst so far "
+              f"{worst:.3e}); two calls bit-identical")
 
 
 def kernel_phase(dev, timer):
@@ -408,6 +496,8 @@ def kernel_phase(dev, timer):
               f"{rel:.3e} <= {ATTN_REL_TOL}); parked row finite")
         if window == 0:
             ver_err = err
+    # its own generator: the shapes timed after it keep their inputs
+    verify_split_edges(dev, np.random.default_rng(1))
     q1, b1, bt1 = (t[:1].contiguous() for t in (q, base, bt))
     t = timer.ms(lambda: ops.paged_verify(q1, kp, vp, b1, bt1))
     tp = timer.ms(lambda: ref.paged_verify_ref(q1, kp, vp, b1, bt1))
@@ -424,16 +514,19 @@ def kernel_phase(dev, timer):
     nbytes = (2 * keys * H * D * 2 + 2 * CHUNK * H * D * 4 + 4
               + 4 * (keys // PAGE))
     b, by = bound_ms(nbytes, 4 * pairs * H * D, "bf16")
+    geo = verify_geometry(q1, kp, bt1)
+    PROFILED["paged_verify"] = lambda: ops.paged_verify(q1, kp, vp, b1, bt1)
     print(f"paged_verify B=1 C={CHUNK} base={base0}: kernel {t:.4f} ms, "
           f"plain {tp:.4f} ms, SDPA on the gathered view {tl:.4f} ms, "
-          f"bound {b:.5f} ms ({by})")
+          f"bound {b:.5f} ms ({by}); {geo}")
     entries["paged_verify"] = {
         "name": "paged_verify", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_verify.cu",
         "replaces": "src/repro/kernels/paged_verify_kernel.py:173",
         "max_abs_err": ver_err, "ms": t, "plain_ms": tp, "bound_ms": b,
         "bound_by": by, "library_ms": tl,
-        "shape": f"B=1 C={CHUNK} H={H} D={D} base={base0}"}
+        "shape": f"B=1 C={CHUNK} H={H} D={D} base={base0}",
+        "geometry": geo}
     entries["paged_verify"].update(chain_verify_timing(dev, timer, rng))
     entries["paged_verify_tree"] = tree_verify_phase(dev, timer, rng)
     entries["mha_decode"] = mha_decode_phase(dev, timer, rng)
@@ -505,13 +598,15 @@ def chain_verify_timing(dev, timer, rng):
     pages = int(sum(-(-int(b + C) // PAGE) for b in base_np))
     b, by = bound_ms(verify_bytes(SLOTS, C, H, D, keys, pages),
                      4 * pairs * H * D, "bf16")
+    geo = verify_geometry(q, kp, bt)
+    PROFILED["chain"] = lambda: ops.paged_verify(q, kp, vp, base, bt)
     print(f"paged_verify chain shape B={SLOTS} C={C} bases "
           f"{base_np.tolist()}: rel err {rel:.3e}; kernel {t:.4f} ms, plain "
           f"{tp:.4f} ms, SDPA on the gathered view {tl:.4f} ms, bound "
-          f"{b:.5f} ms ({by})")
+          f"{b:.5f} ms ({by}); {geo}")
     return {"chain_shape": f"B={SLOTS} C={C} H={H} D={D}", "chain_ms": t,
             "chain_plain_ms": tp, "chain_bound_ms": b, "chain_library_ms": tl,
-            "chain_max_abs_err": err}
+            "chain_max_abs_err": err, "chain_geometry": geo}
 
 
 def tree_verify_phase(dev, timer, rng):
@@ -578,9 +673,12 @@ def tree_verify_phase(dev, timer, rng):
     pages = int(sum(-(-int(b + C) // PAGE) for b in base_np))
     b, by = bound_ms(verify_bytes(SLOTS, C, H, D, keys, pages)
                      + 4 * SLOTS * C * C, 4 * pairs * H * D, "bf16")
+    geo = verify_geometry(q, kp, bt)
+    PROFILED["paged_verify_tree"] = lambda: ops.paged_verify(
+        q, kp, vp, base, bt, anc=anc)
     print(f"paged_verify_tree B={SLOTS} C={C} bases {base_np.tolist()}: "
           f"kernel {t:.4f} ms, plain {tp:.4f} ms, SDPA on the gathered view "
-          f"with the tree mask {tl:.4f} ms, bound {b:.5f} ms ({by})")
+          f"with the tree mask {tl:.4f} ms, bound {b:.5f} ms ({by}); {geo}")
     return {
         "name": "paged_verify_tree", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_verify.cu",
@@ -588,7 +686,7 @@ def tree_verify_phase(dev, timer, rng):
         "max_abs_err": worst, "ms": t, "plain_ms": tp, "bound_ms": b,
         "bound_by": by, "library_ms": tl,
         "shape": f"B={SLOTS} C={C} H={H} D={D} ps={PAGE} branch "
-                 f"{TREE_BRANCH}"}
+                 f"{TREE_BRANCH}", "geometry": geo}
 
 
 def mha_decode_phase(dev, timer, rng):
@@ -757,6 +855,23 @@ def ln_res_phase(dev, timer, rng):
         f"B{LN_TIMED[1]}_plain_ms": big[1],
         f"B{LN_TIMED[1]}_norm_only_ms": big[2],
         f"B{LN_TIMED[1]}_bound_ms": big[3]}
+
+
+def by_kernel_phase(dev, entries):
+    """The device time of each of the verify's two CUDA functions at the
+    three timed shapes, from ``torch.profiler``.  It runs after every
+    serving phase: once the profiler has run, kernel launches in the same
+    process stay slower, which would move the host-bound serving numbers
+    (PERF.md)."""
+    phase("paged_verify by CUDA function (torch.profiler)")
+    timer = Timer(dev)
+    for key, fn in PROFILED.items():
+        split = timer.by_kernel(fn, "verify::")
+        print(f"paged_verify {key}: {split}")
+        if key == "chain":
+            entries["paged_verify"]["chain_by_kernel"] = split
+        else:
+            entries[key]["by_kernel"] = split
 
 
 def mdk_program_phase(dev, qparams, cfg):
@@ -1363,6 +1478,7 @@ def main() -> int:
     oc_launches = overcommit_phase(dev, qparams, cfg)
     del qparams
     agreement_phase(dev)
+    by_kernel_phase(dev, entries)
     phase("kernels")
     by_run = {"plain": launches,
               **{f"{run} spec": n for run, n in spec_launches.items()},

@@ -1,7 +1,8 @@
 // Attention of C query positions per row over a cache of keys addressed by
-// position: the body shared by paged_mha.cu (decode, C = 1), paged_verify.cu
-// (chunked prefill / verify, C = chunk, causal or tree-masked) and
-// mha_decode.cu (decode over a contiguous cache).
+// position: the body shared by paged_mha.cu (decode over a paged cache) and
+// mha_decode.cu (decode over a contiguous cache), both with C = 1 and no
+// tree mask.  The chunked verify (paged_verify.cu) has its own split-KV
+// body, verify_attn.cuh.
 //
 // Query c of row b sits at logical position qpos = base[b] + base_shift + c
 // and attends every cached position p with p <= qpos (and, with a window,

@@ -40,12 +40,12 @@ SIGNATURES = {
     # q, k_pages, v_pages, lengths, block_table, out, q_bf16,
     # B, H, Hkv, ps, D, n_pg, window, kt_pages, stream
     "paged_mha_decode": [_P] * 6 + [_I] * 9 + [_P],
-    # q, k_pages, v_pages, base, block_table, out, q_bf16,
-    # B, C, H, Hkv, ps, D, n_pg, window, cq, kt_pages, stream
-    "paged_verify": [_P] * 6 + [_I] * 11 + [_P],
-    # q, k_pages, v_pages, base, block_table, anc, out, q_bf16,
-    # B, C, H, Hkv, ps, D, n_pg, cq, kt_pages, stream
-    "paged_verify_tree": [_P] * 7 + [_I] * 10 + [_P],
+    # q, k_pages, v_pages, base, block_table, out, scratch, q_bf16,
+    # B, C, H, Hkv, ps, D, n_pg, window, nq, pps, splits, stream
+    "paged_verify": [_P] * 7 + [_I] * 12 + [_P],
+    # q, k_pages, v_pages, base, block_table, anc, out, scratch, q_bf16,
+    # B, C, H, Hkv, ps, D, n_pg, nq, pps, splits, stream
+    "paged_verify_tree": [_P] * 8 + [_I] * 11 + [_P],
     # q, k_cache, v_cache, lengths, out, q_bf16, kv_bf16,
     # B, H, Hkv, S, D, window, kt, stream
     "mha_decode": [_P] * 5 + [_I] * 9 + [_P],

@@ -11,24 +11,26 @@ PyTorch's current stream, raises if the launch reports an error, and
 adds one to its launch counter (``<wrapper>.launches``) per call that
 launches its kernel: for ``quant_matmul`` that call launches two CUDA
 functions, ``mp_matmul_kernel`` (the int32 GEMM) and
-``mp_splitk_epilogue``, and counts once; ``paged_verify`` counts its
-causal and its tree-masked launches apart (``launches``,
+``mp_splitk_epilogue``, and counts once; ``paged_verify`` launches two
+too (the split-KV attention, then the combine of its splits) and counts
+once, its causal and its tree-masked calls apart (``launches``,
 ``tree_launches``).  ``ln_res`` is reached only through
 ``core/mdk.MDK_REGISTRY["ln_res"]``, as in the JAX package.  Unlike the
 TPU wrappers these pad nothing: the kernels mask their own ragged edges.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import build, ref
 
-#: keys and query rows a paged-attention block keeps in registers /
-#: shared memory (must match MAX_ACC * ATTN_THREADS in paged_attn.cuh)
+#: (query row, dim) accumulators a decode block keeps in registers
+#: (must match MAX_ACC * ATTN_THREADS in paged_attn.cuh)
 _ATTN_ACC_ELEMS = 8 * 128
-#: keys per shared-memory tile of the paged-attention kernels
+#: keys per shared-memory tile of the decode kernels
 _ATTN_TILE_KEYS = 64
 #: the H100's shared memory per block (bytes)
 _SMEM_LIMIT = 232_448
@@ -36,6 +38,12 @@ _SMEM_LIMIT = 232_448
 _N_SMS = 132
 #: output columns / rows per block and K rows per tile of mp_matmul.cu
 _MP_BN, _MP_BK = 64, 128
+#: verify_attn.cuh: warps per block, query rows per block (one m16 MMA
+#: tile), keys per warp step, K/V tiles in each warp's ring, head dims built
+_VERIFY_WARPS, _VERIFY_ROWS, _VERIFY_TILE, _VERIFY_STAGES = 4, 16, 16, 2
+_VERIFY_HEAD_DIMS = (16, 64, 128)
+#: blocks the verify geometry aims at: a few per SM
+_VERIFY_BLOCKS = 4 * _N_SMS
 
 
 def _mp_splits(M: int, N: int, K: int) -> int:
@@ -190,13 +198,50 @@ def _check_paged(name, q, k_pages, v_pages, rows, block_table):
     return Hkv, k_pages.shape[2], D, block_table.shape[1]
 
 
-def _attn_geometry(group: int, D: int, ps: int, C: int):
-    """(cq, kt_pages, shared-memory bytes) for the paged-attention body."""
-    cq = max(1, min(C, _ATTN_ACC_ELEMS // (group * D)))
+def _attn_geometry(group: int, D: int, ps: int):
+    """(kt_pages, shared-memory bytes) for the decode body of
+    ``paged_attn.cuh`` (one query position per block)."""
     kt_pages = max(1, _ATTN_TILE_KEYS // ps)
-    R, KT = cq * group, kt_pages * ps
-    smem = 4 * (R * D + KT * (D + 1) + KT * D + R * KT + 3 * R)
-    return cq, kt_pages, smem
+    KT = kt_pages * ps
+    smem = 4 * (group * D + KT * (D + 1) + KT * D + group * KT + 3 * group)
+    return kt_pages, smem
+
+
+class VerifyGeometry(NamedTuple):
+    """Launch geometry of the split-KV verify kernel (``verify_attn.cuh``)."""
+    nq: int         # queries per block (16 // group query rows)
+    q_tiles: int    # blocks along the chunk
+    pps: int        # pages per key split
+    splits: int     # key splits per (row, KV head, query tile)
+    smem: int       # dynamic shared memory per block, bytes
+    scratch: int    # float32 partials: splits * B * C * H * (D + 2)
+
+
+def _verify_geometry(B: int, C: int, H: int, Hkv: int, ps: int, D: int,
+                     n_pg: int) -> VerifyGeometry:
+    """The split-KV geometry of ``paged_verify``, from the shapes alone (the
+    bases live on the card; reading them would synchronise): the same for
+    the causal and the tree entry.  Each split is a run of whole pages that
+    starts on a 16-key tile and gives each warp at least one tile; splits
+    are added until the grid holds about ``_VERIFY_BLOCKS`` blocks."""
+    group = H // Hkv
+    nq = _VERIFY_ROWS // group
+    q_tiles = -(-C // nq)
+    unit = _VERIFY_TILE // math.gcd(_VERIFY_TILE, ps)
+
+    def whole(pages: int) -> int:  # rounded up to a multiple of `unit`
+        return -(-pages // unit) * unit
+
+    least = whole(-(-_VERIFY_WARPS * _VERIFY_TILE // ps))
+    wanted = -(-_VERIFY_BLOCKS // (B * Hkv * q_tiles))
+    pps = max(least, whole(-(-n_pg // wanted)))
+    splits = -(-n_pg // pps)
+    ring = _VERIFY_WARPS * _VERIFY_STAGES * 2 * _VERIFY_TILE * (D + 8) * 2
+    merge = _VERIFY_WARPS * _VERIFY_ROWS * D * 4
+    smem = (max(ring, merge) + 2 * _VERIFY_WARPS * _VERIFY_ROWS * 4
+            + nq * -(-C // 32) * 4)
+    return VerifyGeometry(nq, q_tiles, pps, splits, smem,
+                          splits * B * C * H * (D + 2))
 
 
 def mha_decode(q, k_cache, v_cache, lengths, *,
@@ -221,7 +266,7 @@ def mha_decode(q, k_cache, v_cache, lengths, *,
     S = k_cache.shape[2]
     _require(S > 0, f"{name}: empty cache")
     # one-position "pages": the body's tile walk over a contiguous row
-    _, kt, smem = _attn_geometry(H // Hkv, D, 1, 1)
+    kt, smem = _attn_geometry(H // Hkv, D, 1)
     _require(smem <= _SMEM_LIMIT, f"{name}: needs {smem} B shared memory")
     out = torch.empty_like(q)
     err = build.library().mha_decode(
@@ -249,7 +294,7 @@ def paged_mha_decode(q, k_pages, v_pages, lengths, block_table, *,
     Hkv, ps, D, n_pg = _check_paged(name, q, k_pages, v_pages, lengths,
                                     block_table)
     B, H, _ = q.shape
-    _, kt_pages, smem = _attn_geometry(H // Hkv, D, ps, 1)
+    kt_pages, smem = _attn_geometry(H // Hkv, D, ps)
     _require(smem <= _SMEM_LIMIT, f"{name}: needs {smem} B shared memory")
     out = torch.empty_like(q)
     err = build.library().paged_mha_decode(
@@ -272,7 +317,11 @@ def paged_verify(q, k_pages, v_pages, base, block_table, *,
     included.  ``anc`` (B, C, C) int32 replaces the in-chunk causal mask
     with a token tree's ancestor bitmask (query ``j`` attends ``base[b] +
     i`` where ``anc[b, j, i]`` is set, and everything below ``base[b]``);
-    it is exclusive with ``window`` and launches the tree kernel."""
+    it is exclusive with ``window`` and launches the tree kernel.
+
+    On the card one call launches two CUDA functions, the split-KV
+    attention and the combine of its splits (``_verify_geometry``), and
+    counts one launch."""
     name = "paged_verify"
     if anc is not None and window:
         raise ValueError("window and anc are mutually exclusive")
@@ -283,16 +332,27 @@ def paged_verify(q, k_pages, v_pages, base, block_table, *,
     Hkv, ps, D, n_pg = _check_paged(name, q, k_pages, v_pages, base,
                                     block_table)
     B, C, H, _ = q.shape
-    cq, kt_pages, smem = _attn_geometry(H // Hkv, D, ps, C)
-    _require(smem <= _SMEM_LIMIT, f"{name}: needs {smem} B shared memory")
+    _require(B > 0 and C > 0 and n_pg > 0, f"{name}: empty operand")
+    _require(D in _VERIFY_HEAD_DIMS,
+             f"{name}: head_dim {D} not one of {_VERIFY_HEAD_DIMS}")
+    _require(H // Hkv <= _VERIFY_ROWS,
+             f"{name}: group {H // Hkv} exceeds {_VERIFY_ROWS} query rows")
+    # the kernel stages K/V rows with 16-byte copies
+    _require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+             f"{name}: k/v pages must be 16-byte aligned")
+    geo = _verify_geometry(B, C, H, Hkv, ps, D, n_pg)
+    _require(geo.smem <= _SMEM_LIMIT,
+             f"{name}: needs {geo.smem} B shared memory")
     out = torch.empty_like(q)
+    scratch = torch.empty(geo.scratch, dtype=torch.float32, device=q.device)
     lib = build.library()
     args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             base.data_ptr(), block_table.data_ptr())
+    shape = (int(q.dtype == torch.bfloat16), B, C, H, Hkv, ps, D, n_pg)
+    split = (geo.nq, geo.pps, geo.splits, _stream(q))
     if anc is None:
-        err = lib.paged_verify(
-            *args, out.data_ptr(), int(q.dtype == torch.bfloat16), B, C, H,
-            Hkv, ps, D, n_pg, int(window), cq, kt_pages, _stream(q))
+        err = lib.paged_verify(*args, out.data_ptr(), scratch.data_ptr(),
+                               *shape, int(window), *split)
         _check_launch(name, err)
         paged_verify.launches += 1
         return out
@@ -300,10 +360,8 @@ def paged_verify(q, k_pages, v_pages, base, block_table, *,
              and tuple(anc.shape) == (B, C, C),
              f"{name}: anc must be int32 ({B}, {C}, {C}) on {q.device}")
     _contig(name, anc=anc)
-    err = lib.paged_verify_tree(
-        *args, anc.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, C, H, Hkv, ps, D, n_pg, cq,
-        kt_pages, _stream(q))
+    err = lib.paged_verify_tree(*args, anc.data_ptr(), out.data_ptr(),
+                                scratch.data_ptr(), *shape, *split)
     _check_launch(name, err)
     paged_verify.tree_launches += 1
     return out

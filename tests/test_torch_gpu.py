@@ -14,7 +14,10 @@ largest magnitude.  The normalisation is per vector because the vectors'
 scales differ: a row with one key returns a value row of the cache (order
 1), a row with a thousand keys an average of them (order 0.05), and a
 fault on the long row, such as a page left out, must not hide under the
-short row's scale.  ``ln_res`` keeps the new residual bit-identical,
+short row's scale.  The split-KV verify is also held bit for bit against
+itself: a second call on the same inputs (its splits merge in a fixed
+order), and a lower-triangular tree mask against the causal mask.
+``ln_res`` keeps the new residual bit-identical,
 ``scale`` within 1e-5 relative, ``y`` within one bf16 ulp per element and
 ``y_q`` within 1 everywhere and equal on at least 99.9% of elements (the
 kernel takes its sums in another order than the plain version).
@@ -190,6 +193,139 @@ def test_paged_verify_tree_kernel_matches_plain_on_card(h100, C, qdtype,
     assert torch.equal(got, causal)
     assert ops.launch_counts()["paged_verify_tree"] == 3
     assert ops.launch_counts()["paged_verify"] == 1
+
+
+def _verify_case(rng, dev, B, C, Hkv, group, base_np, qdtype="float32",
+                 D=64, ps=16, n_pg=16):
+    """Pages, a block table live up to each row's chunk end, bases and a
+    query for the split-KV verify cases."""
+    P = 1 + B * n_pg
+    kp, vp = _pool(rng, P, Hkv, ps, D, dev)
+    base_np = np.asarray(base_np, np.int32)
+    bt = _block_table(rng, B, n_pg, P,
+                      np.minimum(-(-(base_np + C) // ps), n_pg), dev)
+    q = torch.from_numpy(rng.standard_normal(
+        (B, C, Hkv * group, D)).astype(np.float32)).to(
+            device=dev, dtype=getattr(torch, qdtype))
+    return q, kp, vp, torch.from_numpy(base_np).to(dev), bt
+
+
+def _split_edge_bases(C, Hkv, group, ps, n_pg, B=7):
+    """Row bases whose last key falls on the last position of split 0, on
+    the first of split 1 and one page past it; base 0; a row ending at
+    ``n_pg * ps``; a mid row; a row parked at the end of its table."""
+    geo = ops._verify_geometry(B, C, Hkv * group, Hkv, ps, 64, n_pg)
+    assert geo.splits >= 3, geo
+    edge = geo.pps * ps
+    S = n_pg * ps
+    return [edge - C, edge - C + 1, edge - C + 1 + ps, 0, S - C,
+            (S - C) // 2, S]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tree", [False, True])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [5, 32])
+def test_paged_verify_split_edges_on_card(h100, tree, qdtype, C):
+    """Rows whose keys end exactly on a split edge, just past it and a
+    page past it, at base 0, at the end of the table and parked: each
+    split is merged once.  Two calls give bit-identical output (the
+    splits merge in a fixed order, no atomics)."""
+    rng = np.random.default_rng(C + 2 * tree)
+    Hkv, group, ps, n_pg = 4, 1, 16, 24
+    base_np = _split_edge_bases(C, Hkv, group, ps, n_pg)
+    B = len(base_np)
+    q, kp, vp, base, bt = _verify_case(rng, h100, B, C, Hkv, group, base_np,
+                                       qdtype, n_pg=n_pg)
+    anc = torch.from_numpy(_tree_anc(rng, B, C)).to(h100) if tree else None
+    ops.reset_launch_counts()
+    got = ops.paged_verify(q, kp, vp, base, bt, anc=anc)
+    again = ops.paged_verify(q, kp, vp, base, bt, anc=anc)
+    want = ref.paged_verify_ref(q, kp, vp, base, bt, anc=anc)
+    torch.cuda.synchronize()
+    assert _rel_err(got[:-1], want[:-1]) <= ATTN_REL_TOL
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    n = ops.launch_counts()
+    assert n["paged_verify_tree" if tree else "paged_verify"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("group", [2, 4])
+@pytest.mark.parametrize("C", [5, 32])
+def test_paged_verify_gqa_on_card(h100, window, group, C):
+    """The causal body with 2 and 4 query heads per KV head (8 and 4
+    queries per 16-row tile), with and without a window."""
+    rng = np.random.default_rng(100 + window + group + C)
+    Hkv, ps, n_pg = 4, 16, 20
+    base_np = [0, 3, 16, 77, 150, n_pg * ps - C]
+    q, kp, vp, base, bt = _verify_case(rng, h100, len(base_np), C, Hkv,
+                                       group, base_np, n_pg=n_pg)
+    got = ops.paged_verify(q, kp, vp, base, bt, window=window)
+    want = ref.paged_verify_ref(q, kp, vp, base, bt, window=window)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= ATTN_REL_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+def test_paged_verify_tree_c33_on_card(h100, qdtype):
+    """A 33-position tree chunk: three query tiles, two bit words per
+    query's ancestor row; random trees and a mask that is not triangular."""
+    rng = np.random.default_rng(33)
+    C, Hkv, group, n_pg = 33, 4, 2, 16
+    base_np = [0, 15, 16, 100, n_pg * 16 - C, n_pg * 16]
+    q, kp, vp, base, bt = _verify_case(rng, h100, len(base_np), C, Hkv,
+                                       group, base_np, qdtype, n_pg=n_pg)
+    for anc_np in (_tree_anc(rng, len(base_np), C),
+                   rng.integers(0, 2, (len(base_np), C, C)).astype(np.int32)):
+        anc = torch.from_numpy(anc_np).to(h100)
+        got = ops.paged_verify(q, kp, vp, base, bt, anc=anc)
+        want = ref.paged_verify_ref(q, kp, vp, base, bt, anc=anc)
+        torch.cuda.synchronize()
+        assert _rel_err(got[:-1], want[:-1]) <= ATTN_REL_TOL
+        assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [5, 9, 32])
+def test_paged_verify_tril_bitexact_on_card(h100, qdtype, C):
+    """A lower-triangular tree mask gives output bit-identical to the
+    causal kernel at the serving widths (16 heads of 64, several key
+    splits), with rows at split edges and a parked row."""
+    rng = np.random.default_rng(200 + C)
+    Hkv, group, ps, n_pg = 16, 1, 16, 64
+    base_np = _split_edge_bases(C, Hkv, group, ps, n_pg, B=7)
+    q, kp, vp, base, bt = _verify_case(rng, h100, len(base_np), C, Hkv,
+                                       group, base_np, qdtype, n_pg=n_pg)
+    tril = torch.tril(torch.ones((len(base_np), C, C), dtype=torch.int32,
+                                 device=h100))
+    got = ops.paged_verify(q, kp, vp, base, bt, anc=tril)
+    causal = ops.paged_verify(q, kp, vp, base, bt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, causal)
+
+
+@pytest.mark.gpu
+def test_paged_verify_makes_no_host_sync_on_card(h100):
+    """The wrapper (geometry, scratch, both launches) never waits for the
+    card: it runs under ``set_sync_debug_mode("error")``."""
+    rng = np.random.default_rng(7)
+    C = 9
+    q, kp, vp, base, bt = _verify_case(rng, h100, 3, C, 4, 2, [0, 40, 200])
+    anc = torch.from_numpy(_tree_anc(rng, 3, C)).to(h100)
+    ops.paged_verify(q, kp, vp, base, bt)  # build and load the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.paged_verify(q, kp, vp, base, bt)
+        ops.paged_verify(q, kp, vp, base, bt, window=5)
+        ops.paged_verify(q, kp, vp, base, bt, anc=anc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

@@ -266,9 +266,145 @@ def test_gpt2_attention_geometry_fits_shared_memory():
     """The launch geometry the wrappers pick for GPT-2 345M (16 heads of
     64, pages of 16) fits the H100's shared memory, and a prefill chunk
     of 32 splits into two query slices per KV head."""
-    cq, kt_pages, smem = ops._attn_geometry(1, 64, 16, 32)
-    assert (cq, kt_pages) == (16, 4) and smem <= ops._SMEM_LIMIT
-    assert ops._attn_geometry(1, 64, 16, 1)[0] == 1
+    kt_pages, smem = ops._attn_geometry(1, 64, 16)
+    assert kt_pages == 4 and smem <= ops._SMEM_LIMIT
+    geo = ops._verify_geometry(1, 32, 16, 16, 16, 64, 64)
+    assert (geo.nq, geo.q_tiles) == (16, 2) and geo.smem <= ops._SMEM_LIMIT
+
+
+#: (B, C, H, Hkv, ps, D, n_pg): GPT-2 345M's prefill chunk, chain and tree
+#: verifies, GQA, small and odd pages, a long chunk, a tiny table
+_VERIFY_SHAPES = [
+    (1, 32, 16, 16, 16, 64, 64), (8, 5, 16, 16, 16, 64, 64),
+    (8, 9, 16, 16, 16, 64, 64), (3, 33, 8, 4, 16, 64, 6),
+    (5, 9, 16, 2, 8, 128, 40), (2, 17, 4, 1, 4, 16, 100),
+    (4, 5, 6, 2, 24, 16, 7), (64, 1, 16, 16, 16, 64, 64),
+    (1, 256, 32, 4, 32, 128, 8), (2, 3, 2, 2, 1, 16, 50)]
+
+
+@pytest.mark.parametrize("shape", _VERIFY_SHAPES)
+def test_verify_splits_cover_the_table_once(shape):
+    """The key splits are runs of whole pages that tile ``[0, n_pg)``
+    exactly once (no split empty, none past the table), each starting on
+    a 16-key tile and giving every warp of a block at least one tile;
+    the query tiles cover the chunk with one m16 MMA tile of rows each."""
+    B, C, H, Hkv, ps, D, n_pg = shape
+    geo = ops._verify_geometry(*shape)
+    owner = np.zeros(n_pg, np.int64)
+    for s in range(geo.splits):
+        lo, hi = s * geo.pps, min((s + 1) * geo.pps, n_pg)
+        assert lo < hi
+        owner[lo:hi] += 1
+    assert (owner == 1).all()
+    assert (geo.pps * ps) % ops._VERIFY_TILE == 0
+    assert geo.pps * ps >= ops._VERIFY_WARPS * ops._VERIFY_TILE
+    group = H // Hkv
+    assert geo.nq * group <= ops._VERIFY_ROWS
+    assert (geo.q_tiles - 1) * geo.nq < C <= geo.q_tiles * geo.nq
+    # as many splits as the card wants, unless the table runs out first
+    blocks = B * Hkv * geo.q_tiles * geo.splits
+    least = -(-ops._VERIFY_WARPS * ops._VERIFY_TILE // ps)
+    assert blocks >= min(ops._VERIFY_BLOCKS,
+                         B * Hkv * geo.q_tiles * (n_pg // least))
+
+
+@pytest.mark.parametrize("shape", _VERIFY_SHAPES)
+def test_verify_scratch_is_what_the_kernel_indexes(shape):
+    """``scratch`` holds exactly the partials the kernel writes: part_o
+    (splits, B, C, H, D) then part_ml (splits, B, C, H, 2), indexed as in
+    ``verify_attn.cuh``: the last element of each ends the buffer."""
+    B, C, H, Hkv, ps, D, n_pg = shape
+    geo = ops._verify_geometry(*shape)
+    BCH = B * C * H
+    last_v = BCH - 1  # ((b * C + c) * H + h) at b, c, h = B-1, C-1, H-1
+    assert ((B - 1) * C + C - 1) * H + H - 1 == last_v
+    last_o = ((geo.splits - 1) * BCH + last_v) * D + D - 1
+    ml_at = geo.splits * BCH * D
+    last_ml = ml_at + 2 * ((geo.splits - 1) * BCH + last_v) + 1
+    assert last_o + 1 == ml_at and last_ml + 1 == geo.scratch
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_verify_shared_memory_fits_the_h100(D, group):
+    """Rings, merge buffers and the tree's bit words stay within the
+    232,448 bytes one block may use, for chunks up to 2,048 positions and
+    every page size."""
+    for C in (1, 5, 9, 32, 33, 512, 2048):
+        for ps in (1, 8, 16, 32):
+            geo = ops._verify_geometry(8, C, 4 * group, 4, ps, D, 64)
+            assert geo.smem <= 232_448
+
+
+def test_verify_entries_share_geometry_and_count_one_launch(monkeypatch):
+    """Both entries get the geometry of the shapes alone (the bases and
+    the mask do not enter it), a scratch buffer of its size, and count one
+    launch per call, the causal and the tree calls apart.  The library is
+    replaced by a recorder and the card by the CPU, so this runs here."""
+    calls = []
+
+    class Lib:
+        def paged_verify(self, *a):
+            calls.append(("causal", a))
+            return 0
+
+        def paged_verify_tree(self, *a):
+            calls.append(("tree", a))
+            return 0
+
+    sizes = []
+    real_empty = torch.empty
+
+    def empty(*a, **kw):
+        t = real_empty(*a, **kw)
+        sizes.append(t.numel())
+        return t
+
+    monkeypatch.setattr(ops, "_route", lambda *a: True)
+    monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(ops.build, "library", lambda: Lib())
+    monkeypatch.setattr(ops.torch, "empty", empty)
+    B, C, H, Hkv, D, ps, n_pg = 2, 9, 8, 4, 64, 16, 12
+    q = torch.zeros((B, C, H, D))
+    pages = torch.zeros((1 + B * n_pg, Hkv, ps, D), dtype=torch.bfloat16)
+    bt = torch.zeros((B, n_pg), dtype=torch.int32)
+    anc = torch.ones((B, C, C), dtype=torch.int32)
+    ops.reset_launch_counts()
+    for base in ([0, 100], [50, 3]):
+        b = torch.tensor(base, dtype=torch.int32)
+        ops.paged_verify(q, pages, pages, b, bt)
+        ops.paged_verify(q, pages, pages, b, bt, anc=anc)
+    geo = ops._verify_geometry(B, C, H, Hkv, ps, D, n_pg)
+    assert [k for k, _ in calls] == ["causal", "tree"] * 2
+    for kind, a in calls:
+        assert a[-4:-1] == (geo.nq, geo.pps, geo.splits)
+        shape = a[-13:-5] if kind == "causal" else a[-12:-4]
+        assert shape == (0, B, C, H, Hkv, ps, D, n_pg)
+    assert sizes.count(geo.scratch) == 4
+    assert ops.launch_counts()["paged_verify"] == 2
+    assert ops.launch_counts()["paged_verify_tree"] == 2
+
+
+def test_verify_refuses_what_the_kernel_does_not_take(monkeypatch):
+    """A head dim the kernel is not built for, a group wider than one MMA
+    tile of query rows, and misaligned pages raise before any launch."""
+    monkeypatch.setattr(ops, "_route", lambda *a: True)
+    monkeypatch.setattr(ops.build, "library", lambda: pytest.fail(
+        "launched a kernel it should have refused"))
+    bt = torch.zeros((1, 2), dtype=torch.int32)
+    base = torch.zeros(1, dtype=torch.int32)
+
+    def call(H, Hkv, D, offset=0):
+        pool = torch.zeros(3 * Hkv * 16 * D + offset, dtype=torch.bfloat16)
+        pages = pool[offset:].view(3, Hkv, 16, D)
+        ops.paged_verify(torch.zeros((1, 4, H, D)), pages, pages, base, bt)
+
+    with pytest.raises(ValueError, match="head_dim 48"):
+        call(2, 2, 48)
+    with pytest.raises(ValueError, match="group 32"):
+        call(32, 1, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(2, 2, 64, offset=4)
 
 
 def test_mp_split_geometry_fills_the_card():
