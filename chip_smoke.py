@@ -23,6 +23,9 @@ is caught and continued:
    base 0, at the end of the table and parked, for chunks of 5, 9 and 32,
    and two calls must give bit-identical output (a fixed merge order).
    The contiguous decode kernel returns zeros for an empty row.
+   ``mp_matmul`` is also held bit for bit at the verifies' token counts
+   (40 and 72), and two calls of it, and of the paged decode, must give
+   bit-identical output.
    ``ln_res`` (rows 8, 32, 256; widths 1024, 4096 and a ragged 1000;
    LayerNorm and RMSNorm; x and res float32 and bf16): the new residual
    bit-identical, ``scale`` within 1e-5 relative, ``y`` within one bf16
@@ -32,10 +35,13 @@ is caught and continued:
    with the 50 MB L2 flushed before each launch (the serving loop streams
    ~300 MB of other weights and pages between two uses of one layer's),
    beside the least time the card could take (bytes over 3.35 TB/s or
-   operations over the dense peak of the operands' type); the verify
-   timings print their split geometry.  No PyTorch
-   call computes ``ln_res``; ``F.layer_norm`` of the sum is printed beside
-   it as the norm alone.
+   operations over the dense peak of the operands' type); the
+   ``mp_matmul``, decode and verify timings print their split geometry.
+   Two yardsticks of the timing itself: an empty kernel (a 4-byte fill)
+   and, beside each decode-tick ``mp_matmul``, a device-to-device copy of
+   the same weight bytes.
+   No PyTorch call computes ``ln_res``; ``F.layer_norm`` of the sum is
+   printed beside it as the norm alone.
 5. Serving: full-width ``gpt2-345m`` with random weights from a seeded
    generator, W8A8 SmoothQuant calibrated on seeded prompts, paged KV
    cache, chunk 32, 8 slots, ``max_seq`` 1024, 16 greedy requests with
@@ -83,9 +89,11 @@ is caught and continued:
     their range, and each one's margin of its own token over the other's
     is at most twice their largest logit difference, the most that
     difference can overturn.
-11. The device time of each of the verify's two CUDA functions at the
-    three timed verify shapes (``torch.profiler``), last of the measuring
-    phases because the profiler leaves later launches slower.
+11. The device time of each CUDA function of the timed calls
+    (``torch.profiler``): one layer's six ``mp_matmul`` calls at M 8 and
+    32 (one function), the timed decode and the three timed verify shapes
+    (the split kernel and the combine each); last of the measuring phases
+    because the profiler leaves later launches slower.
 12. One ``kernels`` JSON line (six kernels, each with its launches on its
     own path and per run), the total time, the card's name and power
     limit, then the device JSON line last.
@@ -153,9 +161,10 @@ LN_SCALE_RTOL, LN_YQ_EQUAL = 1e-5, 0.999
 OVERCOMMIT_PAGES = 97
 
 
-#: the timed verify calls, profiled by CUDA function after the serving
-#: phases (``by_kernel_phase``)
-PROFILED = {}
+#: the timed calls profiled by CUDA function after the serving phases
+#: (``by_kernel_phase``): (label, kernel entry, entry field, call, name
+#: keys of its CUDA functions)
+PROFILED = []
 
 
 class SmokeFailure(RuntimeError):
@@ -200,11 +209,11 @@ class Timer:
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
-    def by_kernel(self, fn, key: str, iters: int = 10) -> str:
-        """Device time per call of each CUDA function whose name holds
-        ``key``, from ``torch.profiler`` over ``iters`` calls with the L2
-        flushed before each, as a line of text; "not measured" where the
-        trace holds no device time."""
+    def by_kernel(self, fn, keys, iters: int = 10) -> str:
+        """Device time per call of each CUDA function whose name holds one
+        of ``keys``, from ``torch.profiler`` over ``iters`` calls with the
+        L2 flushed before each, as a line of text; "not measured" where
+        the trace holds no device time."""
         from torch.profiler import ProfilerActivity, profile
         fn()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -215,8 +224,9 @@ class Timer:
         parts = []
         for e in prof.key_averages():
             us = getattr(e, "device_time_total", 0)
-            if key in e.key and us:
-                name = e.key.split("(")[0].replace("void ", "")
+            if us and any(k in e.key for k in keys):
+                name = e.key.replace("(anonymous namespace)::", "")
+                name = name.split("(")[0].replace("void ", "")
                 parts.append(f"{name} {us / iters / 1e3:.4f} ms")
         return "by kernel: " + ("; ".join(parts) or "not measured")
 
@@ -365,13 +375,21 @@ def kernel_phase(dev, timer):
     entries = {}
 
     # -- mp_matmul: every (K, N) of the model at M = 1, slots, chunk
-    layer = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    # yardsticks of the timing itself: an empty kernel (a 4-byte fill) and
+    # a device-to-device copy of each weight matrix's bytes
+    tiny = torch.zeros(1, device=dev)
+    floor_ms = timer.ms(lambda: tiny.zero_())
+    print(f"timing floor: a 4-byte fill takes {floor_ms:.4f} ms per call")
+    layer = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "copy_ms": 0.0}
     prefill = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                "library_ms": 0.0}
     mp_err = 0.0
+    layer_args = {SLOTS: [], CHUNK: []}  # one layer's six calls, profiled
     for K, N in MP_SHAPES:
         for M in (1, SLOTS, CHUNK):
             x, w, xs, ws, _ = mp_inputs(rng, M, K, N, dev)
+            if M in layer_args:
+                layer_args[M] += [(x, w, xs, ws)] * MP_PER_LAYER[(K, N)]
             got = ops.quant_matmul(x, w, xs, ws, out_dtype=torch.float32)
             want = ref.quant_matmul_ref(x, w, xs, ws, out_dtype=torch.float32)
             torch.cuda.synchronize()
@@ -392,11 +410,18 @@ def kernel_phase(dev, timer):
                 lib = "n/a (torch._int_mm needs M > 16)"
             nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
             b, by = bound_ms(nbytes, 2 * M * K * N, "int8")
+            g = ops._mp_geometry(M, N, K)
             print(f"mp_matmul M={M} K={K} N={N}: bit-identical, kernel "
                   f"{t:.4f} ms, plain {tp:.4f} ms, library {lib} ms, bound "
-                  f"{b:.5f} ms ({by})")
+                  f"{b:.5f} ms ({by}); clusters of {g.splits} x "
+                  f"{g.strips * g.m_blocks} ({g.bm}-token blocks)")
             n = MP_PER_LAYER[(K, N)]
             if M == SLOTS:
+                src = torch.empty(K * N, dtype=torch.uint8, device=dev)
+                dst = torch.empty_like(src)
+                tc = timer.ms(lambda: dst.copy_(src))
+                print(f"  a copy of its {K * N} weight bytes: {tc:.4f} ms")
+                layer["copy_ms"] += n * tc
                 layer["ms"] += n * t
                 layer["plain_ms"] += n * tp
                 layer["bound_ms"] += n * b
@@ -412,6 +437,27 @@ def kernel_phase(dev, timer):
         check(torch.equal(got, want),
               f"mp_matmul ragged {out_dtype} bias={bias}: not bit-identical")
     print("mp_matmul ragged (5, 1000, 300) bf16 out / bias: bit-identical")
+    # the verifies' token counts (chain k 4 and tree k 8 over 8 rows), with
+    # bias and bf16 out; a second call must be bit-identical
+    vrng = np.random.default_rng(2)  # the timed shapes keep their inputs
+    for M in (SLOTS * (CHAIN_K + 1), SLOTS * (TREE_K + 1)):
+        for K, N in MP_SHAPES:
+            x, w, xs, ws, bb = mp_inputs(vrng, M, K, N, dev, bias=True)
+            got = ops.quant_matmul(x, w, xs, ws, bb)
+            again = ops.quant_matmul(x, w, xs, ws, bb)
+            want = ref.quant_matmul_ref(x, w, xs, ws, bb)
+            check(torch.equal(got, want) and torch.equal(got, again),
+                  f"mp_matmul M={M} K={K} N={N}: not bit-identical")
+    print(f"mp_matmul M={SLOTS * (CHAIN_K + 1)} and "
+          f"{SLOTS * (TREE_K + 1)} at the three shapes, bias, bf16 out: "
+          "bit-identical, two calls equal")
+    for M, label in ((SLOTS, "mp_matmul"), (CHUNK, "mp_matmul prefill")):
+        calls = layer_args[M]
+        PROFILED.append((label, "mp_matmul",
+                         "by_kernel" if M == SLOTS else "prefill_by_kernel",
+                         lambda calls=calls: [ops.quant_matmul(
+                             *a, out_dtype=torch.float32) for a in calls],
+                         ("mp_matmul",)))
     entries["mp_matmul"] = {
         "name": "mp_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/mp_matmul.cu",
@@ -421,9 +467,13 @@ def kernel_phase(dev, timer):
         "bound_ms": layer["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
         "shape": f"one decoder layer's 6 calls at M={SLOTS}",
+        "weights_copy_ms": layer["copy_ms"], "floor_ms": floor_ms,
         **{f"prefill_{k}": v for k, v in prefill.items()},
         "prefill_shape": f"one decoder layer's 6 calls at M={CHUNK}; "
                          "library: torch._int_mm and the same epilogue"}
+    print(f"mp_matmul one layer at M={SLOTS}: kernel {layer['ms']:.4f} ms, "
+          f"plain {layer['plain_ms']:.4f} ms, bound {layer['bound_ms']:.5f} "
+          f"ms; a copy of the layer's weight bytes {layer['copy_ms']:.4f} ms")
     print(f"mp_matmul one layer at M={CHUNK}: kernel {prefill['ms']:.4f} ms, "
           f"plain {prefill['plain_ms']:.4f} ms, library "
           f"{prefill['library_ms']:.4f} ms, bound "
@@ -453,6 +503,14 @@ def kernel_phase(dev, timer):
     # the kernel's zero-denominator clamp: a row with no key returns 0
     got = ops.paged_mha_decode(q, kp, vp, torch.zeros_like(lengths), bt)
     check(bool((got == 0).all()), "paged_mha_decode: empty rows not zero")
+    # the splits merge in a fixed order
+    check(torch.equal(ops.paged_mha_decode(q, kp, vp, lengths, bt),
+                      ops.paged_mha_decode(q, kp, vp, lengths, bt)),
+          "paged_mha_decode: two calls differ")
+    dg = ops._decode_geometry(SLOTS, H, H, PAGE, D, MAX_SEQ // PAGE)
+    dgeo = (f"geometry: {dg.splits} splits of {dg.pps} pages, "
+            f"{SLOTS * H * dg.h_chunks * dg.splits} blocks, {dg.smem} B "
+            f"shared, {4 * dg.scratch} B scratch")
     t = timer.ms(lambda: ops.paged_mha_decode(q, kp, vp, lengths, bt))
     tp = timer.ms(lambda: ref.paged_mha_decode_ref(q, kp, vp, lengths, bt))
     kv = ref.paged_gather_ref(kp, bt).float()
@@ -466,16 +524,22 @@ def kernel_phase(dev, timer):
     nbytes = (2 * tot * H * D * 2 + 2 * SLOTS * H * D * 4
               + 4 * SLOTS + 4 * pages)
     b, by = bound_ms(nbytes, 4 * tot * H * D, "bf16")
+    PROFILED.append(("paged_mha_decode", "paged_mha_decode", "by_kernel",
+                     lambda q=q, kp=kp, vp=vp, n=lengths, bt=bt:
+                     ops.paged_mha_decode(q, kp, vp, n, bt),
+                     ("decode::", "verify::combine")))
     print(f"paged_mha_decode B={SLOTS} H={H} D={D} lengths "
           f"{lengths_np.tolist()}: kernel {t:.4f} ms, plain {tp:.4f} ms, "
-          f"SDPA on the gathered view {tl:.4f} ms, bound {b:.5f} ms ({by})")
+          f"SDPA on the gathered view {tl:.4f} ms, bound {b:.5f} ms ({by}); "
+          f"two calls bit-identical; {dgeo}")
     entries["paged_mha_decode"] = {
         "name": "paged_mha_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_mha.cu",
         "replaces": "src/repro/kernels/paged_mha_kernel.py:92",
         "max_abs_err": dec_err, "ms": t, "plain_ms": tp, "bound_ms": b,
         "bound_by": by, "library_ms": tl,
-        "shape": f"B={SLOTS} H={H} D={D} ps={PAGE} max_seq={MAX_SEQ}"}
+        "shape": f"B={SLOTS} H={H} D={D} ps={PAGE} max_seq={MAX_SEQ}",
+        "geometry": dgeo}
 
     # -- paged_verify: one prefill chunk (B = 1, C = chunk) at base 480,
     #    plus a row parked past the table and a window
@@ -515,7 +579,9 @@ def kernel_phase(dev, timer):
               + 4 * (keys // PAGE))
     b, by = bound_ms(nbytes, 4 * pairs * H * D, "bf16")
     geo = verify_geometry(q1, kp, bt1)
-    PROFILED["paged_verify"] = lambda: ops.paged_verify(q1, kp, vp, b1, bt1)
+    PROFILED.append(("paged_verify", "paged_verify", "by_kernel",
+                     lambda: ops.paged_verify(q1, kp, vp, b1, bt1),
+                     ("verify::",)))
     print(f"paged_verify B=1 C={CHUNK} base={base0}: kernel {t:.4f} ms, "
           f"plain {tp:.4f} ms, SDPA on the gathered view {tl:.4f} ms, "
           f"bound {b:.5f} ms ({by}); {geo}")
@@ -599,7 +665,10 @@ def chain_verify_timing(dev, timer, rng):
     b, by = bound_ms(verify_bytes(SLOTS, C, H, D, keys, pages),
                      4 * pairs * H * D, "bf16")
     geo = verify_geometry(q, kp, bt)
-    PROFILED["chain"] = lambda: ops.paged_verify(q, kp, vp, base, bt)
+    PROFILED.append(("paged_verify chain", "paged_verify",
+                     "chain_by_kernel",
+                     lambda: ops.paged_verify(q, kp, vp, base, bt),
+                     ("verify::",)))
     print(f"paged_verify chain shape B={SLOTS} C={C} bases "
           f"{base_np.tolist()}: rel err {rel:.3e}; kernel {t:.4f} ms, plain "
           f"{tp:.4f} ms, SDPA on the gathered view {tl:.4f} ms, bound "
@@ -674,8 +743,9 @@ def tree_verify_phase(dev, timer, rng):
     b, by = bound_ms(verify_bytes(SLOTS, C, H, D, keys, pages)
                      + 4 * SLOTS * C * C, 4 * pairs * H * D, "bf16")
     geo = verify_geometry(q, kp, bt)
-    PROFILED["paged_verify_tree"] = lambda: ops.paged_verify(
-        q, kp, vp, base, bt, anc=anc)
+    PROFILED.append(("paged_verify_tree", "paged_verify_tree", "by_kernel",
+                     lambda: ops.paged_verify(q, kp, vp, base, bt, anc=anc),
+                     ("verify::",)))
     print(f"paged_verify_tree B={SLOTS} C={C} bases {base_np.tolist()}: "
           f"kernel {t:.4f} ms, plain {tp:.4f} ms, SDPA on the gathered view "
           f"with the tree mask {tl:.4f} ms, bound {b:.5f} ms ({by}); {geo}")
@@ -858,20 +928,18 @@ def ln_res_phase(dev, timer, rng):
 
 
 def by_kernel_phase(dev, entries):
-    """The device time of each of the verify's two CUDA functions at the
-    three timed shapes, from ``torch.profiler``.  It runs after every
-    serving phase: once the profiler has run, kernel launches in the same
-    process stay slower, which would move the host-bound serving numbers
-    (PERF.md)."""
-    phase("paged_verify by CUDA function (torch.profiler)")
+    """The device time of each CUDA function of the profiled calls (one
+    layer's six ``mp_matmul`` calls at M 8 and 32, the timed decode and
+    the three timed verify shapes), from ``torch.profiler``.  It runs
+    after every serving phase: once the profiler has run, kernel launches
+    in the same process stay slower, which would move the host-bound
+    serving numbers (PERF.md)."""
+    phase("CUDA functions of the timed calls (torch.profiler)")
     timer = Timer(dev)
-    for key, fn in PROFILED.items():
-        split = timer.by_kernel(fn, "verify::")
-        print(f"paged_verify {key}: {split}")
-        if key == "chain":
-            entries["paged_verify"]["chain_by_kernel"] = split
-        else:
-            entries[key]["by_kernel"] = split
+    for label, name, field, fn, keys in PROFILED:
+        split = timer.by_kernel(fn, keys)
+        print(f"{label}: {split}")
+        entries[name][field] = split
 
 
 def mdk_program_phase(dev, qparams, cfg):

@@ -1,8 +1,8 @@
 // Attention of C query positions per row over a cache of keys addressed by
-// position: the body shared by paged_mha.cu (decode over a paged cache) and
-// mha_decode.cu (decode over a contiguous cache), both with C = 1 and no
-// tree mask.  The chunked verify (paged_verify.cu) has its own split-KV
-// body, verify_attn.cuh.
+// position: the body of mha_decode.cu (decode over a contiguous cache, with
+// C = 1 and no tree mask), its only user.  The paged decode (paged_mha.cu)
+// and the chunked verify (paged_verify.cu) have their own split-KV bodies,
+// decode_attn.cuh and verify_attn.cuh.
 //
 // Query c of row b sits at logical position qpos = base[b] + base_shift + c
 // and attends every cached position p with p <= qpos (and, with a window,
@@ -14,7 +14,7 @@
 //
 // Two key layouts, chosen at compile time:
 //   * paged (CONTIG = false): position p lives in page bt[b, p / ps] at
-//     offset p % ps of the pool (P, Hkv, ps, D);
+//     offset p % ps of the pool (P, Hkv, ps, D); no entry launches it now;
 //   * contiguous (CONTIG = true): position p of row b is (b, hk, p) of a
 //     (B, Hkv, S, D) cache, run with ps = 1 and n_pg = S, so the tile walk
 //     below is the same with one-position "pages" and no table.

@@ -34,12 +34,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signatures: name -> argument types (restype is c_int for all)
 SIGNATURES = {
-    # x_q, w_q, x_scale, w_scale, bias, y, part, M, N, K, splits, out_bf16,
-    # stream
-    "mp_matmul": [_P] * 7 + [_I] * 5 + [_P],
-    # q, k_pages, v_pages, lengths, block_table, out, q_bf16,
-    # B, H, Hkv, ps, D, n_pg, window, kt_pages, stream
-    "paged_mha_decode": [_P] * 6 + [_I] * 9 + [_P],
+    # x_q, w_q, x_scale, w_scale, bias, y, M, N, K, splits, out_bf16, stream
+    "mp_matmul": [_P] * 6 + [_I] * 5 + [_P],
+    # q, k_pages, v_pages, lengths, block_table, out, scratch, q_bf16,
+    # B, H, Hkv, ps, D, n_pg, window, hg, pps, splits, stream
+    "paged_mha_decode": [_P] * 7 + [_I] * 11 + [_P],
     # q, k_pages, v_pages, base, block_table, out, scratch, q_bf16,
     # B, C, H, Hkv, ps, D, n_pg, window, nq, pps, splits, stream
     "paged_verify": [_P] * 7 + [_I] * 12 + [_P],

@@ -9,14 +9,14 @@ CUDA tensor to the plain version.  Each wrapper checks device, dtype,
 shape, contiguity and alignment, allocates its output, launches on
 PyTorch's current stream, raises if the launch reports an error, and
 adds one to its launch counter (``<wrapper>.launches``) per call that
-launches its kernel: for ``quant_matmul`` that call launches two CUDA
-functions, ``mp_matmul_kernel`` (the int32 GEMM) and
-``mp_splitk_epilogue``, and counts once; ``paged_verify`` launches two
-too (the split-KV attention, then the combine of its splits) and counts
-once, its causal and its tree-masked calls apart (``launches``,
-``tree_launches``).  ``ln_res`` is reached only through
-``core/mdk.MDK_REGISTRY["ln_res"]``, as in the JAX package.  Unlike the
-TPU wrappers these pad nothing: the kernels mask their own ragged edges.
+launches its kernel: ``quant_matmul`` launches one CUDA function, a
+cluster of blocks per output strip; ``paged_mha_decode`` and
+``paged_verify`` launch two each (the split-KV attention, then the
+combine of its splits) and count once, the verify's causal and
+tree-masked calls apart (``launches``, ``tree_launches``).  ``ln_res``
+is reached only through ``core/mdk.MDK_REGISTRY["ln_res"]``, as in the
+JAX package.  Unlike the TPU wrappers these pad nothing: the kernels
+mask their own ragged edges.
 """
 from __future__ import annotations
 
@@ -27,33 +27,64 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-#: (query row, dim) accumulators a decode block keeps in registers
-#: (must match MAX_ACC * ATTN_THREADS in paged_attn.cuh)
+#: (query row, dim) accumulators a contiguous-decode block keeps in
+#: registers (must match MAX_ACC * ATTN_THREADS in paged_attn.cuh); the
+#: paged decode takes the same group * head_dim limit
 _ATTN_ACC_ELEMS = 8 * 128
-#: keys per shared-memory tile of the decode kernels
+#: keys per shared-memory tile of the contiguous decode kernel
 _ATTN_TILE_KEYS = 64
 #: the H100's shared memory per block (bytes)
 _SMEM_LIMIT = 232_448
 #: the H100's streaming multiprocessors
 _N_SMS = 132
-#: output columns / rows per block and K rows per tile of mp_matmul.cu
-_MP_BN, _MP_BK = 64, 128
+#: mp_matmul.cu: output columns per block (a strip), K rows per tile,
+#: warps per block, tiles in each warp's ring, the largest K-split cluster,
+#: and the bytes between the rows of a staged weight and activation tile
+_MP_BN, _MP_KT, _MP_WARPS, _MP_STAGES, _MP_MAX_SPLITS = 64, 32, 4, 2, 8
+_MP_W_STRIDE, _MP_X_STRIDE = 80, 48
+#: blocks the mp_matmul geometry aims at: two per SM
+_MP_BLOCKS = 2 * _N_SMS
 #: verify_attn.cuh: warps per block, query rows per block (one m16 MMA
 #: tile), keys per warp step, K/V tiles in each warp's ring, head dims built
 _VERIFY_WARPS, _VERIFY_ROWS, _VERIFY_TILE, _VERIFY_STAGES = 4, 16, 16, 2
 _VERIFY_HEAD_DIMS = (16, 64, 128)
 #: blocks the verify geometry aims at: a few per SM
 _VERIFY_BLOCKS = 4 * _N_SMS
+#: decode_attn.cuh: warps per block, keys per warp step, K/V tiles in each
+#: warp's ring, query heads per block at most, head dims built; blocks the
+#: decode geometry aims at
+_DECODE_WARPS, _DECODE_TILE, _DECODE_STAGES, _DECODE_MAX_HG = 4, 16, 3, 8
+_DECODE_HEAD_DIMS = (16, 64, 128)
+_DECODE_BLOCKS = 4 * _N_SMS
 
 
-def _mp_splits(M: int, N: int, K: int) -> int:
-    """K slices for ``mp_matmul``: enough that the grid holds about two
-    blocks per SM, each slice at least one 128-row tile."""
-    blocks = -(-N // _MP_BN) * -(-M // (8 if M <= 8 else 32))
-    k_tiles = -(-K // _MP_BK)
-    splits = max(1, min(k_tiles, -(-2 * _N_SMS // blocks)))
-    # drop slices that whole tiles leave empty
-    return -(-k_tiles // -(-k_tiles // splits))
+class MpGeometry(NamedTuple):
+    """Launch geometry of ``mp_matmul.cu``."""
+    bm: int         # tokens per block: 8, 16, 32 or 64
+    strips: int     # 64-column output strips
+    m_blocks: int   # token blocks
+    splits: int     # K splits: blocks per cluster (1, 2, 4 or 8)
+    smem: int       # dynamic shared memory per block, bytes
+
+
+def _mp_geometry(M: int, N: int, K: int) -> MpGeometry:
+    """The one-launch geometry of ``mp_matmul``: the smallest token block
+    that holds M (64 above 32), and K split into a cluster of as many
+    blocks as bring the grid to about two per SM, a power of two of at
+    most 8 and at most one per 32-row K tile (the kernel splits whole
+    tiles)."""
+    bm = next(b for b in (8, 16, 32, 64) if M <= b or b == 64)
+    strips, m_blocks = -(-N // _MP_BN), -(-M // bm)
+    cap = min(_MP_MAX_SPLITS, -(-K // _MP_KT),
+              -(-_MP_BLOCKS // (strips * m_blocks)))
+    splits = 1 << (cap.bit_length() - 1)
+    # the warps' rings, reused for their int32 tiles; the cluster's
+    # partials of this block's share; the epilogue's scales and bias
+    ring = max(_MP_WARPS * _MP_STAGES * (_MP_KT * _MP_W_STRIDE
+                                         + bm * _MP_X_STRIDE),
+               _MP_WARPS * bm * _MP_BN * 4)
+    smem = ring + 4 * bm * _MP_BN + 4 * (bm + 2 * _MP_BN)
+    return MpGeometry(bm, strips, m_blocks, splits, smem)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -145,12 +176,11 @@ def quant_matmul(x_q, w_q, x_scale, w_scale, bias=None, *,
     _require(M > 0 and N > 0 and K > 0, f"{name}: empty operand")
     _contig(name, x_q=x_q, w_q=w_q, x_scale=x_scale, w_scale=w_scale)
     y = torch.empty((M, N), dtype=out_dtype, device=x_q.device)
-    splits = _mp_splits(M, N, K)
-    part = torch.empty((splits, M, N), dtype=torch.int32, device=x_q.device)
+    geo = _mp_geometry(M, N, K)
     err = build.library().mp_matmul(
         x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(),
         w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
-        y.data_ptr(), part.data_ptr(), M, N, K, splits,
+        y.data_ptr(), M, N, K, geo.splits,
         int(out_dtype == torch.bfloat16), _stream(x_q))
     _check_launch(name, err)
     quant_matmul.launches += 1
@@ -198,13 +228,44 @@ def _check_paged(name, q, k_pages, v_pages, rows, block_table):
     return Hkv, k_pages.shape[2], D, block_table.shape[1]
 
 
-def _attn_geometry(group: int, D: int, ps: int):
-    """(kt_pages, shared-memory bytes) for the decode body of
-    ``paged_attn.cuh`` (one query position per block)."""
-    kt_pages = max(1, _ATTN_TILE_KEYS // ps)
-    KT = kt_pages * ps
+def _attn_geometry(group: int, D: int):
+    """(keys per tile, shared-memory bytes) for ``mha_decode``'s body,
+    ``paged_attn.cuh``, which walks a contiguous row as one-position
+    "pages" (one query position per block)."""
+    KT = _ATTN_TILE_KEYS
     smem = 4 * (group * D + KT * (D + 1) + KT * D + group * KT + 3 * group)
-    return kt_pages, smem
+    return KT, smem
+
+
+class DecodeGeometry(NamedTuple):
+    """Launch geometry of the split-KV decode kernel (``decode_attn.cuh``)."""
+    hg: int         # query heads per block (1, 2, 4 or 8)
+    h_chunks: int   # blocks along a KV head's group
+    pps: int        # pages per key split
+    splits: int     # key splits per (row, KV head, head chunk)
+    smem: int       # dynamic shared memory per block, bytes
+    scratch: int    # float32 partials: splits * B * H * (D + 2)
+
+
+def _decode_geometry(B: int, H: int, Hkv: int, ps: int, D: int,
+                     n_pg: int) -> DecodeGeometry:
+    """The split-KV geometry of ``paged_mha_decode``, from the shapes alone
+    (the lengths live on the card; reading them would synchronise).  A
+    block serves up to 8 query heads of one KV head, so each page is read
+    once per KV head for groups up to 8.  Each split is a run of whole
+    pages giving each warp at least one 16-key tile; splits are added
+    until the grid holds about ``_DECODE_BLOCKS`` blocks."""
+    group = H // Hkv
+    hg = next(g for g in (1, 2, 4, 8) if group <= g or g == _DECODE_MAX_HG)
+    h_chunks = -(-group // hg)
+    least = -(-_DECODE_WARPS * _DECODE_TILE // ps)
+    wanted = -(-_DECODE_BLOCKS // (B * Hkv * h_chunks))
+    pps = max(least, -(-n_pg // wanted))
+    splits = -(-n_pg // pps)
+    ring = _DECODE_WARPS * _DECODE_STAGES * 2 * _DECODE_TILE * D * 2
+    merge = _DECODE_WARPS * hg * (D + 2) * 4
+    return DecodeGeometry(hg, h_chunks, pps, splits, max(ring, merge),
+                          splits * B * H * (D + 2))
 
 
 class VerifyGeometry(NamedTuple):
@@ -265,8 +326,7 @@ def mha_decode(q, k_cache, v_cache, lengths, *,
     B, H, _ = q.shape
     S = k_cache.shape[2]
     _require(S > 0, f"{name}: empty cache")
-    # one-position "pages": the body's tile walk over a contiguous row
-    kt, smem = _attn_geometry(H // Hkv, D, 1)
+    kt, smem = _attn_geometry(H // Hkv, D)
     _require(smem <= _SMEM_LIMIT, f"{name}: needs {smem} B shared memory")
     out = torch.empty_like(q)
     err = build.library().mha_decode(
@@ -285,7 +345,11 @@ def paged_mha_decode(q, k_pages, v_pages, lengths, block_table, *,
 
     ``q`` (B, H, D) f32/bf16, pages (P, Hkv, ps, D) bf16, ``lengths``
     (B,) int32 valid entries per row (the new token included),
-    ``block_table`` (B, n_pg) int32.  Returns (B, H, D) in q's dtype."""
+    ``block_table`` (B, n_pg) int32.  Returns (B, H, D) in q's dtype.
+
+    On the card one call launches two CUDA functions, the split-KV
+    attention and the combine of its splits (``_decode_geometry``), and
+    counts one launch."""
     name = "paged_mha_decode"
     if not _route(name, q, k_pages, v_pages, lengths, block_table):
         return ref.paged_mha_decode_ref(q, k_pages, v_pages, lengths,
@@ -294,14 +358,22 @@ def paged_mha_decode(q, k_pages, v_pages, lengths, block_table, *,
     Hkv, ps, D, n_pg = _check_paged(name, q, k_pages, v_pages, lengths,
                                     block_table)
     B, H, _ = q.shape
-    kt_pages, smem = _attn_geometry(H // Hkv, D, ps)
-    _require(smem <= _SMEM_LIMIT, f"{name}: needs {smem} B shared memory")
+    _require(B > 0 and n_pg > 0, f"{name}: empty operand")
+    _require(D in _DECODE_HEAD_DIMS,
+             f"{name}: head_dim {D} not one of {_DECODE_HEAD_DIMS}")
+    # the kernel stages K/V rows with 16-byte copies
+    _require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
+             f"{name}: k/v pages must be 16-byte aligned")
+    geo = _decode_geometry(B, H, Hkv, ps, D, n_pg)
+    _require(geo.smem <= _SMEM_LIMIT,
+             f"{name}: needs {geo.smem} B shared memory")
     out = torch.empty_like(q)
+    scratch = torch.empty(geo.scratch, dtype=torch.float32, device=q.device)
     err = build.library().paged_mha_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         lengths.data_ptr(), block_table.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, H, Hkv, ps, D, n_pg, int(window),
-        kt_pages, _stream(q))
+        scratch.data_ptr(), int(q.dtype == torch.bfloat16), B, H, Hkv, ps, D,
+        n_pg, int(window), geo.hg, geo.pps, geo.splits, _stream(q))
     _check_launch(name, err)
     paged_mha_decode.launches += 1
     return out

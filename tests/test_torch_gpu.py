@@ -119,6 +119,159 @@ def test_paged_mha_decode_kernel_matches_plain_on_card(h100, window, qdtype,
     assert ops.launch_counts()["paged_mha_decode"] == 1
 
 
+def _mp_case(rng, M, K, N, bias, dev):
+    x = torch.from_numpy(rng.integers(-127, 128, (M, K), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (K, N), dtype=np.int8))
+    xs = torch.from_numpy(rng.uniform(1e-3, 1e-1, (M, 1)).astype(np.float32))
+    ws = torch.from_numpy(rng.uniform(1e-4, 1e-2, (1, N)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(N).astype(np.float32)) \
+        if bias else None
+    return [t if t is None else t.to(dev) for t in (x, w, xs, ws, b)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("K,N", [(1024, 1024), (1024, 4096), (4096, 1024),
+                                 (1000, 300)])
+@pytest.mark.parametrize("M", [1, 5, 8, 9, 16, 17, 32, 33, 40, 72])
+def test_mp_matmul_bitexact_at_serving_widths_on_card(h100, M, K, N, bias,
+                                                      out_dtype):
+    """Every token count the engines send (decode 1-8, prefill chunk 32,
+    chain and tree verifies 40 and 72) and the edges of each token block,
+    at GPT-2 345M's three weight shapes and a ragged one (N and K not
+    multiples of 16: the byte-load staging)."""
+    rng = np.random.default_rng(M * 7 + K + N + bias)
+    args = _mp_case(rng, M, K, N, bias, h100)
+    dt = getattr(torch, out_dtype)
+    got = ops.quant_matmul(*args, out_dtype=dt)
+    again = ops.quant_matmul(*args, out_dtype=dt)
+    want = ref.quant_matmul_ref(*args, out_dtype=dt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_mp_matmul_is_one_cuda_launch_without_host_sync_on_card(h100):
+    """One call is one CUDA function (the K splits meet inside their
+    cluster, not in a second kernel), by ``torch.profiler``; and the
+    wrapper never waits for the card (``set_sync_debug_mode("error")``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(3)
+    cases = [_mp_case(rng, M, K, N, True, h100)
+             for M, K, N in ((8, 1024, 4096), (32, 4096, 1024),
+                             (72, 1024, 1024), (5, 1000, 300))]
+    for args in cases:  # build, load and warm up
+        ops.quant_matmul(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for args in cases:
+                ops.quant_matmul(*args)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == len(cases), kernels
+    assert all("mp_matmul_kernel" in k for k in kernels), kernels
+
+
+def _decode_case(rng, dev, lengths_np, Hkv, group, D=64, ps=16, n_pg=24,
+                 qdtype="float32"):
+    """Pages, a block table live up to each row's length, lengths and a
+    query for the split-KV decode cases."""
+    B = len(lengths_np)
+    P = 1 + B * n_pg
+    kp, vp = _pool(rng, P, Hkv, ps, D, dev)
+    lengths_np = np.asarray(lengths_np, np.int32)
+    bt = _block_table(rng, B, n_pg, P, -(-lengths_np // ps), dev)
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * group, D)).astype(
+        np.float32)).to(device=dev, dtype=getattr(torch, qdtype))
+    return q, kp, vp, torch.from_numpy(lengths_np).to(dev), bt
+
+
+def _decode_split_lengths(H, Hkv, ps, D, n_pg):
+    """Lengths 0, 1 and 16, a length on each side of the first two split
+    edges, and ``n_pg * ps``."""
+    geo = ops._decode_geometry(9, H, Hkv, ps, D, n_pg)
+    assert geo.splits >= 3, geo
+    edge = geo.pps * ps
+    return [0, 1, 16, edge - 1, edge, edge + 1, 2 * edge - 1, 2 * edge + 1,
+            n_pg * ps]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hkv,group,D", [(16, 1, 64), (4, 2, 64),
+                                         (2, 4, 64), (4, 1, 128),
+                                         (2, 4, 16)])
+def test_paged_mha_decode_split_edges_on_card(h100, window, qdtype, Hkv,
+                                              group, D):
+    """Rows of lengths 0, 1, 16, at key-split edges +-1 and at the end of
+    the table, with and without a window that crosses a split edge; GQA
+    groups 2 and 4, head dims 16, 64 and 128, q float32 and bf16.  Each
+    output vector within 1e-2 of its largest magnitude, the empty row
+    exactly 0, two calls bit-identical."""
+    rng = np.random.default_rng(window + group + D)
+    ps, n_pg = 16, 40
+    lengths_np = _decode_split_lengths(Hkv * group, Hkv, ps, D, n_pg)
+    q, kp, vp, lengths, bt = _decode_case(rng, h100, lengths_np, Hkv, group,
+                                          D, ps, n_pg, qdtype)
+    ops.reset_launch_counts()
+    got = ops.paged_mha_decode(q, kp, vp, lengths, bt, window=window)
+    again = ops.paged_mha_decode(q, kp, vp, lengths, bt, window=window)
+    want = ref.paged_mha_decode_ref(q, kp, vp, lengths, bt, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert bool((got[0] == 0).all())  # no valid key: 0, not NaN
+    assert _rel_err(got[1:], want[1:]) <= ATTN_REL_TOL
+    assert torch.equal(got, again)
+    assert ops.launch_counts()["paged_mha_decode"] == 2
+
+
+@pytest.mark.gpu
+def test_paged_mha_decode_odd_pages_and_wide_group_on_card(h100):
+    """Pages of 24 positions (splits not on 16-key tiles) and a group of 16
+    query heads per KV head (two head chunks of 8)."""
+    rng = np.random.default_rng(24)
+    for Hkv, group, ps in ((4, 2, 24), (1, 16, 16)):
+        n_pg = 20
+        lengths_np = [0, 1, 23, 24, 25, 200, 333, n_pg * ps]
+        q, kp, vp, lengths, bt = _decode_case(rng, h100, lengths_np, Hkv,
+                                              group, 64, ps, n_pg)
+        for window in (0, 30):
+            got = ops.paged_mha_decode(q, kp, vp, lengths, bt, window=window)
+            want = ref.paged_mha_decode_ref(q, kp, vp, lengths, bt,
+                                            window=window)
+            torch.cuda.synchronize()
+            assert bool((got[0] == 0).all())
+            assert _rel_err(got[1:], want[1:]) <= ATTN_REL_TOL
+
+
+@pytest.mark.gpu
+def test_paged_mha_decode_makes_no_host_sync_on_card(h100):
+    """The wrapper (geometry, scratch, both launches) never waits for the
+    card: it runs under ``set_sync_debug_mode("error")``."""
+    rng = np.random.default_rng(8)
+    q, kp, vp, lengths, bt = _decode_case(rng, h100, [0, 40, 300], 4, 2)
+    ops.paged_mha_decode(q, kp, vp, lengths, bt)  # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.paged_mha_decode(q, kp, vp, lengths, bt)
+        ops.paged_mha_decode(q, kp, vp, lengths, bt, window=5)
+        ops.paged_mha_decode(q.bfloat16(), kp, vp, lengths, bt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("window", [0, 20])
 def test_paged_verify_kernel_matches_plain_on_card(h100, window):

@@ -264,10 +264,14 @@ def test_plain_path_counts_no_launch():
 
 def test_gpt2_attention_geometry_fits_shared_memory():
     """The launch geometry the wrappers pick for GPT-2 345M (16 heads of
-    64, pages of 16) fits the H100's shared memory, and a prefill chunk
-    of 32 splits into two query slices per KV head."""
-    kt_pages, smem = ops._attn_geometry(1, 64, 16)
-    assert kt_pages == 4 and smem <= ops._SMEM_LIMIT
+    64, pages of 16) fits the H100's shared memory, a decode tick of 8
+    rows splits each row's 64 pages into 5 runs (640 blocks), and a
+    prefill chunk of 32 splits into two query slices per KV head."""
+    kt, smem = ops._attn_geometry(1, 64)
+    assert kt == 64 and smem <= ops._SMEM_LIMIT
+    dec = ops._decode_geometry(8, 16, 16, 16, 64, 64)
+    assert (dec.hg, dec.pps, dec.splits) == (1, 13, 5)
+    assert dec.smem <= ops._SMEM_LIMIT
     geo = ops._verify_geometry(1, 32, 16, 16, 16, 64, 64)
     assert (geo.nq, geo.q_tiles) == (16, 2) and geo.smem <= ops._SMEM_LIMIT
 
@@ -407,19 +411,222 @@ def test_verify_refuses_what_the_kernel_does_not_take(monkeypatch):
         call(2, 2, 64, offset=4)
 
 
-def test_mp_split_geometry_fills_the_card():
-    """At every GPT-2 345M serving shape the split-K grid holds a block
-    per SM, or one per 128-row K tile where there are fewer, and no K
-    slice is left empty."""
-    for M in (1, 8, 32):
-        for K, N in ((1024, 1024), (1024, 4096), (4096, 1024)):
-            s = ops._mp_splits(M, N, K)
-            tiles = -(-K // ops._MP_BK)
-            per = -(-tiles // s)
-            assert (s - 1) * per < tiles <= s * per
-            tiles_mn = -(-N // ops._MP_BN) * -(-M // (8 if M <= 8 else 32))
-            assert s * tiles_mn >= min(ops._N_SMS, tiles * tiles_mn)
-    assert ops._mp_splits(512, 4096, 1024) == 1  # large M: one K slice
+#: (K, N) of GPT-2 345M's linears and a ragged one
+_MP_KN = [(1024, 1024), (1024, 4096), (4096, 1024), (1000, 300)]
+
+
+@pytest.mark.parametrize("K,N", _MP_KN)
+@pytest.mark.parametrize("M", [1, 5, 8, 9, 16, 17, 32, 33, 40, 72, 512])
+def test_mp_split_geometry_fills_the_card(M, K, N):
+    """The K splits of a cluster cover every 32-row K tile exactly once,
+    split as ``mp_matmul.cu`` splits them; the cluster is a power of two
+    of at most 8 blocks, and as large as the card wants (about two blocks
+    per SM) unless the K tiles or the cluster limit run out first; the
+    token block holds M or is 64 rows; shared memory fits the H100."""
+    geo = ops._mp_geometry(M, N, K)
+    k_tiles = -(-K // ops._MP_KT)
+    s = geo.splits
+    assert s & (s - 1) == 0 and 1 <= s <= min(ops._MP_MAX_SPLITS, k_tiles)
+    tps = -(-k_tiles // s)
+    owner = np.zeros(k_tiles, np.int64)
+    for rank in range(s):
+        lo = min(k_tiles, rank * tps)
+        owner[lo:min(k_tiles, lo + tps)] += 1
+    assert (owner == 1).all()
+    assert geo.bm in (8, 16, 32, 64) and (geo.bm >= M or geo.bm == 64)
+    assert geo.bm == 8 or geo.bm // 2 < M
+    assert (geo.m_blocks - 1) * geo.bm < M <= geo.m_blocks * geo.bm
+    assert (geo.strips - 1) * ops._MP_BN < N <= geo.strips * ops._MP_BN
+    base = geo.strips * geo.m_blocks
+    most = 1 << (min(ops._MP_MAX_SPLITS, k_tiles).bit_length() - 1)
+    assert s == most or 2 * s * base > ops._MP_BLOCKS
+    assert s * base >= min(ops._MP_BLOCKS // 2, most * base)
+    # the warps' int32 tiles, the cluster's partials and the scales fit
+    tiles = ops._MP_WARPS * geo.bm * ops._MP_BN * 4
+    assert geo.smem >= tiles + geo.bm * ops._MP_BN * 4 + 4 * (
+        geo.bm + 2 * ops._MP_BN)
+    assert geo.smem <= ops._SMEM_LIMIT
+
+
+def test_mp_matmul_launches_once_without_workspace(monkeypatch):
+    """The wrapper passes the geometry's cluster size, allocates only the
+    output (the splits meet in distributed shared memory, not in a global
+    workspace) and counts one launch per call.  The library is replaced by
+    a recorder and the card by the CPU, so this runs here."""
+    calls, sizes = [], []
+
+    class Lib:
+        def mp_matmul(self, *a):
+            calls.append(a)
+            return 0
+
+    real_empty = torch.empty
+
+    def empty(*a, **kw):
+        t = real_empty(*a, **kw)
+        sizes.append(tuple(t.shape))
+        return t
+
+    monkeypatch.setattr(ops, "_route", lambda *a: True)
+    monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(ops.build, "library", lambda: Lib())
+    monkeypatch.setattr(ops.torch, "empty", empty)
+    ops.reset_launch_counts()
+    for M, K, N in ((8, 1024, 4096), (40, 4096, 1024)):
+        ops.quant_matmul(torch.zeros((M, K), dtype=torch.int8),
+                         torch.zeros((K, N), dtype=torch.int8),
+                         torch.ones((M, 1)), torch.ones((1, N)),
+                         torch.zeros(N), out_dtype=torch.float32)
+        geo = ops._mp_geometry(M, N, K)
+        assert calls[-1][6:11] == (M, N, K, geo.splits, 0)
+        assert sizes == [(M, N)]
+        sizes.clear()
+    assert ops.launch_counts()["mp_matmul"] == 2
+
+
+def test_mp_matmul_refuses_what_the_kernel_does_not_take(monkeypatch):
+    """Wrong dtypes, shapes, scales and an empty operand raise before any
+    launch."""
+    monkeypatch.setattr(ops, "_route", lambda *a: True)
+    monkeypatch.setattr(ops.build, "library", lambda: pytest.fail(
+        "launched a kernel it should have refused"))
+    x = torch.zeros((4, 16), dtype=torch.int8)
+    w = torch.zeros((16, 8), dtype=torch.int8)
+    xs, ws = torch.ones((4, 1)), torch.ones((1, 8))
+    with pytest.raises(ValueError, match="must be int8"):
+        ops.quant_matmul(x.float(), w, xs, ws)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.quant_matmul(x, w[:8], xs, ws)
+    with pytest.raises(ValueError, match="x_scale"):
+        ops.quant_matmul(x, w, xs[:2], ws)
+    with pytest.raises(ValueError, match="bias"):
+        ops.quant_matmul(x, w, xs, ws, torch.zeros(7))
+    with pytest.raises(ValueError, match="out_dtype"):
+        ops.quant_matmul(x, w, xs, ws, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="empty"):
+        ops.quant_matmul(x[:0], w, xs[:0], ws)
+
+
+#: (B, H, Hkv, ps, D, n_pg): GPT-2 345M's decode tick, one row, GQA,
+#: odd and one-position pages, head dims 16 and 128, a tiny table
+_DECODE_SHAPES = [
+    (8, 16, 16, 16, 64, 64), (1, 16, 16, 16, 64, 64), (4, 8, 2, 16, 64, 9),
+    (5, 16, 2, 8, 128, 40), (2, 4, 1, 24, 16, 7), (3, 64, 1, 16, 16, 20),
+    (64, 16, 16, 16, 64, 64), (2, 6, 2, 1, 64, 300), (7, 32, 4, 5, 128, 13)]
+
+
+@pytest.mark.parametrize("shape", _DECODE_SHAPES)
+def test_decode_splits_cover_the_table_once(shape):
+    """The key splits are runs of whole pages that tile ``[0, n_pg)``
+    exactly once, each giving every warp at least one 16-key tile; the
+    head chunks cover the group; and, clipped as ``decode_attn.cuh``
+    clips them, the splits cover each row's visible keys once, for every
+    length from 0 to ``n_pg * ps`` and with a window."""
+    B, H, Hkv, ps, D, n_pg = shape
+    geo = ops._decode_geometry(*shape)
+    owner = np.zeros(n_pg, np.int64)
+    for s in range(geo.splits):
+        lo, hi = s * geo.pps, min((s + 1) * geo.pps, n_pg)
+        assert lo < hi
+        owner[lo:hi] += 1
+    assert (owner == 1).all()
+    assert geo.pps * ps >= ops._DECODE_WARPS * ops._DECODE_TILE
+    group = H // Hkv
+    assert geo.hg in (1, 2, 4, 8)
+    assert (geo.h_chunks - 1) * geo.hg < group <= geo.h_chunks * geo.hg
+    assert geo.scratch == geo.splits * B * H * (D + 2)
+    S = n_pg * ps
+    for length in sorted({0, 1, ps - 1, ps, geo.pps * ps - 1, geo.pps * ps,
+                          geo.pps * ps + 1, S - 1, S}):
+        for window in (0, 1, ps + 3):
+            key_lo = max(0, length - window) if window else 0
+            seen = np.zeros(S, np.int64)
+            for s in range(geo.splits):
+                lo = max(s * geo.pps * ps, key_lo)
+                hi = min((s + 1) * geo.pps * ps, min(length, S))
+                seen[lo:max(lo, hi)] += 1
+            want = np.zeros(S, np.int64)
+            want[key_lo:min(length, S)] = 1
+            assert (seen == want).all(), (length, window)
+    # as many blocks as the card wants, unless the table runs out first
+    blocks = B * Hkv * geo.h_chunks * geo.splits
+    least = -(-ops._DECODE_WARPS * ops._DECODE_TILE // ps)
+    assert blocks >= min(ops._DECODE_BLOCKS,
+                         B * Hkv * geo.h_chunks * max(1, n_pg // least))
+
+
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("group", range(1, 9))
+def test_decode_shared_memory_fits_the_h100(D, group):
+    """Rings and merge buffers stay within the 232,448 bytes one block may
+    use, for every page size."""
+    for ps in (1, 8, 16, 32):
+        geo = ops._decode_geometry(8, 2 * group, 2, ps, D, 64)
+        assert geo.smem <= 232_448
+
+
+def test_decode_entry_geometry_and_count_one_launch(monkeypatch):
+    """The decode wrapper passes the geometry of the shapes alone (the
+    lengths do not enter it), a scratch buffer of its size, and counts one
+    launch per call.  The library is replaced by a recorder."""
+    calls, sizes = [], []
+
+    class Lib:
+        def paged_mha_decode(self, *a):
+            calls.append(a)
+            return 0
+
+    real_empty = torch.empty
+
+    def empty(*a, **kw):
+        t = real_empty(*a, **kw)
+        sizes.append(t.numel())
+        return t
+
+    monkeypatch.setattr(ops, "_route", lambda *a: True)
+    monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(ops.build, "library", lambda: Lib())
+    monkeypatch.setattr(ops.torch, "empty", empty)
+    B, H, Hkv, D, ps, n_pg = 3, 8, 2, 64, 16, 12
+    q = torch.zeros((B, H, D), dtype=torch.bfloat16)
+    pages = torch.zeros((1 + B * n_pg, Hkv, ps, D), dtype=torch.bfloat16)
+    bt = torch.zeros((B, n_pg), dtype=torch.int32)
+    ops.reset_launch_counts()
+    for lengths in ([0, 5, 192], [100, 1, 3]):
+        ops.paged_mha_decode(q, pages, pages,
+                             torch.tensor(lengths, dtype=torch.int32), bt,
+                             window=7)
+    geo = ops._decode_geometry(B, H, Hkv, ps, D, n_pg)
+    for a in calls:
+        assert a[7:] == (1, B, H, Hkv, ps, D, n_pg, 7, geo.hg, geo.pps,
+                         geo.splits, 0)
+    assert sizes.count(geo.scratch) == 2
+    assert ops.launch_counts()["paged_mha_decode"] == 2
+
+
+def test_decode_refuses_what_the_kernel_does_not_take(monkeypatch):
+    """A head dim the kernel is not built for, a group too wide for the
+    accumulators, misaligned pages and an empty table raise before any
+    launch."""
+    monkeypatch.setattr(ops, "_route", lambda *a: True)
+    monkeypatch.setattr(ops.build, "library", lambda: pytest.fail(
+        "launched a kernel it should have refused"))
+    lengths = torch.ones(1, dtype=torch.int32)
+
+    def call(H, Hkv, D, offset=0, n_pg=2):
+        pool = torch.zeros(3 * Hkv * 16 * D + offset, dtype=torch.bfloat16)
+        pages = pool[offset:].view(3, Hkv, 16, D)
+        ops.paged_mha_decode(torch.zeros((1, H, D)), pages, pages, lengths,
+                             torch.zeros((1, n_pg), dtype=torch.int32))
+
+    with pytest.raises(ValueError, match="head_dim 48"):
+        call(2, 2, 48)
+    with pytest.raises(ValueError, match="exceeds"):
+        call(32, 1, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(2, 2, 64, offset=4)
+    with pytest.raises(ValueError, match="empty"):
+        call(2, 2, 64, n_pg=0)
 
 
 def test_build_without_toolkit_raises(monkeypatch, tmp_path):
