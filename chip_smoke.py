@@ -22,12 +22,14 @@ is caught and continued:
    edge of the split-KV geometry, just past it and a page past it, at
    base 0, at the end of the table and parked, for chunks of 5, 9 and 32,
    and two calls must give bit-identical output (a fixed merge order).
-   The contiguous decode kernel returns zeros for an empty row.
-   ``mp_matmul`` is also held bit for bit at the verifies' token counts
-   (40 and 72), and two calls of it, and of the paged decode, must give
-   bit-identical output.
-   ``ln_res`` (rows 8, 32, 256; widths 1024, 4096 and a ragged 1000;
-   LayerNorm and RMSNorm; x and res float32 and bf16): the new residual
+   The contiguous decode kernel (S 1024 and a ragged 1000, all heads, GQA
+   and a group of 16 at D 128, float32 and bf16 queries and caches)
+   returns zeros for an empty row.  ``mp_matmul`` is also held bit for
+   bit at the verifies' token counts (40 and 72), and two calls of it,
+   and of both decodes, must give bit-identical output.
+   ``ln_res`` (rows 5, 8, 32, 256; widths 1024, 4096, a ragged 1000 and
+   256; LayerNorm and RMSNorm; x and res float32 and bf16): the new
+   residual
    bit-identical, ``scale`` within 1e-5 relative, ``y`` within one bf16
    ulp, ``y_q`` within 1 and equal on at least 99.9% of elements.
 4. Timing: each kernel, its plain version and one PyTorch library call
@@ -36,7 +38,9 @@ is caught and continued:
    ~300 MB of other weights and pages between two uses of one layer's),
    beside the least time the card could take (bytes over 3.35 TB/s or
    operations over the dense peak of the operands' type); the
-   ``mp_matmul``, decode and verify timings print their split geometry.
+   ``mp_matmul``, decode and verify timings print their split geometry;
+   the contiguous decode is timed on the draft's float32 cache and on a
+   bf16 cache, ``ln_res`` at 8, 32 and 256 rows.
    Two yardsticks of the timing itself: an empty kernel (a 4-byte fill)
    and, beside each decode-tick ``mp_matmul``, a device-to-device copy of
    the same weight bytes.
@@ -91,8 +95,9 @@ is caught and continued:
     difference can overturn.
 11. The device time of each CUDA function of the timed calls
     (``torch.profiler``): one layer's six ``mp_matmul`` calls at M 8 and
-    32 (one function), the timed decode and the three timed verify shapes
-    (the split kernel and the combine each); last of the measuring phases
+    32 (one function), the timed paged and contiguous decodes and the
+    three timed verify shapes (the split kernel and the combine each), and
+    the three timed ``ln_res`` calls; last of the measuring phases
     because the profiler leaves later launches slower.
 12. One ``kernels`` JSON line (six kernels, each with its launches on its
     own path and per run), the total time, the card's name and power
@@ -150,9 +155,14 @@ AGREE_MAX_SEQ, AGREE_PAGE, AGREE_CHUNK = 128, 16, 16
 #: speculative serving: chain k, tree k and branch, draft noise (std)
 CHAIN_K, TREE_K, TREE_BRANCH, DRAFT_SIGMA = 4, 8, 3, 0.25
 SPEC_REQUESTS, SPEC_NEW, SPEC_PROMPT_LENS = 8, 64, (16, 512)
-#: ln_res against its plain version: rows, widths (one ragged), and the
-#: shapes timed (a decode tick's and a large batch's rows at GPT-2's width)
-LN_ROWS, LN_WIDTHS, LN_TIMED = (8, 32, 256), (1024, 4096, 1000), (8, 256)
+#: the rows' lengths at the timed contiguous decode: spread over the
+#: cache, 4,259 keys in all
+MHA_TIMED_LENGTHS = (37, 269, 361, 504, 602, 648, 872, 966)
+#: ln_res against its plain version: rows, widths (one ragged, one a warp
+#: per row), and the rows timed at GPT-2's width (a decode tick's, a
+#: prefill chunk's and a large batch's)
+LN_ROWS, LN_WIDTHS = (5, 8, 32, 256), (1024, 4096, 1000, 256)
+LN_TIMED = (8, 32, 256)
 #: ln_res tolerances: y within one bf16 ulp, scale within 1e-5 relative,
 #: y_q within 1 everywhere and equal on this share of elements
 LN_SCALE_RTOL, LN_YQ_EQUAL = 1e-5, 0.999
@@ -762,69 +772,99 @@ def tree_verify_phase(dev, timer, rng):
 def mha_decode_phase(dev, timer, rng):
     """The contiguous decode kernel against its plain version: S 1024 and
     a ragged 1000, all heads or GQA, lengths from 1 to S, window 0 and 128,
-    queries and caches in float32 and bf16; an empty row returns zeros.
+    queries and caches in float32 and bf16; a group of 16 query heads on
+    one KV head at D 128 (two head chunks); an empty row returns zeros.
     Then timed at the draft model's shape (B = slots, float32 cache: a
-    W8A8 engine's activation dtype)."""
-    B, H, D = SLOTS, 16, 64
+    W8A8 engine's activation dtype, in which the draft keeps its cache)
+    and at the same shape with a bf16 cache: the element type of the
+    stacked target's cache, which ``SlotCacheManager`` allocates in bf16
+    whatever the engine's activation dtype."""
     worst = 0.0
-    for S in (MAX_SEQ, 1000):
+    shapes = [(S, 16, Hkv, 64) for S in (MAX_SEQ, 1000) for Hkv in (16, 4)]
+    shapes.append((1000, 16, 1, 128))
+    B = SLOTS
+    for S, H, Hkv, D in shapes:
         lengths_np = np.linspace(1, S, B).astype(np.int32)
         lengths = torch.from_numpy(lengths_np).to(dev)
-        for Hkv in (16, 4):
-            for kvd in (torch.float32, torch.bfloat16):
-                k, v = (torch.from_numpy(rng.standard_normal(
-                    (B, Hkv, S, D)).astype(np.float32)).to(dev, kvd)
-                    for _ in range(2))
-                q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
-                    np.float32)).to(dev)
-                for window in (0, 128):
-                    for qd in (torch.float32, torch.bfloat16):
-                        qq = q.to(qd)
-                        got = ops.mha_decode(qq, k, v, lengths,
-                                             window=window)
-                        want = ref.mha_decode_ref(qq, k, v, lengths,
-                                                  window=window)
-                        torch.cuda.synchronize()
-                        err, rel = rel_err(got, want)
-                        tag = (f"S={S} Hkv={Hkv} kv={kvd} window={window} "
-                               f"q={qd}")
-                        check(rel <= ATTN_REL_TOL,
-                              f"mha_decode {tag}: rel err {rel}")
-                        worst = max(worst, err)
-                        print(f"mha_decode {tag}: max abs err {err:.3e} "
-                              f"(rel {rel:.3e} <= {ATTN_REL_TOL})")
-                got = ops.mha_decode(q, k, v, torch.zeros_like(lengths))
-                check(bool((got == 0).all()),
-                      f"mha_decode S={S} Hkv={Hkv}: empty rows not zero")
+        for kvd in (torch.float32, torch.bfloat16):
+            k, v = (torch.from_numpy(rng.standard_normal(
+                (B, Hkv, S, D)).astype(np.float32)).to(dev, kvd)
+                for _ in range(2))
+            q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
+                np.float32)).to(dev)
+            for window in (0, 128):
+                for qd in (torch.float32, torch.bfloat16):
+                    qq = q.to(qd)
+                    got = ops.mha_decode(qq, k, v, lengths, window=window)
+                    want = ref.mha_decode_ref(qq, k, v, lengths,
+                                              window=window)
+                    torch.cuda.synchronize()
+                    err, rel = rel_err(got, want)
+                    tag = (f"S={S} H={H} Hkv={Hkv} D={D} kv={kvd} "
+                           f"window={window} q={qd}")
+                    check(rel <= ATTN_REL_TOL,
+                          f"mha_decode {tag}: rel err {rel}")
+                    worst = max(worst, err)
+                    print(f"mha_decode {tag}: max abs err {err:.3e} "
+                          f"(rel {rel:.3e} <= {ATTN_REL_TOL})")
+            got = ops.mha_decode(q, k, v, torch.zeros_like(lengths))
+            check(bool((got == 0).all()),
+                  f"mha_decode S={S} Hkv={Hkv} D={D}: empty rows not zero")
     print("mha_decode: rows with no valid key return zeros")
 
-    S = MAX_SEQ
-    k, v = (torch.from_numpy(rng.standard_normal((B, H, S, D)).astype(
+    S, H, D = MAX_SEQ, 16, 64
+    k32, v32 = (torch.from_numpy(rng.standard_normal((B, H, S, D)).astype(
         np.float32)).to(dev) for _ in range(2))
     q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
         np.float32)).to(dev)
-    lengths_np = np.sort(rng.integers(16, S, B)).astype(np.int32)
+    lengths_np = np.array(MHA_TIMED_LENGTHS, np.int32)
     lengths = torch.from_numpy(lengths_np).to(dev)
-    t = timer.ms(lambda: ops.mha_decode(q, k, v, lengths))
-    tp = timer.ms(lambda: ref.mha_decode_ref(q, k, v, lengths))
     mask = (torch.arange(S, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]
-    tl = timer.ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k, v, attn_mask=mask))
     tot = int(lengths_np.sum())
-    b, by = bound_ms(2 * tot * H * D * 4 + 2 * B * H * D * 4 + 4 * B,
-                     4 * tot * H * D, "f32")
-    print(f"mha_decode B={B} H={H} D={D} S={S} float32 cache, lengths "
-          f"{lengths_np.tolist()}: kernel {t:.4f} ms, plain {tp:.4f} ms, "
-          f"SDPA on the contiguous cache {tl:.4f} ms, bound {b:.5f} ms "
-          f"({by})")
+    rows = {}
+    for kvd in (torch.float32, torch.bfloat16):
+        k, v = k32.to(kvd), v32.to(kvd)
+        got = ops.mha_decode(q, k, v, lengths)
+        want = ref.mha_decode_ref(q, k, v, lengths)
+        again = ops.mha_decode(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        check(rel <= ATTN_REL_TOL and torch.equal(got, again),
+              f"mha_decode timed shape kv={kvd}: rel err {rel}, or two calls "
+              "differ")
+        t = timer.ms(lambda: ops.mha_decode(q, k, v, lengths))
+        tp = timer.ms(lambda: ref.mha_decode_ref(q, k, v, lengths))
+        qs = q[:, :, None].to(kvd)
+        tl = timer.ms(lambda: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask))
+        b, by = bound_ms(2 * tot * H * D * k.element_size()
+                         + 2 * B * H * D * 4 + 4 * B, 4 * tot * H * D, "f32")
+        rows[kvd] = (t, tp, tl, b, by)
+        geo = ops._mha_geometry(B, H, H, S, D, k.element_size())
+        print(f"mha_decode B={B} H={H} D={D} S={S} {kvd} cache, lengths "
+              f"{lengths_np.tolist()} ({tot} keys): kernel {t:.4f} ms, plain "
+              f"{tp:.4f} ms, SDPA on the contiguous cache {tl:.4f} ms, bound "
+              f"{b:.5f} ms ({by}); two calls bit-identical; geometry: "
+              f"{geo.splits} splits of {geo.kps} keys, "
+              f"{B * H * geo.h_chunks * geo.splits} blocks, {geo.smem} B "
+              f"shared, {4 * geo.scratch} B scratch")
+        PROFILED.append((f"mha_decode {kvd} cache", "mha_decode",
+                         "by_kernel" if kvd == torch.float32
+                         else "bf16_by_kernel",
+                         lambda k=k, v=v: ops.mha_decode(q, k, v, lengths),
+                         ("decode::", "verify::")))
+    t, tp, tl, b, by = rows[torch.float32]
+    bf = rows[torch.bfloat16]
     return {
         "name": "mha_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/mha_decode.cu",
         "replaces": "src/repro/kernels/mha_kernel.py:89",
         "max_abs_err": worst, "ms": t, "plain_ms": tp, "bound_ms": b,
         "bound_by": by, "library_ms": tl,
-        "shape": f"B={B} H={H} D={D} S={S} float32 cache"}
+        "shape": f"B={B} H={H} D={D} S={S} float32 cache, {tot} keys",
+        "bf16_ms": bf[0], "bf16_plain_ms": bf[1], "bf16_library_ms": bf[2],
+        "bf16_bound_ms": bf[3]}
 
 
 def bf16_ulp(a):
@@ -875,10 +915,11 @@ def ln_res_bytes(B, D, x_bytes, r_bytes):
 
 
 def ln_res_phase(dev, timer, rng):
-    """The Fused LN&Res kernel against its plain version: rows 8, 32 and
-    256, widths 1024, 4096 and a ragged 1000, LayerNorm and RMSNorm, x and
-    res in float32 and bf16 (one row block with a large mean).  Then
-    timed at B 8 and B 256 x D 1024 (float32 x and res), beside
+    """The Fused LN&Res kernel against its plain version: rows 5, 8, 32
+    and 256, widths 1024, 4096, a ragged 1000 and 256 (a block of 256
+    threads per row at every width), LayerNorm and RMSNorm,
+    x and res in float32 and bf16 (one row block with a large mean).  Then
+    timed at B 8, 32 and 256 x D 1024 (float32 x and res), beside
     ``F.layer_norm`` of the sum (the norm alone: no residual output and no
     quantization)."""
     worst, worst_eq = 0.0, 1.0
@@ -910,27 +951,36 @@ def ln_res_phase(dev, timer, rng):
         tn = timer.ms(lambda: F.layer_norm(x + res, (D,), w, b))
         bnd, by = bound_ms(ln_res_bytes(B, D, 4, 4), 12 * B * D, "f32")
         timed[B] = (t, tp, tn, bnd, by)
+        field = "by_kernel" if B == LN_TIMED[0] else f"B{B}_by_kernel"
+        PROFILED.append((f"ln_res B={B}", "ln_res", field,
+                         lambda x=x, res=res, w=w, b=b: ops.ln_res(
+                             x, res, w, b), ("ln_res_kernel",)))
         print(f"ln_res B={B} D={D} float32: kernel {t:.4f} ms, plain "
               f"{tp:.4f} ms, library none (F.layer_norm of the sum, the "
-              f"norm alone: {tn:.4f} ms), bound {bnd:.6f} ms ({by})")
-    (t, tp, tn, bnd, by), big = timed[LN_TIMED[0]], timed[LN_TIMED[1]]
-    return {
+              f"norm alone: {tn:.4f} ms), bound {bnd:.6f} ms ({by}); "
+              f"{B} blocks of {ops._LN_THREADS} threads, "
+              f"{8 * ops._ln_res_chunks(D)} values a thread")
+    (t, tp, tn, bnd, by) = timed[LN_TIMED[0]]
+    entry = {
         "name": "ln_res", "route": "cuda",
         "source": "src/repro_torch/csrc/ln_res.cu",
         "replaces": "src/repro/kernels/ln_res_kernel.py:64",
         "max_abs_err": worst, "ms": t, "plain_ms": tp, "bound_ms": bnd,
         "bound_by": by, "library_ms": None,
         "shape": f"B={LN_TIMED[0]} D={D} float32 x/res, layernorm",
-        "norm_only_ms": tn, f"B{LN_TIMED[1]}_ms": big[0],
-        f"B{LN_TIMED[1]}_plain_ms": big[1],
-        f"B{LN_TIMED[1]}_norm_only_ms": big[2],
-        f"B{LN_TIMED[1]}_bound_ms": big[3]}
+        "norm_only_ms": tn}
+    for B in LN_TIMED[1:]:
+        big = timed[B]
+        entry.update({f"B{B}_ms": big[0], f"B{B}_plain_ms": big[1],
+                      f"B{B}_norm_only_ms": big[2], f"B{B}_bound_ms": big[3]})
+    return entry
 
 
 def by_kernel_phase(dev, entries):
     """The device time of each CUDA function of the profiled calls (one
-    layer's six ``mp_matmul`` calls at M 8 and 32, the timed decode and
-    the three timed verify shapes), from ``torch.profiler``.  It runs
+    layer's six ``mp_matmul`` calls at M 8 and 32, the timed decodes, the
+    three timed verify shapes and the timed ``ln_res`` calls), from
+    ``torch.profiler``.  It runs
     after every serving phase: once the profiler has run, kernel launches
     in the same process stay slower, which would move the host-bound
     serving numbers (PERF.md)."""

@@ -1,25 +1,31 @@
-// One-token attention over a paged KV cache, split over the card: the body
-// of paged_mha.cu.
+// One-token attention over a KV cache, split over the card: the body of
+// paged_mha.cu (a paged cache) and mha_decode.cu (a contiguous one).
 //
 // Replaces: src/repro/kernels/paged_mha_kernel.py:92 (paged_mha_decode,
-// body _paged_mha_kernel).
+// body _paged_mha_kernel) and src/repro/kernels/mha_kernel.py:89
+// (mha_decode, body _mha_kernel).
 //
 // Computes, for query head h of row b, softmax(q . k_p / sqrt(D)) v_p over
 // the cached positions key_lo <= p < key_end, with key_end = min(lengths[b],
-// n_pg * ps) and key_lo = max(0, lengths[b] - window) under a window (else
-// 0).  Position p lives in page bt[b, p / ps] at offset p % ps of the pool
-// (P, Hkv, ps, D); query head h reads KV head h / group.  q and out are
-// float32 or bf16, pages bf16, arithmetic float32 with an online softmax.
-// A row with no key returns zeros.
+// cap) and key_lo = max(0, lengths[b] - window) under a window (else 0).
+// The addressing is a template parameter: a paged cache keeps position p in
+// page bt[b, p / ps] at offset p % ps of the pool (P, Hkv, ps, D), cap =
+// n_pg * ps; a contiguous cache (B, Hkv, S, D) keeps it at row
+// (b * Hkv + hk) * S + p, cap = S.  Query head h reads KV head h / group.
+// q and out are float32 or bf16, the cache bf16 or float32 (a template
+// parameter), arithmetic float32 with an online softmax.  A row with no key
+// returns zeros.
 //
 // What bounds it on the H100: bytes.  Each live K and V element is read once
 // per KV head against ~4 x group operations; at GPT-2's decode (B 8, 16
-// heads of 64, up to 1,024 keys a row) that is 2-17 MB, a few microseconds
-// of HBM time, so what matters is how many blocks are loading at once.
+// heads of 64, up to 1,024 keys a row) that is 2-17 MB in bf16 and twice
+// that in float32, a few microseconds of HBM time, so what matters is how
+// many blocks are loading at once.
 //
 // Design (flash-decoding):
 //   * Split-KV.  The grid is (row, KV head, head chunk, key split), one block
-//     each.  A split is a run of pps whole pages; the wrapper derives pps and
+//     each.  A split is a run of kps keys (whole pages for a paged cache,
+//     whole 16-key tiles for a contiguous one); the wrapper derives kps and
 //     the number of splits from the shapes alone (the lengths live on the
 //     card, and reading them would synchronise), aiming at a few blocks per
 //     SM.  A block clips its split to [key_lo, key_end) and, when nothing is
@@ -27,20 +33,25 @@
 //     are never read, so no block-table entry at or past n_pg is touched.
 //   * A block serves HG query heads of its KV head (the whole group when it
 //     is at most 8; a wider group takes ceil(group / 8) head chunks), so each
-//     page is read once per KV head for groups up to 8.
+//     key is read once per KV head for groups up to 8, and any group is
+//     taken.
 //   * Each of the 4 warps walks its own 16-key tiles of the block's run (tile
 //     i goes to warp i % 4) through a ring of STAGES buffers filled with
-//     16-byte cp.async copies of bf16 K and V rows: no block barrier inside
-//     the walk.  Inside a warp, D / 8 lanes share a key, each holding 8
-//     dimensions of it (16 bytes): 4 keys at once for D 64.  The dot product
-//     is 8 FMAs per head and lane, then a shuffle reduction over the key's
-//     lanes.
+//     16-byte cp.async copies of K and V rows: no block barrier inside the
+//     walk.  Inside a warp, D / 8 lanes share a key, each holding 8 of its
+//     dimensions: one 16-byte chunk of a bf16 row, two of a float32 row (a
+//     lane's c-th chunk sits c * D / 2 elements into the row, so the 8
+//     lanes of each quarter-warp read 128 consecutive bytes of shared
+//     memory per load).  Four float32 dimensions per lane, D / 4 lanes a
+//     key, measured slower at the draft's shape, and this keeps one lane
+//     geometry for both element types.  The dot product is 8 FMAs per head
+//     and lane, then a shuffle reduction over the key's lanes.
 //   * Each key slot (the lanes of one key) keeps its own float32 running
-//     max, sum and accumulators (8 dimensions per head and lane), so the walk
-//     needs no shuffle across keys.  At the end the key slots merge by a
-//     fixed butterfly of shuffles, the warps in shared memory in warp order,
-//     into one float32 partial (m, l, acc[D]) per head and split in scratch
-//     the wrapper allocates.
+//     max, sum and accumulators (8 dimensions per head and lane), so the
+//     walk needs no shuffle across keys.  At the end the key slots merge by
+//     a fixed butterfly of shuffles, the warps in shared memory in warp
+//     order, into one float32 partial (m, l, acc[D]) per head and split in
+//     scratch the wrapper allocates.
 //   * verify_attn.cuh's combine kernel, with one query position, merges the
 //     splits in split order: two calls are bit-identical, no atomics.
 //   * No tensor cores: at group 1 a decode does about 2 operations per byte.
@@ -55,45 +66,79 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int TILE = 16;   // keys per warp step
 constexpr int STAGES = 3;  // K/V tiles in each warp's ring
 constexpr int MAX_HG = 8;  // query heads per block
+constexpr int EPL = 8;     // dimensions of a key per lane
 constexpr float M_INIT = -1e30f;  // finite: exp2(M_INIT - M_INIT) is 1
 
-// Shared memory of the split kernel, in bytes: the warps' K/V rings, reused
-// for the warps' partials.
-inline size_t smem_bytes(int D, int HG) {
-  const size_t ring = (size_t)WARPS * STAGES * 2 * TILE * D * 2;
+// Shared memory of the split kernel, in bytes: the warps' K/V rings of
+// `elem`-byte elements, reused for the warps' partials.
+inline size_t smem_bytes(int D, int HG, int elem) {
+  const size_t ring = (size_t)WARPS * STAGES * 2 * TILE * D * elem;
   const size_t merge = (size_t)WARPS * HG * (D + 2) * 4;
   return ring > merge ? ring : merge;
 }
 
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
+// Where position `pos` of row b, KV head hk sits, in rows of D elements.
+struct Paged {
+  const int* bt;  // (B, n_pg)
+  int n_pg, ps;
+  __device__ __forceinline__ int cap() const { return n_pg * ps; }
+  __device__ __forceinline__ size_t row(int b, int hk, int Hkv,
+                                        int pos) const {
+    return ((size_t)bt[(size_t)b * n_pg + pos / ps] * Hkv + hk) * ps +
+           pos % ps;
+  }
+};
+
+struct Contig {
+  int S;
+  __device__ __forceinline__ int cap() const { return S; }
+  __device__ __forceinline__ size_t row(int b, int hk, int Hkv,
+                                        int pos) const {
+    return ((size_t)b * Hkv + hk) * S + pos;
+  }
+};
+
+// 16 bytes of shared memory as floats
+__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 p = __bfloat1622float2(h[i]);
-    f[2 * i] = p.x;
-    f[2 * i + 1] = p.y;
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
   }
+}
+__device__ __forceinline__ void load16(const float* p, float* f) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  f[0] = u.x;
+  f[1] = u.y;
+  f[2] = u.z;
+  f[3] = u.w;
 }
 
 // One block per (row b, KV head hk, head chunk hc, split s), blockIdx.x =
 // ((b * Hkv + hk) * h_chunks + hc) * splits + s.  Scratch: part_o (splits,
 // B, H, D) and part_ml (splits, B, H, 2) float32, the layout of
 // verify::combine_kernel with C = 1.
-template <int D, int HG>
+template <typename T, typename Addr, int D, int HG>
 __global__ void __launch_bounds__(THREADS)
 split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
-             const __nv_bfloat16* __restrict__ kpool,  // (P, Hkv, ps, D)
-             const __nv_bfloat16* __restrict__ vpool,
+             const T* __restrict__ kc, const T* __restrict__ vc,
              const int* __restrict__ lengths,  // (B,)
-             const int* __restrict__ bt,       // (B, n_pg)
-             float* __restrict__ part_o, float* __restrict__ part_ml,
-             int q_bf16, int B, int H, int Hkv, int ps, int n_pg, int window,
-             int pps, int splits, float scale_log2) {
-  constexpr int LPK = D / 8;         // lanes per key
-  constexpr int KPI = 32 / LPK;      // keys a warp holds at once
-  constexpr int ITERS = TILE / KPI;  // key steps per tile
-  constexpr int CH = D / 8;          // 16-byte chunks per key row
-  constexpr int STAGE = 2 * TILE * D;  // bf16 elements per ring slot
+             Addr addr, float* __restrict__ part_o,
+             float* __restrict__ part_ml, int q_bf16, int B, int H, int Hkv,
+             int window, int kps, int splits, float scale_log2) {
+  constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16-byte chunk
+  constexpr int NCH = EPL / VEC;            // chunks a lane holds per key
+  constexpr int LPK = D / EPL;              // lanes per key
+  constexpr int KPI = 32 / LPK;             // keys a warp holds at once
+  constexpr int ITERS = TILE / KPI;         // key steps per tile
+  constexpr int CH = D / VEC;               // 16-byte chunks per key row
+  constexpr int STAGE = 2 * TILE * D;       // elements per ring slot
+  static_assert(EPL % VEC == 0 && D % EPL == 0 && 32 % LPK == 0 &&
+                    TILE % KPI == 0 && (TILE * CH) % 32 == 0,
+                "unsupported head dim / lane split");
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int group = H / Hkv;
@@ -107,10 +152,10 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
   const int h0 = hk * group + hc * HG;      // the block's first query head
   const int nh = min(HG, group - hc * HG);  // its live heads
   const int len = lengths[b];
-  const int key_end = min(len, n_pg * ps);
+  const int key_end = min(len, addr.cap());
   const int key_lo = window > 0 ? max(0, len - window) : 0;
-  const int lo = max(s * pps * ps, key_lo);
-  const int hi = min((s + 1) * pps * ps, key_end);
+  const int lo = max(s * kps, key_lo);
+  const int hi = min((s + 1) * kps, key_end);
   const size_t BH = (size_t)B * H;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
@@ -123,24 +168,20 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
     return;
   }
 
-  __nv_bfloat16* ring =
-      reinterpret_cast<__nv_bfloat16*>(smem) + (size_t)warp * STAGES * STAGE;
-  const int* row_bt = bt + (size_t)b * n_pg;
+  T* ring = reinterpret_cast<T*>(smem) + (size_t)warp * STAGES * STAGE;
   // stage tile t (keys lo + 16 t .. + 15) of K and V into slot st
   auto issue = [&](int t, int st) {
-    __nv_bfloat16* sk = ring + st * STAGE;
-    __nv_bfloat16* sv = sk + TILE * D;
+    T* sk = ring + st * STAGE;
+    T* sv = sk + TILE * D;
 #pragma unroll
     for (int k = 0; k < TILE * CH / 32; ++k) {
       const int j = (lane + 32 * k) / CH, part = (lane + 32 * k) % CH;
       const int pos = lo + t * TILE + j;
       const bool in = pos < hi;
-      size_t src = 0;
-      if (in)
-        src = (((size_t)row_bt[pos / ps] * Hkv + hk) * ps + pos % ps) * D +
-              8 * part;
-      verify::cp_async16(sk + j * D + 8 * part, kpool + src, in);
-      verify::cp_async16(sv + j * D + 8 * part, vpool + src, in);
+      const size_t src = in ? addr.row(b, hk, Hkv, pos) * D + VEC * part
+                            : 0;
+      verify::cp_async16(sk + j * D + VEC * part, kc + src, in);
+      verify::cp_async16(sv + j * D + VEC * part, vc + src, in);
     }
   };
   const int span = (hi - lo + TILE - 1) / TILE;
@@ -151,16 +192,20 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
     verify::cp_async_commit();
   }
 
-  // this lane's key slot and its 8 dimensions; q pre-scaled to base 2
+  // this lane's key slot and the dimensions it holds; q pre-scaled to
+  // base 2
   const int ks = lane / LPK, dp = lane % LPK;
-  float qr[HG][8];
+  auto dim = [&](int e) {
+    return (e / VEC) * (D / NCH) + VEC * dp + e % VEC;
+  };
+  float qr[HG][EPL];
 #pragma unroll
   for (int h = 0; h < HG; ++h)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
+    for (int e = 0; e < EPL; ++e) {
       float v = 0.0f;
       if (h < nh) {
-        const size_t at = ((size_t)b * H + h0 + h) * D + 8 * dp + e;
+        const size_t at = ((size_t)b * H + h0 + h) * D + dim(e);
         v = q_bf16 ? __bfloat162float(
                          static_cast<const __nv_bfloat16*>(q_)[at])
                    : static_cast<const float*>(q_)[at];
@@ -168,13 +213,13 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
       qr[h][e] = v * scale_log2;
     }
 
-  float m[HG], l[HG], o[HG][8];
+  float m[HG], l[HG], o[HG][EPL];
 #pragma unroll
   for (int h = 0; h < HG; ++h) {
     m[h] = M_INIT;
     l[h] = 0.0f;
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o[h][e] = 0.0f;
+    for (int e = 0; e < EPL; ++e) o[h][e] = 0.0f;
   }
   for (int i = 0; i < mine; ++i) {
     const int in = i + STAGES - 1;
@@ -184,20 +229,23 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
     __syncwarp();
 
     const int t = warp + WARPS * i;
-    const __nv_bfloat16* sk = ring + (i % STAGES) * STAGE;
-    const __nv_bfloat16* sv = sk + TILE * D;
+    const T* sk = ring + (i % STAGES) * STAGE;
+    const T* sv = sk + TILE * D;
 #pragma unroll
     for (int it = 0; it < ITERS; ++it) {
       const int j = it * KPI + ks;
       const bool valid = lo + t * TILE + j < hi;
-      float kf[8], vf[8];
-      unpack8(*reinterpret_cast<const uint4*>(sk + j * D + 8 * dp), kf);
-      unpack8(*reinterpret_cast<const uint4*>(sv + j * D + 8 * dp), vf);
+      float kf[EPL], vf[EPL];
+#pragma unroll
+      for (int c = 0; c < NCH; ++c) {
+        load16(sk + j * D + dim(c * VEC), kf + c * VEC);
+        load16(sv + j * D + dim(c * VEC), vf + c * VEC);
+      }
 #pragma unroll
       for (int h = 0; h < HG; ++h) {
         float sc = 0.0f;
 #pragma unroll
-        for (int e = 0; e < 8; ++e) sc = fmaf(qr[h][e], kf[e], sc);
+        for (int e = 0; e < EPL; ++e) sc = fmaf(qr[h][e], kf[e], sc);
 #pragma unroll
         for (int off = 1; off < LPK; off <<= 1)
           sc += __shfl_xor_sync(0xffffffffu, sc, off);
@@ -208,7 +256,8 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
           m[h] = m_new;
           l[h] = l[h] * alpha + p;
 #pragma unroll
-          for (int e = 0; e < 8; ++e) o[h][e] = fmaf(p, vf[e], o[h][e] * alpha);
+          for (int e = 0; e < EPL; ++e)
+            o[h][e] = fmaf(p, vf[e], o[h][e] * alpha);
         }
       }
     }
@@ -227,7 +276,7 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
       const float fa = exp2f(m[h] - M), fb = exp2f(mo - M);
       l[h] = l[h] * fa + lo_ * fb;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
+      for (int e = 0; e < EPL; ++e) {
         const float oo = __shfl_xor_sync(0xffffffffu, o[h][e], off);
         o[h][e] = o[h][e] * fa + oo * fb;
       }
@@ -243,8 +292,7 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
 #pragma unroll
     for (int h = 0; h < HG; ++h) {
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        ow[(warp * HG + h) * D + 8 * dp + e] = o[h][e];
+      for (int e = 0; e < EPL; ++e) ow[(warp * HG + h) * D + dim(e)] = o[h][e];
       if (dp == 0) {
         mw[warp * HG + h] = m[h];
         lw[warp * HG + h] = l[h];
@@ -273,89 +321,78 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
   }
 }
 
-template <int D, int HG>
-int launch_hg(const void* q, const void* kpool, const void* vpool,
-              const void* lengths, const void* bt, void* out, float* scratch,
-              int q_bf16, int B, int H, int Hkv, int ps, int n_pg, int window,
-              int pps, int splits, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D, HG);
+// The shape of one call, as the wrapper's geometry gives it.
+struct Call {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* lengths;
+  void* out;
+  float* scratch;  // splits * B * H * (D + 2) floats
+  int q_bf16, B, H, Hkv, window, hg, kps, splits;
+  cudaStream_t stream;
+};
+
+template <typename T, typename Addr, int D, int HG>
+int launch_hg(const Call& c, Addr addr) {
+  const size_t smem = smem_bytes(D, HG, (int)sizeof(T));
+  auto kernel = split_kernel<T, Addr, D, HG>;
   cudaError_t err = cudaFuncSetAttribute(
-      split_kernel<D, HG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int BH = B * H;
-  const int h_chunks = (H / Hkv + HG - 1) / HG;
-  float* part_o = scratch;
-  float* part_ml = scratch + (size_t)splits * BH * D;
-  split_kernel<D, HG><<<B * Hkv * h_chunks * splits, THREADS, smem, stream>>>(
-      q, static_cast<const __nv_bfloat16*>(kpool),
-      static_cast<const __nv_bfloat16*>(vpool),
-      static_cast<const int*>(lengths), static_cast<const int*>(bt), part_o,
-      part_ml, q_bf16, B, H, Hkv, ps, n_pg, window, pps, splits,
-      1.4426950408889634f / sqrtf((float)D));
+  const int BH = c.B * c.H;
+  const int h_chunks = (c.H / c.Hkv + HG - 1) / HG;
+  float* part_o = c.scratch;
+  float* part_ml = c.scratch + (size_t)c.splits * BH * D;
+  kernel<<<c.B * c.Hkv * h_chunks * c.splits, THREADS, smem, c.stream>>>(
+      c.q, static_cast<const T*>(c.k), static_cast<const T*>(c.v),
+      c.lengths, addr, part_o, part_ml, c.q_bf16, c.B, c.H, c.Hkv, c.window,
+      c.kps, c.splits, 1.4426950408889634f / sqrtf((float)D));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int grid = (BH + verify::WARPS - 1) / verify::WARPS;
-  if (q_bf16)
+  if (c.q_bf16)
     verify::combine_kernel<__nv_bfloat16, D>
-        <<<grid, verify::THREADS, 0, stream>>>(
-            part_o, part_ml, static_cast<__nv_bfloat16*>(out), BH, splits);
+        <<<grid, verify::THREADS, 0, c.stream>>>(
+            part_o, part_ml, static_cast<__nv_bfloat16*>(c.out), BH,
+            c.splits);
   else
-    verify::combine_kernel<float, D><<<grid, verify::THREADS, 0, stream>>>(
-        part_o, part_ml, static_cast<float*>(out), BH, splits);
+    verify::combine_kernel<float, D><<<grid, verify::THREADS, 0, c.stream>>>(
+        part_o, part_ml, static_cast<float*>(c.out), BH, c.splits);
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int launch_d(const void* q, const void* kpool, const void* vpool,
-             const void* lengths, const void* bt, void* out, float* scratch,
-             int q_bf16, int B, int H, int Hkv, int ps, int n_pg, int window,
-             int hg, int pps, int splits, cudaStream_t stream) {
-  switch (hg) {
+template <typename T, typename Addr, int D>
+int launch_d(const Call& c, Addr addr) {
+  switch (c.hg) {
     case 1:
-      return launch_hg<D, 1>(q, kpool, vpool, lengths, bt, out, scratch,
-                             q_bf16, B, H, Hkv, ps, n_pg, window, pps, splits,
-                             stream);
+      return launch_hg<T, Addr, D, 1>(c, addr);
     case 2:
-      return launch_hg<D, 2>(q, kpool, vpool, lengths, bt, out, scratch,
-                             q_bf16, B, H, Hkv, ps, n_pg, window, pps, splits,
-                             stream);
+      return launch_hg<T, Addr, D, 2>(c, addr);
     case 4:
-      return launch_hg<D, 4>(q, kpool, vpool, lengths, bt, out, scratch,
-                             q_bf16, B, H, Hkv, ps, n_pg, window, pps, splits,
-                             stream);
+      return launch_hg<T, Addr, D, 4>(c, addr);
     case 8:
-      return launch_hg<D, 8>(q, kpool, vpool, lengths, bt, out, scratch,
-                             q_bf16, B, H, Hkv, ps, n_pg, window, pps, splits,
-                             stream);
+      return launch_hg<T, Addr, D, 8>(c, addr);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// Launch the split kernel and the combine on `stream`; returns
-// cudaGetLastError().  D is 16, 64 or 128; hg (query heads per block) 1, 2,
-// 4 or 8; scratch holds splits * B * H * (D + 2) floats.
-inline int launch(const void* q, const void* kpool, const void* vpool,
-                  const void* lengths, const void* bt, void* out,
-                  void* scratch, int q_bf16, int B, int H, int Hkv, int ps,
-                  int D, int n_pg, int window, int hg, int pps, int splits,
-                  void* stream) {
-  if (H % Hkv != 0 || pps < 1 || splits < 1 ||
-      (long long)splits * pps < n_pg)
+// Launch the split kernel and the combine on c.stream; returns
+// cudaGetLastError().  D is 16, 64 or 128; hg (query heads per block) 1,
+// 2, 4 or 8; kps keys per split, splits * kps covering addr.cap().
+template <typename T, typename Addr>
+int launch(const Call& c, int D, Addr addr, long long cap) {
+  if (c.H % c.Hkv != 0 || c.kps < 1 || c.splits < 1 ||
+      (long long)c.splits * c.kps < cap)
     return (int)cudaErrorInvalidValue;
-  float* sc = static_cast<float*>(scratch);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16:
-      return launch_d<16>(q, kpool, vpool, lengths, bt, out, sc, q_bf16, B,
-                          H, Hkv, ps, n_pg, window, hg, pps, splits, st);
+      return launch_d<T, Addr, 16>(c, addr);
     case 64:
-      return launch_d<64>(q, kpool, vpool, lengths, bt, out, sc, q_bf16, B,
-                          H, Hkv, ps, n_pg, window, hg, pps, splits, st);
+      return launch_d<T, Addr, 64>(c, addr);
     case 128:
-      return launch_d<128>(q, kpool, vpool, lengths, bt, out, sc, q_bf16, B,
-                           H, Hkv, ps, n_pg, window, hg, pps, splits, st);
+      return launch_d<T, Addr, 128>(c, addr);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -24,7 +24,12 @@ extern "C" int paged_mha_decode(const void* q, const void* k_pages,
                                 void* scratch, int q_bf16, int B, int H,
                                 int Hkv, int ps, int D, int n_pg, int window,
                                 int hg, int pps, int splits, void* stream) {
-  return decode::launch(q, k_pages, v_pages, lengths, block_table, out,
-                        scratch, q_bf16, B, H, Hkv, ps, D, n_pg, window, hg,
-                        pps, splits, stream);
+  const decode::Call c{q, k_pages, v_pages,
+                       static_cast<const int*>(lengths), out,
+                       static_cast<float*>(scratch), q_bf16, B, H, Hkv,
+                       window, hg, pps * ps, splits,
+                       static_cast<cudaStream_t>(stream)};
+  const decode::Paged addr{static_cast<const int*>(block_table), n_pg, ps};
+  return decode::launch<__nv_bfloat16>(c, D, addr,
+                                          (long long)n_pg * ps);
 }

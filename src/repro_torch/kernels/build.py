@@ -45,12 +45,12 @@ SIGNATURES = {
     # q, k_pages, v_pages, base, block_table, anc, out, scratch, q_bf16,
     # B, C, H, Hkv, ps, D, n_pg, nq, pps, splits, stream
     "paged_verify_tree": [_P] * 8 + [_I] * 11 + [_P],
-    # q, k_cache, v_cache, lengths, out, q_bf16, kv_bf16,
-    # B, H, Hkv, S, D, window, kt, stream
-    "mha_decode": [_P] * 5 + [_I] * 9 + [_P],
+    # q, k_cache, v_cache, lengths, out, scratch, q_bf16, kv_bf16,
+    # B, H, Hkv, S, D, window, hg, kps, splits, stream
+    "mha_decode": [_P] * 6 + [_I] * 11 + [_P],
     # x, res, w, b, y, rn, yq, scale, x_bf16, res_bf16, B, D, rms, eps,
-    # stream
-    "ln_res": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # nv, vec, stream
+    "ln_res": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
 }
 
 

@@ -10,10 +10,10 @@ shape, contiguity and alignment, allocates its output, launches on
 PyTorch's current stream, raises if the launch reports an error, and
 adds one to its launch counter (``<wrapper>.launches``) per call that
 launches its kernel: ``quant_matmul`` launches one CUDA function, a
-cluster of blocks per output strip; ``paged_mha_decode`` and
-``paged_verify`` launch two each (the split-KV attention, then the
-combine of its splits) and count once, the verify's causal and
-tree-masked calls apart (``launches``, ``tree_launches``).  ``ln_res``
+cluster of blocks per output strip; ``paged_mha_decode``,
+``mha_decode`` and ``paged_verify`` launch two each (the split-KV
+attention, then the combine of its splits) and count once, the verify's
+causal and tree-masked calls apart (``launches``, ``tree_launches``).  ``ln_res``
 is reached only through ``core/mdk.MDK_REGISTRY["ln_res"]``, as in the
 JAX package.  Unlike the TPU wrappers these pad nothing: the kernels
 mask their own ragged edges.
@@ -27,12 +27,6 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-#: (query row, dim) accumulators a contiguous-decode block keeps in
-#: registers (must match MAX_ACC * ATTN_THREADS in paged_attn.cuh); the
-#: paged decode takes the same group * head_dim limit
-_ATTN_ACC_ELEMS = 8 * 128
-#: keys per shared-memory tile of the contiguous decode kernel
-_ATTN_TILE_KEYS = 64
 #: the H100's shared memory per block (bytes)
 _SMEM_LIMIT = 232_448
 #: the H100's streaming multiprocessors
@@ -56,6 +50,9 @@ _VERIFY_BLOCKS = 4 * _N_SMS
 _DECODE_WARPS, _DECODE_TILE, _DECODE_STAGES, _DECODE_MAX_HG = 4, 16, 3, 8
 _DECODE_HEAD_DIMS = (16, 64, 128)
 _DECODE_BLOCKS = 4 * _N_SMS
+#: ln_res.cu: threads per row (one block), 8-column chunks a thread may
+#: hold
+_LN_THREADS, _LN_MAX_NV = 256, 8
 
 
 class MpGeometry(NamedTuple):
@@ -201,18 +198,13 @@ def _check_attn(name, q, k, v, rows, kv_dtypes):
     H = q.shape[-2]
     _require(q.shape[-1] == D and H % Hkv == 0,
              f"{name}: q {tuple(q.shape)} vs k/v {tuple(k.shape)}")
-    _require(D % 4 == 0, f"{name}: head_dim {D} must be a multiple of 4")
-    _require((H // Hkv) * D <= _ATTN_ACC_ELEMS,
-             f"{name}: group*head_dim {(H // Hkv) * D} exceeds "
-             f"{_ATTN_ACC_ELEMS}")
     B = q.shape[0]
     _require(rows.dtype == torch.int32 and tuple(rows.shape) == (B,),
              f"{name}: lengths/base must be int32 ({B},)")
     _contig(name, q=q, k=k, v=v, rows=rows)
-    # the kernels load four cache elements at a time
-    align = 4 * k.element_size()
-    _require(k.data_ptr() % align == 0 and v.data_ptr() % align == 0,
-             f"{name}: k/v must be {align}-byte aligned")
+    # the kernels stage K/V rows with 16-byte copies
+    _require(k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+             f"{name}: k/v must be 16-byte aligned")
     return Hkv, D
 
 
@@ -228,15 +220,6 @@ def _check_paged(name, q, k_pages, v_pages, rows, block_table):
     return Hkv, k_pages.shape[2], D, block_table.shape[1]
 
 
-def _attn_geometry(group: int, D: int):
-    """(keys per tile, shared-memory bytes) for ``mha_decode``'s body,
-    ``paged_attn.cuh``, which walks a contiguous row as one-position
-    "pages" (one query position per block)."""
-    KT = _ATTN_TILE_KEYS
-    smem = 4 * (group * D + KT * (D + 1) + KT * D + group * KT + 3 * group)
-    return KT, smem
-
-
 class DecodeGeometry(NamedTuple):
     """Launch geometry of the split-KV decode kernel (``decode_attn.cuh``)."""
     hg: int         # query heads per block (1, 2, 4 or 8)
@@ -247,6 +230,21 @@ class DecodeGeometry(NamedTuple):
     scratch: int    # float32 partials: splits * B * H * (D + 2)
 
 
+def _head_chunks(group: int):
+    """(query heads per block, blocks along the group) of the decode body:
+    the whole group when it is at most 8, else chunks of 8."""
+    hg = next(g for g in (1, 2, 4, 8) if group <= g or g == _DECODE_MAX_HG)
+    return hg, -(-group // hg)
+
+
+def _decode_smem(D: int, hg: int, elem: int) -> int:
+    """Shared memory of the decode body's block: the warps' K/V rings of
+    ``elem``-byte elements, reused for the warps' partials of ``hg``
+    heads (``decode::smem_bytes``)."""
+    ring = _DECODE_WARPS * _DECODE_STAGES * 2 * _DECODE_TILE * D * elem
+    return max(ring, _DECODE_WARPS * hg * (D + 2) * 4)
+
+
 def _decode_geometry(B: int, H: int, Hkv: int, ps: int, D: int,
                      n_pg: int) -> DecodeGeometry:
     """The split-KV geometry of ``paged_mha_decode``, from the shapes alone
@@ -255,17 +253,41 @@ def _decode_geometry(B: int, H: int, Hkv: int, ps: int, D: int,
     once per KV head for groups up to 8.  Each split is a run of whole
     pages giving each warp at least one 16-key tile; splits are added
     until the grid holds about ``_DECODE_BLOCKS`` blocks."""
-    group = H // Hkv
-    hg = next(g for g in (1, 2, 4, 8) if group <= g or g == _DECODE_MAX_HG)
-    h_chunks = -(-group // hg)
+    hg, h_chunks = _head_chunks(H // Hkv)
     least = -(-_DECODE_WARPS * _DECODE_TILE // ps)
     wanted = -(-_DECODE_BLOCKS // (B * Hkv * h_chunks))
     pps = max(least, -(-n_pg // wanted))
     splits = -(-n_pg // pps)
-    ring = _DECODE_WARPS * _DECODE_STAGES * 2 * _DECODE_TILE * D * 2
-    merge = _DECODE_WARPS * hg * (D + 2) * 4
-    return DecodeGeometry(hg, h_chunks, pps, splits, max(ring, merge),
+    return DecodeGeometry(hg, h_chunks, pps, splits, _decode_smem(D, hg, 2),
                           splits * B * H * (D + 2))
+
+
+class MhaGeometry(NamedTuple):
+    """Launch geometry of the contiguous decode (``decode_attn.cuh``'s
+    contiguous addressing)."""
+    hg: int         # query heads per block (1, 2, 4 or 8)
+    h_chunks: int   # blocks along a KV head's group
+    kps: int        # keys per split: whole 16-key tiles
+    splits: int     # key splits per (row, KV head, head chunk)
+    smem: int       # dynamic shared memory per block, bytes
+    scratch: int    # float32 partials: splits * B * H * (D + 2)
+
+
+def _mha_geometry(B: int, H: int, Hkv: int, S: int, D: int,
+                  elem: int) -> MhaGeometry:
+    """The split-KV geometry of ``mha_decode`` over a (B, Hkv, S, D) cache
+    of ``elem``-byte elements, from the shapes alone (never the lengths,
+    which live on the card), as ``_decode_geometry`` with runs of whole
+    16-key tiles in place of pages: each split gives every warp at least
+    one tile, and splits are added until the grid holds about
+    ``_DECODE_BLOCKS`` blocks."""
+    hg, h_chunks = _head_chunks(H // Hkv)
+    tiles = -(-S // _DECODE_TILE)
+    wanted = -(-_DECODE_BLOCKS // (B * Hkv * h_chunks))
+    tps = max(_DECODE_WARPS, -(-tiles // wanted))
+    splits = -(-tiles // tps)
+    return MhaGeometry(hg, h_chunks, tps * _DECODE_TILE, splits,
+                       _decode_smem(D, hg, elem), splits * B * H * (D + 2))
 
 
 class VerifyGeometry(NamedTuple):
@@ -305,6 +327,13 @@ def _verify_geometry(B: int, C: int, H: int, Hkv: int, ps: int, D: int,
                           splits * B * C * H * (D + 2))
 
 
+def _ln_res_chunks(D: int) -> int:
+    """8-column chunks each of ``ln_res.cu``'s 256 threads holds in
+    registers: the fewest power of two that covers a row of ``D``."""
+    chunks = -(-D // (8 * _LN_THREADS))
+    return 1 << (chunks - 1).bit_length()
+
+
 def mha_decode(q, k_cache, v_cache, lengths, *,
                window: int = 0) -> torch.Tensor:
     """One-token attention over a contiguous KV cache.
@@ -313,7 +342,11 @@ def mha_decode(q, k_cache, v_cache, lengths, *,
     or float32, ``lengths`` (B,) int32 valid entries per row (the new
     token included).  Returns (B, H, D) in q's dtype.  The kernel returns
     zeros for a row with no valid key; the plain version, like the JAX
-    oracle, returns NaN there."""
+    oracle, returns NaN there.
+
+    On the card one call launches two CUDA functions, the split-KV
+    attention and the combine of its splits (``_mha_geometry``), and
+    counts one launch."""
     name = "mha_decode"
     if not _route(name, q, k_cache, v_cache, lengths):
         return ref.mha_decode_ref(q, k_cache, v_cache, lengths,
@@ -325,15 +358,20 @@ def mha_decode(q, k_cache, v_cache, lengths, *,
                          (torch.bfloat16, torch.float32))
     B, H, _ = q.shape
     S = k_cache.shape[2]
-    _require(S > 0, f"{name}: empty cache")
-    kt, smem = _attn_geometry(H // Hkv, D)
-    _require(smem <= _SMEM_LIMIT, f"{name}: needs {smem} B shared memory")
+    _require(B > 0 and S > 0, f"{name}: empty operand")
+    _require(D in _DECODE_HEAD_DIMS,
+             f"{name}: head_dim {D} not one of {_DECODE_HEAD_DIMS}")
+    geo = _mha_geometry(B, H, Hkv, S, D, k_cache.element_size())
+    _require(geo.smem <= _SMEM_LIMIT,
+             f"{name}: needs {geo.smem} B shared memory")
     out = torch.empty_like(q)
+    scratch = torch.empty(geo.scratch, dtype=torch.float32, device=q.device)
     err = build.library().mha_decode(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
-        int(k_cache.dtype == torch.bfloat16), B, H, Hkv, S, D, int(window),
-        kt, _stream(q))
+        lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        int(q.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16),
+        B, H, Hkv, S, D, int(window), geo.hg, geo.kps, geo.splits,
+        _stream(q))
     _check_launch(name, err)
     mha_decode.launches += 1
     return out
@@ -361,9 +399,6 @@ def paged_mha_decode(q, k_pages, v_pages, lengths, block_table, *,
     _require(B > 0 and n_pg > 0, f"{name}: empty operand")
     _require(D in _DECODE_HEAD_DIMS,
              f"{name}: head_dim {D} not one of {_DECODE_HEAD_DIMS}")
-    # the kernel stages K/V rows with 16-byte copies
-    _require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
-             f"{name}: k/v pages must be 16-byte aligned")
     geo = _decode_geometry(B, H, Hkv, ps, D, n_pg)
     _require(geo.smem <= _SMEM_LIMIT,
              f"{name}: needs {geo.smem} B shared memory")
@@ -407,11 +442,9 @@ def paged_verify(q, k_pages, v_pages, base, block_table, *,
     _require(B > 0 and C > 0 and n_pg > 0, f"{name}: empty operand")
     _require(D in _VERIFY_HEAD_DIMS,
              f"{name}: head_dim {D} not one of {_VERIFY_HEAD_DIMS}")
+    # a block's 16 MMA rows hold 16 // group queries of all its heads
     _require(H // Hkv <= _VERIFY_ROWS,
              f"{name}: group {H // Hkv} exceeds {_VERIFY_ROWS} query rows")
-    # the kernel stages K/V rows with 16-byte copies
-    _require(k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0,
-             f"{name}: k/v pages must be 16-byte aligned")
     geo = _verify_geometry(B, C, H, Hkv, ps, D, n_pg)
     _require(geo.smem <= _SMEM_LIMIT,
              f"{name}: needs {geo.smem} B shared memory")
@@ -465,10 +498,10 @@ def ln_res(x, res, weight, bias=None, *, kind: str = "layernorm",
                  f"{name}: {k} must be float32 or bfloat16, got {t.dtype}")
     _require(tuple(weight.shape) == (D,) and tuple(bias.shape) == (D,),
              f"{name}: weight and bias must be ({D},)")
-    # the kernel keeps the row in shared memory as float32, beside 384
-    # bytes of reduction scratch
-    _require(4 * D <= _SMEM_LIMIT - 384,
-             f"{name}: D={D} exceeds one block's shared memory")
+    nv = _ln_res_chunks(D)
+    _require(nv <= _LN_MAX_NV,
+             f"{name}: D={D} exceeds the {8 * _LN_THREADS * _LN_MAX_NV} "
+             "columns a block holds in registers")
     w32 = weight.float().contiguous()
     b32 = bias.float().contiguous()
     _contig(name, x=x, res=res)
@@ -476,11 +509,14 @@ def ln_res(x, res, weight, bias=None, *, kind: str = "layernorm",
     rn = torch.empty_like(res)
     yq = torch.empty((B, D), dtype=torch.int8, device=x.device)
     scale = torch.empty((B, 1), dtype=torch.float32, device=x.device)
+    # 16-byte accesses when every row starts 16-byte aligned
+    vec = D % 8 == 0 and all(t.data_ptr() % 16 == 0
+                             for t in (x, res, w32, b32, y, rn, yq))
     err = build.library().ln_res(
         x.data_ptr(), res.data_ptr(), w32.data_ptr(), b32.data_ptr(),
         y.data_ptr(), rn.data_ptr(), yq.data_ptr(), scale.data_ptr(),
         int(x.dtype == torch.bfloat16), int(res.dtype == torch.bfloat16), B,
-        D, int(kind == "rmsnorm"), float(eps), _stream(x))
+        D, int(kind == "rmsnorm"), float(eps), nv, int(vec), _stream(x))
     _check_launch(name, err)
     ln_res.launches += 1
     return y, rn, yq, scale

@@ -510,6 +510,83 @@ def test_mha_decode_kernel_matches_plain_on_card(h100, window, qdtype,
     assert ops.launch_counts()["mha_decode"] == 1
 
 
+def _mha_case(rng, dev, lengths_np, Hkv, group, D, S, qdtype, kvdtype):
+    """A contiguous cache (B, Hkv, S, D), lengths and a query for the
+    split-KV contiguous decode cases."""
+    B = len(lengths_np)
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (B, Hkv, S, D)).astype(np.float32)).to(
+            device=dev, dtype=getattr(torch, kvdtype)) for _ in range(2))
+    q = torch.from_numpy(rng.standard_normal((B, Hkv * group, D)).astype(
+        np.float32)).to(device=dev, dtype=getattr(torch, qdtype))
+    lengths = torch.tensor(lengths_np, dtype=torch.int32, device=dev)
+    return q, k, v, lengths
+
+
+def _mha_split_lengths(H, Hkv, S, D, elem):
+    """Nine rows: lengths 0, 1 and 16, one on each side of the first key
+    split edge, past the second, and S - 1 and S."""
+    geo = ops._mha_geometry(9, H, Hkv, S, D, elem)
+    edge = geo.kps
+    assert geo.splits >= 2, geo
+    return [0, 1, 16, edge - 1, edge, edge + 1, min(2 * edge + 1, S - 2),
+            S - 1, S]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 7, 128])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kvdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hkv,group,D,S", [(16, 1, 64, 1024),
+                                           (4, 2, 64, 1000),
+                                           (2, 4, 16, 300),
+                                           (1, 16, 128, 520),
+                                           (4, 1, 128, 77)])
+def test_mha_decode_split_edges_on_card(h100, window, qdtype, kvdtype, Hkv,
+                                        group, D, S):
+    """Rows of lengths 0, 1, 16, at key-split edges +-1, S - 1 and S, with
+    windows that stay inside a split or cross its edge; all heads, GQA
+    groups 2 and 4 and a group of 16 on one KV head at D 128 (two head
+    chunks); head dims 16, 64 and 128; ragged S; q and the cache each in
+    float32 and bf16.  Each output vector within 1e-2 of its largest
+    magnitude, the empty row exactly 0, two calls bit-identical, one
+    launch counted per call."""
+    rng = np.random.default_rng(window + group + D + S)
+    elem = 2 if kvdtype == "bfloat16" else 4
+    lengths_np = _mha_split_lengths(Hkv * group, Hkv, S, D, elem)
+    q, k, v, lengths = _mha_case(rng, h100, lengths_np, Hkv, group, D, S,
+                                 qdtype, kvdtype)
+    ops.reset_launch_counts()
+    got = ops.mha_decode(q, k, v, lengths, window=window)
+    again = ops.mha_decode(q, k, v, lengths, window=window)
+    want = ref.mha_decode_ref(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert bool((got[0] == 0).all())  # no valid key: 0, not NaN
+    assert _rel_err(got[1:], want[1:]) <= ATTN_REL_TOL
+    assert torch.equal(got, again)
+    assert ops.launch_counts()["mha_decode"] == 2
+
+
+@pytest.mark.gpu
+def test_mha_decode_makes_no_host_sync_on_card(h100):
+    """The wrapper (geometry, scratch, both launches) never waits for the
+    card: it runs under ``set_sync_debug_mode("error")``."""
+    rng = np.random.default_rng(9)
+    q, k, v, lengths = _mha_case(rng, h100, [0, 40, 300], 4, 2, 64, 333,
+                                 "float32", "float32")
+    ops.mha_decode(q, k, v, lengths)  # build and load
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ops.mha_decode(q, k, v, lengths)
+        ops.mha_decode(q, k, v, lengths, window=5)
+        ops.mha_decode(q.bfloat16(), k.bfloat16(), v.bfloat16(), lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_engine_on_card_runs_every_kernel(h100):
     """The reduced W8A8 engine on the card (its default device): every
@@ -615,11 +692,16 @@ def _ln_res_inputs(rng, B, D, dtype, dev, mean=0.0):
 @pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,D", [(8, 1024), (256, 1024), (32, 4096),
-                                 (5, 1000), (3, 8192), (2, 16384)])
+                                 (5, 1000), (3, 8192), (2, 16384),
+                                 (3, 256), (5, 200), (33, 100), (8, 64),
+                                 (33, 257), (3, 2056), (3, 8200)])
 def test_ln_res_kernel_matches_plain_on_card(h100, kind, dtype, B, D):
-    """Decode and prefill rows at GPT-2's width, wider rows (up to one
-    that needs more than 48 KB of shared memory), a ragged D, and a row
-    with a large mean; one launch counted per call."""
+    """Decode and prefill rows at GPT-2's width, wider rows up to the
+    16,384 columns a block holds (8,200 and 16,384: 8 chunks a thread),
+    narrow rows that leave most of a row's 256 threads idle, odd row
+    counts (3, 5, 33), ragged widths (1000, 200, and 257 and 100, which
+    take element-wise accesses), rows with a large mean; one launch
+    counted per call."""
     rng = np.random.default_rng(B + D)
     x, res, w, b = _ln_res_inputs(rng, B, D, getattr(torch, dtype), h100,
                                   mean=3000.0 if B == 5 else 0.0)

@@ -265,10 +265,13 @@ def test_plain_path_counts_no_launch():
 def test_gpt2_attention_geometry_fits_shared_memory():
     """The launch geometry the wrappers pick for GPT-2 345M (16 heads of
     64, pages of 16) fits the H100's shared memory, a decode tick of 8
-    rows splits each row's 64 pages into 5 runs (640 blocks), and a
-    prefill chunk of 32 splits into two query slices per KV head."""
-    kt, smem = ops._attn_geometry(1, 64)
-    assert kt == 64 and smem <= ops._SMEM_LIMIT
+    rows splits each row's 64 pages into 5 runs (640 blocks), as the
+    draft's contiguous float32 cache of 1,024 positions splits into 5 runs
+    of 208 keys, and a prefill chunk of 32 splits into two query slices
+    per KV head."""
+    mha = ops._mha_geometry(8, 16, 16, 1024, 64, 4)
+    assert (mha.hg, mha.kps, mha.splits) == (1, 208, 5)
+    assert mha.smem <= ops._SMEM_LIMIT
     dec = ops._decode_geometry(8, 16, 16, 16, 64, 64)
     assert (dec.hg, dec.pps, dec.splits) == (1, 13, 5)
     assert dec.smem <= ops._SMEM_LIMIT
@@ -605,8 +608,8 @@ def test_decode_entry_geometry_and_count_one_launch(monkeypatch):
 
 
 def test_decode_refuses_what_the_kernel_does_not_take(monkeypatch):
-    """A head dim the kernel is not built for, a group too wide for the
-    accumulators, misaligned pages and an empty table raise before any
+    """A head dim the kernel is not built for (48, and 256, which waits on
+    a wider body), misaligned pages and an empty table raise before any
     launch."""
     monkeypatch.setattr(ops, "_route", lambda *a: True)
     monkeypatch.setattr(ops.build, "library", lambda: pytest.fail(
@@ -621,12 +624,198 @@ def test_decode_refuses_what_the_kernel_does_not_take(monkeypatch):
 
     with pytest.raises(ValueError, match="head_dim 48"):
         call(2, 2, 48)
-    with pytest.raises(ValueError, match="exceeds"):
-        call(32, 1, 64)
+    with pytest.raises(ValueError, match="head_dim 256"):
+        call(2, 2, 256)
     with pytest.raises(ValueError, match="16-byte aligned"):
         call(2, 2, 64, offset=4)
     with pytest.raises(ValueError, match="empty"):
         call(2, 2, 64, n_pg=0)
+
+
+#: (B, H, Hkv, S, D, elem): the draft's float32 cache and the stacked
+#: target's bf16 one at GPT-2 345M, GQA, a wide group of 16 at D 128,
+#: ragged S, S below one 16-key tile and below one split, one row
+_MHA_SHAPES = [
+    (8, 16, 16, 1024, 64, 4), (8, 16, 16, 1024, 64, 2),
+    (4, 8, 2, 100, 64, 4), (3, 16, 1, 333, 128, 4), (2, 16, 1, 77, 128, 2),
+    (5, 4, 4, 7, 16, 4), (1, 16, 16, 1000, 64, 2), (64, 16, 16, 1024, 64, 4),
+    (2, 6, 2, 50, 16, 2), (7, 32, 4, 129, 128, 2)]
+
+
+@pytest.mark.parametrize("shape", _MHA_SHAPES)
+def test_mha_splits_cover_the_cache_once(shape):
+    """The key splits are runs of whole 16-key tiles that tile ``[0, S)``
+    exactly once, each giving every warp at least one tile (unless the
+    cache is shorter); the head chunks cover the group; and, clipped as
+    ``decode_attn.cuh`` clips them, the splits cover each row's visible
+    keys once, for every length from 0 to past ``S`` and with a window."""
+    B, H, Hkv, S, D, elem = shape
+    geo = ops._mha_geometry(*shape)
+    assert geo.kps % ops._DECODE_TILE == 0
+    assert geo.kps >= ops._DECODE_WARPS * ops._DECODE_TILE
+    owner = np.zeros(S, np.int64)
+    for s in range(geo.splits):
+        lo, hi = s * geo.kps, min((s + 1) * geo.kps, S)
+        assert lo < hi
+        owner[lo:hi] += 1
+    assert (owner == 1).all()
+    group = H // Hkv
+    assert geo.hg in (1, 2, 4, 8)
+    assert (geo.h_chunks - 1) * geo.hg < group <= geo.h_chunks * geo.hg
+    for length in sorted({0, 1, 15, 16, 17, geo.kps - 1, geo.kps,
+                          geo.kps + 1, S - 1, S, S + 5}):
+        for window in (0, 1, 7, 128):
+            key_lo = max(0, length - window) if window else 0
+            seen = np.zeros(S, np.int64)
+            for s in range(geo.splits):
+                lo = max(s * geo.kps, key_lo)
+                hi = min((s + 1) * geo.kps, min(length, S))
+                seen[lo:max(lo, hi)] += 1
+            want = np.zeros(S, np.int64)
+            want[min(key_lo, S):min(length, S)] = 1
+            assert (seen == want).all(), (length, window)
+    # as many blocks as the card wants, unless the cache runs out first
+    blocks = B * Hkv * geo.h_chunks * geo.splits
+    assert blocks >= min(ops._DECODE_BLOCKS,
+                         B * Hkv * geo.h_chunks * max(1, S // 64))
+
+
+@pytest.mark.parametrize("shape", _MHA_SHAPES)
+def test_mha_scratch_is_what_the_kernel_indexes(shape):
+    """``split_kernel`` writes part_o[(s * B * H + b * H + h) * D + d] and
+    part_ml[2 * (s * B * H + b * H + h) + {0, 1}] for every split, row and
+    head; the scratch holds exactly that."""
+    B, H, Hkv, S, D, elem = shape
+    geo = ops._mha_geometry(*shape)
+    last = (geo.splits - 1) * B * H + (B - 1) * H + (H - 1)
+    part_o = (last + 1) * D
+    assert geo.scratch == part_o + 2 * (last + 1)
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8, 16])
+def test_mha_shared_memory_fits_the_h100(elem, D, group):
+    """Rings (3 stages of 16-key K and V tiles per warp, 196,608 B at D 128
+    in float32) and the warps' partials of every head chunk stay within
+    the 232,448 bytes one block may use."""
+    geo = ops._mha_geometry(8, 2 * group, 2, 1024, D, elem)
+    assert geo.smem == max(4 * 3 * 2 * 16 * D * elem, 4 * geo.hg * (D + 2) * 4)
+    assert geo.smem <= 232_448
+
+
+def test_mha_entry_counts_one_launch_and_takes_wide_groups(monkeypatch):
+    """The contiguous decode wrapper passes the geometry of the shapes
+    alone (the lengths do not enter it), a scratch buffer of its size, and
+    counts one launch per call; a group of 16 at D 128, beyond the old
+    1,024-accumulator cap, is taken, by the paged decode too."""
+    calls, sizes = [], []
+
+    class Lib:
+        def mha_decode(self, *a):
+            calls.append(a)
+            return 0
+
+        def paged_mha_decode(self, *a):
+            calls.append(a)
+            return 0
+
+    real_empty = torch.empty
+
+    def empty(*a, **kw):
+        t = real_empty(*a, **kw)
+        sizes.append(t.numel())
+        return t
+
+    monkeypatch.setattr(ops, "_route", lambda *a: True)
+    monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(ops.build, "library", lambda: Lib())
+    monkeypatch.setattr(ops.torch, "empty", empty)
+    ops.reset_launch_counts()
+    for B, H, Hkv, S, D, kv in ((3, 8, 2, 100, 64, torch.float32),
+                                (2, 16, 1, 77, 128, torch.bfloat16)):
+        q = torch.zeros((B, H, D), dtype=torch.bfloat16)
+        k = torch.zeros((B, Hkv, S, D), dtype=kv)
+        calls.clear()
+        sizes.clear()
+        for lengths in ([0, 5, S][:B], [S + 3, 1, 2][:B]):
+            ops.mha_decode(q, k, k, torch.tensor(lengths, dtype=torch.int32),
+                           window=7)
+        geo = ops._mha_geometry(B, H, Hkv, S, D, k.element_size())
+        for a in calls:
+            assert len(a) == len(build.SIGNATURES["mha_decode"])
+            assert a[6:] == (1, int(kv == torch.bfloat16), B, H, Hkv, S, D, 7,
+                             geo.hg, geo.kps, geo.splits, 0)
+        assert sizes.count(geo.scratch) == 2
+    assert ops.launch_counts()["mha_decode"] == 4
+    pages = torch.zeros((5, 1, 16, 128), dtype=torch.bfloat16)
+    ops.paged_mha_decode(torch.zeros((2, 16, 128)), pages, pages,
+                         torch.ones(2, dtype=torch.int32),
+                         torch.zeros((2, 2), dtype=torch.int32))
+    assert calls[-1][12:14] == (128, 2)  # D, n_pg
+    assert ops.launch_counts()["paged_mha_decode"] == 1
+
+
+def test_mha_refuses_what_the_kernel_does_not_take(monkeypatch):
+    """Head dims the decode body is not built for (32, and 256, which
+    waits on a wider body) are refused by name, as are a misaligned cache
+    and an empty one, before any launch."""
+    monkeypatch.setattr(ops, "_route", lambda *a: True)
+    monkeypatch.setattr(ops.build, "library", lambda: pytest.fail(
+        "launched a kernel it should have refused"))
+    lengths = torch.ones(2, dtype=torch.int32)
+
+    def call(D, S=8, offset=0):
+        pool = torch.zeros(2 * 2 * S * D + offset, dtype=torch.float32)
+        k = pool[offset:].view(2, 2, S, D)
+        ops.mha_decode(torch.zeros((2, 4, D)), k, k, lengths)
+
+    for D in (32, 256):
+        with pytest.raises(ValueError, match=f"head_dim {D} not one of"):
+            call(D)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        call(64, offset=1)
+    with pytest.raises(ValueError, match="empty"):
+        call(64, S=0)
+
+
+@pytest.mark.parametrize("D,nv", [
+    (16, 1), (200, 1), (256, 1), (257, 1), (1000, 1), (1024, 1), (2048, 1),
+    (2049, 2), (4096, 2), (8192, 4), (8193, 8), (16384, 8)])
+def test_ln_res_chunks_cover_the_row(D, nv):
+    """A block of 256 threads per row, each thread holding the fewest
+    power-of-two count of 8-column chunks that covers the row (at most
+    8, 64 values)."""
+    assert ops._ln_res_chunks(D) == nv <= ops._LN_MAX_NV
+    assert nv * 8 * 256 >= D
+    assert nv == 1 or D > nv * 8 * 128
+
+
+def test_ln_res_entry_passes_the_geometry(monkeypatch):
+    """The wrapper passes the chunks per thread and 16-byte accesses only
+    for a width that is a multiple of 8; it refuses a row wider than a
+    block holds in registers; one launch per call."""
+    calls = []
+
+    class Lib:
+        def ln_res(self, *a):
+            calls.append(a)
+            return 0
+
+    monkeypatch.setattr(ops, "_route", lambda *a: True)
+    monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(ops.build, "library", lambda: Lib())
+    ops.reset_launch_counts()
+    shapes = ((3, 1000), (5, 257), (2, 4096), (3, 100), (33, 200))
+    for B, D in shapes:
+        ops.ln_res(torch.ones((B, D)), torch.ones((B, D)), torch.ones(D))
+        assert len(calls[-1]) == len(build.SIGNATURES["ln_res"])
+        assert calls[-1][10:12] == (B, D)
+        assert calls[-1][14:16] == (ops._ln_res_chunks(D), int(D % 8 == 0))
+    assert ops.launch_counts()["ln_res"] == len(shapes)
+    with pytest.raises(ValueError, match="exceeds the 16384 columns"):
+        ops.ln_res(torch.ones((1, 16392)), torch.ones((1, 16392)),
+                   torch.ones(16392))
 
 
 def test_build_without_toolkit_raises(monkeypatch, tmp_path):
