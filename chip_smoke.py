@@ -46,6 +46,16 @@ is caught and continued:
    the same weight bytes.
    No PyTorch call computes ``ln_res``; ``F.layer_norm`` of the sum is
    printed beside it as the norm alone.
+   Then the RoPE family's heads: ``paged_mha_decode``, ``paged_verify``
+   (a prefill chunk and a chain verify), its tree body and ``mha_decode``
+   (float32 and bf16 caches) at ``llama3-8b``'s group 4 and
+   ``minitron-4b``'s group 3 at D 128 and ``gemma-7b``'s D 256, each held
+   to its plain version per output vector, twice bit-identical (a
+   lower-triangular mask as the causal kernel), empty decode rows zero,
+   and timed as above beside SDPA (``enable_gqa``) and its bound; and
+   ``mp_matmul`` at their weight shapes (every (K, N) of a layer and the
+   untied heads, N up to 256,000) bit for bit at M 8, 32 and 40, one
+   layer's calls and the head timed at M 8 and 32.
 5. Serving: full-width ``gpt2-345m`` with random weights from a seeded
    generator, W8A8 SmoothQuant calibrated on seeded prompts, paged KV
    cache, chunk 32, 8 slots, ``max_seq`` 1024, 16 greedy requests with
@@ -93,15 +103,31 @@ is caught and continued:
     their range, and each one's margin of its own token over the other's
     is at most twice their largest logit difference, the most that
     difference can overturn.
-11. The device time of each CUDA function of the timed calls
+11. The RoPE dense family at full width (``FAMILY_RUNS``): ``llama3-8b``
+    (32 layers, d 4096, 32 heads over 8 of 128, vocab 128,256, an untied
+    head) paged plain, paged chain speculation (n-gram, k 4) and stacked
+    plain, then ``gemma-7b`` (28 layers, d 3072, 16 heads of 256, vocab
+    256,000) paged and stacked plain.  Random weights from a seeded
+    generator, W8A8 SmoothQuant calibrated on 2 x 128 seeded tokens, the
+    engine settings of phase 5, 8 requests of 64 new tokens on prompts of
+    16-512 tokens that repeat short runs.  Each run's launch counts are
+    zeroed before and read after it and must match its calls; every run's
+    streams are held to the paged plain run's under the near-tie rule,
+    logits recomputed in the batch shapes of each run; each model is
+    freed before the next, and the peak memory printed.
+12. Reduced-config agreement (as phase 10) for ``llama3-8b`` and
+    ``gemma-7b``.
+13. The device time of each CUDA function of the timed calls
     (``torch.profiler``): one layer's six ``mp_matmul`` calls at M 8 and
     32 (one function), the timed paged and contiguous decodes and the
-    three timed verify shapes (the split kernel and the combine each), and
-    the three timed ``ln_res`` calls; last of the measuring phases
-    because the profiler leaves later launches slower.
-12. One ``kernels`` JSON line (six kernels, each with its launches on its
-    own path and per run), the total time, the card's name and power
-    limit, then the device JSON line last.
+    three timed verify shapes (the split kernel and the combine each), the
+    three timed ``ln_res`` calls and the RoPE family's timed attention
+    calls; last of the measuring phases because the profiler leaves later
+    launches slower.
+14. One ``kernels`` JSON line (six kernels, each with its launches on its
+    own path and per run, and the RoPE family's rows under
+    ``wide_heads``), the total time, the card's name and power limit, then
+    the device JSON line last.
 """
 from __future__ import annotations
 
@@ -110,6 +136,7 @@ import os
 import subprocess
 import sys
 import time
+from functools import partial
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -166,6 +193,12 @@ LN_TIMED = (8, 32, 256)
 #: ln_res tolerances: y within one bf16 ulp, scale within 1e-5 relative,
 #: y_q within 1 everywhere and equal on this share of elements
 LN_SCALE_RTOL, LN_YQ_EQUAL = 1e-5, 0.999
+#: the RoPE family's head shapes held and timed beside GPT-2's: groups 4
+#: and 3 at D 128, and D 256
+WIDE_ARCHS = ("llama3-8b", "minitron-4b", "gemma-7b")
+#: the full-width RoPE serving phases: config -> runs (layout, variant)
+FAMILY_RUNS = {"llama3-8b": ("paged plain", "paged chain", "stacked plain"),
+               "gemma-7b": ("paged plain", "stacked plain")}
 #: the over-commit phase's page pool (pages of 16, the null page included):
 #: every prompt fits, the requests' reservations together do not
 OVERCOMMIT_PAGES = 97
@@ -330,7 +363,8 @@ def verify_geometry(q, kp, bt):
     g = ops._verify_geometry(B, C, H, Hkv, ps, D, bt.shape[1])
     return (f"geometry: {g.nq} queries x {g.q_tiles} query tiles, "
             f"{g.splits} splits of {g.pps} pages, "
-            f"{B * Hkv * g.q_tiles * g.splits} blocks, {g.smem} B shared, "
+            f"{B * Hkv * g.q_tiles * g.splits * g.parts} blocks, {g.smem} B "
+            "shared, "
             f"{4 * g.scratch} B scratch")
 
 
@@ -976,6 +1010,323 @@ def ln_res_phase(dev, timer, rng):
     return entry
 
 
+def wide_heads_phase(dev, timer):
+    """The three attention kernels at the RoPE family's heads: D 128 with
+    groups 4 (``llama3-8b``: 32 heads over 8) and 3 (``minitron-4b``: 24
+    over 8, 15 of a verify tile's 16 rows used), and D 256 (``gemma-7b``:
+    16 over 16, Q staged in shared memory and P V split over two blocks
+    in the verify, a float32 contiguous cache on blocks of 2 warps).  Each
+    call is held to its plain version per output vector, a second call
+    must be bit-identical and an empty decode row zero; then each is
+    timed at its serving shape beside its plain version, SDPA and its
+    bound.  Returns {kernel: [row, ...]}."""
+    phase("kernel vs plain at the RoPE family's heads (D 128 groups 3 and "
+          "4, D 256)")
+    rng = np.random.default_rng(6)
+    rows = {k: [] for k in ("paged_mha_decode", "paged_verify",
+                            "paged_verify_tree", "mha_decode")}
+    n_pg = MAX_SEQ // PAGE
+
+    def row(kernel, label, shape, call, plain, lib, nbytes, ops_, keys,
+            empty_zero=None, skip_last=False):
+        got, again, want = call(), call(), plain()
+        torch.cuda.synchronize()
+        sl = slice(None, -1) if skip_last else slice(None)
+        err, rel = rel_err(got[sl], want[sl])
+        what = f"{kernel} {label} {shape}"
+        check(rel <= ATTN_REL_TOL, f"{what}: rel err {rel}")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+        check(torch.equal(got, again), f"{what}: two calls differ")
+        if empty_zero is not None:
+            check(bool((empty_zero() == 0).all()),
+                  f"{what}: empty rows not zero")
+        t, tp, tl = timer.ms(call), timer.ms(plain), timer.ms(lib)
+        b, by = bound_ms(nbytes, ops_, "bf16" if kernel != "mha_decode"
+                         else "f32")
+        r = {"model": label, "shape": shape, "max_abs_err": err,
+             "max_rel_err": rel, "ms": t, "plain_ms": tp, "library_ms": tl,
+             "bound_ms": b, "bound_by": by}
+        rows[kernel].append(r)
+        PROFILED.append((f"{kernel} {label} {shape}", r, "by_kernel", call,
+                         keys))
+        print(f"{what}: max abs err {err:.3e} (rel {rel:.3e} <= "
+              f"{ATTN_REL_TOL}), two calls bit-identical; kernel {t:.4f} ms, "
+              f"plain {tp:.4f} ms, SDPA {tl:.4f} ms, bound {b:.5f} ms ({by})")
+
+    for arch in WIDE_ARCHS:
+        cfg = get_config(arch)
+        H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        label = f"{arch} (H {H} / Hkv {Hkv}, D {D})"
+        gqa = H != Hkv
+
+        # decode over pages: B = slots, the rows spread over the cache
+        q, kp, vp, bt = pool_inputs(rng, SLOTS, Hkv, D, dev, (SLOTS, H, D))
+        lengths_np = np.array(MHA_TIMED_LENGTHS, np.int32)
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        bt = live_table(bt, lengths_np)
+        kv, vv = (ref.paged_gather_ref(t, bt).float() for t in (kp, vp))
+        mask = (torch.arange(MAX_SEQ, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        tot = int(lengths_np.sum())
+        pages = int(sum(-(-int(n) // PAGE) for n in lengths_np))
+        row("paged_mha_decode", label, f"B={SLOTS} {tot} keys",
+            partial(ops.paged_mha_decode, q, kp, vp, lengths, bt),
+            partial(ref.paged_mha_decode_ref, q, kp, vp, lengths, bt),
+            partial(F.scaled_dot_product_attention, q[:, :, None], kv, vv,
+                    attn_mask=mask, enable_gqa=gqa),
+            2 * tot * Hkv * D * 2 + 2 * SLOTS * H * D * 4 + 4 * SLOTS
+            + 4 * pages, 4 * tot * H * D, ("decode::", "verify::combine"),
+            empty_zero=partial(ops.paged_mha_decode, q, kp, vp,
+                               torch.zeros_like(lengths), bt))
+
+        # verify: a prefill chunk (B 1, C 32 at base 480), a chain verify
+        # (B 8, C 5) and a tree verify (B 8, C 9, branch 3)
+        for kernel, B, C in (("paged_verify", 1, CHUNK),
+                             ("paged_verify", SLOTS, CHAIN_K + 1),
+                             ("paged_verify_tree", SLOTS, TREE_K + 1)):
+            q, kp, vp, bt = pool_inputs(rng, B, Hkv, D, dev, (B, C, H, D))
+            base_np = (np.array([480], np.int32) if B == 1 else np.sort(
+                rng.integers(16, MAX_SEQ - C, B)).astype(np.int32))
+            base = torch.from_numpy(base_np).to(dev)
+            bt = live_table(bt, base_np + C)
+            anc, pairs = None, int(
+                sum(b * C + C * (C + 1) // 2 for b in base_np))
+            if kernel == "paged_verify_tree":
+                anc_np = tree_arrays(token_trees(rng, B, TREE_K,
+                                                 TREE_BRANCH), TREE_K, C)[3]
+                anc = torch.from_numpy(anc_np.astype(np.int32)).to(dev)
+                pairs = int(sum(int(b) * C for b in base_np) + anc_np.sum())
+            rel_pos = torch.arange(MAX_SEQ, device=dev)[None] - base[:, None]
+            if anc is None:
+                mask = (rel_pos[:, None, :] <= torch.arange(
+                    C, device=dev)[None, :, None])[:, None]
+            else:
+                bits = torch.gather(anc.bool(), 2, rel_pos.clamp(0, C - 1)[
+                    :, None, :].expand(B, C, MAX_SEQ))
+                mask = ((rel_pos < 0)[:, None, :]
+                        | (((rel_pos >= 0) & (rel_pos < C))[:, None, :]
+                           & bits))[:, None]
+            kv, vv = (ref.paged_gather_ref(t, bt).float() for t in (kp, vp))
+            qh = q.transpose(1, 2)
+            keys = int((base_np + C).sum())
+            pages = int(sum(-(-int(b + C) // PAGE) for b in base_np))
+            nbytes = (2 * keys * Hkv * D * 2 + 2 * B * C * H * D * 4 + 4 * B
+                      + 4 * pages + (0 if anc is None else 4 * B * C * C))
+            g = ops._verify_geometry(B, C, H, Hkv, PAGE, D, n_pg)
+            row(kernel, label,
+                f"B={B} C={C} ({B * Hkv * g.q_tiles * g.splits * g.parts} "
+                f"blocks)",
+                partial(ops.paged_verify, q, kp, vp, base, bt, anc=anc),
+                partial(ref.paged_verify_ref, q, kp, vp, base, bt, anc=anc),
+                partial(F.scaled_dot_product_attention, qh, kv, vv,
+                        attn_mask=mask, enable_gqa=gqa),
+                nbytes, 4 * pairs * H * D, ("verify::",))
+            if anc is None:
+                tril = torch.tril(torch.ones((B, C, C), dtype=torch.int32,
+                                             device=dev))
+                check(torch.equal(ops.paged_verify(q, kp, vp, base, bt,
+                                                   anc=tril),
+                                  ops.paged_verify(q, kp, vp, base, bt)),
+                      f"paged_verify {label} B={B} C={C}: a lower-"
+                      "triangular mask differs from the causal kernel")
+
+        # the contiguous decode at the draft's and stacked target's shape:
+        # float32 and bf16 caches
+        S = MAX_SEQ
+        k32, v32 = (torch.from_numpy(rng.standard_normal(
+            (SLOTS, Hkv, S, D)).astype(np.float32)).to(dev)
+            for _ in range(2))
+        q = torch.from_numpy(rng.standard_normal((SLOTS, H, D)).astype(
+            np.float32)).to(dev)
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        for kvd in (torch.float32, torch.bfloat16):
+            k, v = k32.to(kvd), v32.to(kvd)
+            qs = q[:, :, None].to(kvd)
+            w = ops._decode_warps(D, k.element_size())
+            row("mha_decode", label,
+                f"B={SLOTS} S={S} {str(kvd).split('.')[-1]} cache, {tot} "
+                f"keys, {w} warps a block",
+                partial(ops.mha_decode, q, k, v, lengths),
+                partial(ref.mha_decode_ref, q, k, v, lengths),
+                partial(F.scaled_dot_product_attention, qs, k, v,
+                        attn_mask=mask, enable_gqa=gqa),
+                2 * tot * Hkv * D * k.element_size() + 2 * SLOTS * H * D * 4
+                + 4 * SLOTS, 4 * tot * H * D, ("decode::", "verify::"),
+                empty_zero=partial(ops.mha_decode, q, k, v,
+                                   torch.zeros_like(lengths)))
+        del k32, v32
+    return rows
+
+
+def family_mp_phase(dev, timer):
+    """``mp_matmul`` at the RoPE family's widths: every (K, N) of a decoder
+    layer of ``WIDE_ARCHS`` and the untied heads (``llama3-8b``: N
+    128,256; ``minitron-4b``: 256,000), bit-identical to its plain version
+    at a decode tick's rows, a prefill chunk's and a chain verify's (8,
+    32, 40), with bias and bf16 out, two calls equal.  Then one decoder
+    layer's calls and the head timed at M 8 and 32 (beside
+    ``torch._int_mm`` and the same epilogue at 32), float32 out as in a
+    W8A8 engine.  Returns the rows."""
+    phase("mp_matmul at the RoPE family's widths")
+    rng = np.random.default_rng(8)
+    rows = []
+    for arch in WIDE_ARCHS:
+        cfg = get_config(arch)
+        d = cfg.d_model
+        gated = cfg.activation in ("swiglu", "geglu")
+        layer = [(d, cfg.q_dim), (d, cfg.kv_dim), (d, cfg.kv_dim),
+                 (cfg.q_dim, d), (d, cfg.d_ff)] + [(d, cfg.d_ff)] * gated \
+            + [(cfg.d_ff, d)]
+        head = [] if cfg.tie_embeddings else [(d, cfg.vocab_size)]
+        for what, calls in (("one decoder layer", layer), ("head", head)):
+            if not calls:
+                continue
+            for M in (SLOTS, CHUNK, SLOTS * (CHAIN_K + 1)):
+                seen = {}
+                for K, N in calls:
+                    if (K, N) not in seen:
+                        args = mp_inputs(rng, M, K, N, dev, bias=True)
+                        got = ops.quant_matmul(*args)
+                        again = ops.quant_matmul(*args)
+                        want = ref.quant_matmul_ref(*args)
+                        check(torch.equal(got, want)
+                              and torch.equal(got, again),
+                              f"mp_matmul {arch} M={M} K={K} N={N}: not "
+                              "bit-identical")
+                        seen[(K, N)] = args[:4]
+                if M == CHAIN_K * SLOTS + SLOTS:
+                    continue
+                t = tp = b = 0.0
+                for K, N in calls:
+                    x, w, xs, ws = seen[(K, N)]
+                    # float32 out, as a W8A8 engine's activations
+                    t += timer.ms(partial(ops.quant_matmul, x, w, xs, ws,
+                                          out_dtype=torch.float32))
+                    tp += timer.ms(partial(ref.quant_matmul_ref, x, w, xs,
+                                           ws, out_dtype=torch.float32))
+                    b += bound_ms(M * K + K * N + 4 * (M + N) + 4 * M * N,
+                                  2 * M * K * N, "int8")[0]
+                tl = None
+                if M > 16:  # torch._int_mm takes M > 16 only
+                    tl = sum(timer.ms(partial(
+                        lambda x, w, xs, ws: (torch._int_mm(x, w).float()
+                                              * xs) * ws, *seen[kn]))
+                        for kn in calls)
+                r = {"model": arch, "shape": f"{what}, {len(calls)} calls "
+                     f"{sorted(set(calls))} at M={M}", "ms": t,
+                     "plain_ms": tp, "library_ms": tl, "bound_ms": b,
+                     "bound_by": "bytes"}
+                rows.append(r)
+                print(f"mp_matmul {arch} {what} ({len(calls)} calls) at "
+                      f"M={M}: bit-identical at M {SLOTS}, {CHUNK} and "
+                      f"{SLOTS * (CHAIN_K + 1)}, two calls equal; kernel "
+                      f"{t:.4f} ms, plain {tp:.4f} ms, library "
+                      f"{'n/a (M <= 16)' if tl is None else f'{tl:.4f}'} ms, "
+                      f"bound {b:.5f} ms")
+    return rows
+
+
+def family_serving_phase(dev, arch):
+    """Full-width W8A8 serving of a RoPE dense config: random weights from
+    a seeded generator, SmoothQuant calibrated on 2 x 128 seeded tokens,
+    the engine settings of phase 5, 8 requests of 64 new tokens on prompts
+    of 16-512 tokens that repeat short runs.  The runs of
+    ``FAMILY_RUNS[arch]`` (paged plain; paged chain speculation, n-gram,
+    k ``CHAIN_K``; stacked plain), each with its launch counts zeroed
+    before and read after and checked against its calls; every other
+    run's streams held to the paged plain run's under the near-tie rule,
+    the logits recomputed in the batch shapes of each run.  The model is
+    freed at the end.  Returns each run's launch counts."""
+    cfg = get_config(arch)
+    phase(f"serving (full-width {arch}, W8A8, "
+          f"{', '.join(FAMILY_RUNS[arch])})")
+    rng = np.random.default_rng(7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    stats = calibrate(params, cfg, [rng.integers(1, cfg.vocab_size,
+                                                 (2, 128))])
+    qparams = quantize_model_params(params, cfg, stats)
+    del params, stats
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    q_bytes = sum(t.numel() * t.element_size()
+                  for t in _tensors(qparams))
+    print(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
+          f"heads over {cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff} ({cfg.activation}), vocab {cfg.vocab_size}, "
+          f"{'tied' if cfg.tie_embeddings else 'untied'} head, rope theta "
+          f"{cfg.rope_theta:g}: random float32 weights calibrated and "
+          f"quantized in {time.perf_counter() - t0:.2f} s; W8A8 model "
+          f"{q_bytes / 2**30:.2f} GiB; peak memory {peak / 2**30:.2f} GiB")
+    prompts = repetitive_prompts(rng, SPEC_REQUESTS, cfg.vocab_size,
+                                 *SPEC_PROMPT_LENS)
+    L = cfg.n_layers
+    gated = cfg.activation in ("swiglu", "geglu")
+    mp_per_call = (6 + gated) * L + (not cfg.tie_embeddings)
+    streams, out = {}, {}
+    for run in FAMILY_RUNS[arch]:
+        layout, variant = run.split()
+        spec = SpecConfig(k=CHAIN_K) if variant == "chain" else None
+        eng = w8a8_engine(cfg, qparams, dev, kv_layout=layout, spec=spec)
+        got, s, n, _ = engine_run(f"{arch} {run}", eng, prompts, SPEC_NEW)
+        check(len(got) == len(prompts), f"{arch} {run}: a request was not "
+              "served")
+        check(all(0 <= t < cfg.vocab_size for o in got.values() for t in o),
+              f"{arch} {run}: a token outside the vocabulary")
+        verifies = s.get("spec_ticks", 0)
+        decodes = s["model_calls"] - s["prefill_calls"] - verifies
+        if spec is not None:
+            print(f"{arch} {run}: acceptance {s['acceptance_rate']:.3f} "
+                  f"({s['spec_accepted']}/{s['spec_proposed']}), "
+                  f"{verifies} verify calls")
+        print(f"{arch} {run} stats:", json.dumps(s, sort_keys=True))
+        if layout == "paged":
+            ok = (n["paged_verify"] == L * (s["prefill_calls"] + verifies)
+                  and n["paged_mha_decode"] == L * decodes > 0
+                  and n["mha_decode"] == n["paged_verify_tree"] == 0)
+        else:
+            ok = (n["mha_decode"] == L * decodes > 0
+                  and n["paged_mha_decode"] == n["paged_verify"]
+                  == n["paged_verify_tree"] == 0)
+        check(ok and n["mp_matmul"] == mp_per_call * s["model_calls"]
+              and (spec is None or verifies > 0),
+              f"{arch} {run}: launch counts {n} do not match the calls")
+        streams[run], out[f"{arch} {run}"] = got, n
+        del eng
+        torch.cuda.empty_cache()
+    shape = dict(max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK, rows=SLOTS)
+    fb = (lambda p, h: logits_after(qparams, cfg, p, h, dev, **shape))
+    for run in FAMILY_RUNS[arch][1:]:
+        layout, variant = run.split()
+        width = {"verify": CHAIN_K + 1} if variant == "chain" else {}
+        fa = (lambda p, h, w=width, lay=layout: logits_after(
+            qparams, cfg, p, h, dev, layout=lay, **w, **shape))
+        hold_streams(f"{arch} {run} vs paged plain on the card",
+                     (streams[run], streams["paged plain"]), prompts,
+                     (fa, fb), SPEC_NEW)
+    del qparams
+    torch.cuda.empty_cache()
+    print(f"{arch}: freed; memory allocated now "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return out
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
 def by_kernel_phase(dev, entries):
     """The device time of each CUDA function of the profiled calls (one
     layer's six ``mp_matmul`` calls at M 8 and 32, the timed decodes, the
@@ -989,7 +1340,8 @@ def by_kernel_phase(dev, entries):
     for label, name, field, fn, keys in PROFILED:
         split = timer.by_kernel(fn, keys)
         print(f"{label}: {split}")
-        entries[name][field] = split
+        # a kernel's entry by name, or a row of the wide-heads phase
+        (name if isinstance(name, dict) else entries[name])[field] = split
 
 
 def mdk_program_phase(dev, qparams, cfg):
@@ -1524,15 +1876,16 @@ def overcommit_phase(dev, qparams, cfg):
     return launches
 
 
-def agreement_phase(dev):
+def agreement_phase(dev, arch="gpt2-345m"):
     """Free-running greedy streams part for good at the first near-tie
     that the two devices' roundings break differently (the plain attention
     rounds probabilities to bf16, the kernels keep them in float32).  So
     the served streams must be equal up to where they part, and each
     parting must be such a near-tie.  Plain decode, chain speculation and
-    tree speculation with a draft model."""
-    phase("reduced-config agreement (card vs CPU, same W8A8 weights)")
-    cfg = get_config("gpt2-345m").reduced()
+    tree speculation with a draft model, on ``arch``'s reduced config."""
+    phase(f"reduced-config agreement ({arch}, card vs CPU, same W8A8 "
+          "weights)")
+    cfg = get_config(arch).reduced()
     rng = np.random.default_rng(2)
     params = lm.init(cfg, torch.Generator().manual_seed(0),
                      max_seq=AGREE_MAX_SEQ)
@@ -1569,12 +1922,12 @@ def agreement_phase(dev):
             outs.append({r.rid: r.out for r in eng.run()})
             if spec is not None:
                 s = eng.stats()
-                print(f"reduced {name} on {d.type}: acceptance "
+                print(f"reduced {arch} {name} on {d.type}: acceptance "
                       f"{s['acceptance_rate']:.3f} "
                       f"({s['spec_accepted']}/{s['spec_proposed']}), "
                       f"{s['spec_ticks']} verify calls")
-        agree[name] = hold_streams(f"reduced {name} card vs CPU", outs,
-                                   prompts, fns, 16)
+        agree[name] = hold_streams(f"reduced {arch} {name} card vs CPU",
+                                   outs, prompts, fns, 16)
     return agree
 
 
@@ -1588,6 +1941,9 @@ def main() -> int:
     build_phase()
     timer = Timer(dev)
     entries = kernel_phase(dev, timer)
+    for name, rows in wide_heads_phase(dev, timer).items():
+        entries[name]["wide_heads"] = rows
+    entries["mp_matmul"]["family_widths"] = family_mp_phase(dev, timer)
     del timer
     launches, qparams, cfg = serving_phase(dev)
     ln_launches = mdk_program_phase(dev, qparams, cfg)
@@ -1596,12 +1952,17 @@ def main() -> int:
     oc_launches = overcommit_phase(dev, qparams, cfg)
     del qparams
     agreement_phase(dev)
+    family_launches = {}
+    for arch in FAMILY_RUNS:
+        family_launches.update(family_serving_phase(dev, arch))
+    for arch in FAMILY_RUNS:
+        agreement_phase(dev, arch)
     by_kernel_phase(dev, entries)
     phase("kernels")
     by_run = {"plain": launches,
               **{f"{run} spec": n for run, n in spec_launches.items()},
               **stacked_launches, "over-commit": oc_launches,
-              "MDK program": {"ln_res": ln_launches}}
+              "MDK program": {"ln_res": ln_launches}, **family_launches}
     # each kernel's count from the run of its own path: plain paged
     # serving for the first slice's three, the tree run for the tree
     # verify, the stacked target's decode for mha_decode, the MDK program

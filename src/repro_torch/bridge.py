@@ -3,13 +3,14 @@ package's dicts, as numpy arrays (this module imports no JAX).
 
 The JAX ``lm.init`` pytree stacks layers per pattern period:
 ``{"embed", "periods": (period dicts with a leading n_per axis...),
-"rest": [layer dicts...], "final_ln", "pos_embed"[, "lm_head"]}``.  This
+"rest": [layer dicts...], "final_ln"[, "pos_embed"][, "lm_head"]}`` (a
+position table for learned positions only, a head only when untied).  This
 package keeps one dict per layer (``{"layers": [...]}``), so layer
 ``pi * period + i`` is slice ``pi`` of ``periods[i]`` and the ``rest``
 layers follow.  The same holds for the cache pytrees of both layouts,
 whose leaves are page pools ``(P, Hkv, ps, D)`` (paged) or per-slot
-caches ``(B, Hkv, S, D)`` (stacked), with a leading ``n_per`` axis under
-``periods``.  Leaves may be fp (``w``/``b``) or quantized
+caches ``(B, Hkv, S, D)`` (stacked; Hkv < H under GQA), with a leading
+``n_per`` axis under ``periods``.  Leaves may be fp (``w``/``b``) or quantized
 (``w_q``/``w_scale``/``smooth``/``bias``) alike.
 
 A caller turns a JAX pytree into numpy first (``jax.device_get``).  bf16

@@ -5,7 +5,7 @@ tiny same-family config used by the CPU tests.
 The fields and ``reduced()`` mirror the JAX package's
 ``repro/configs/base.py`` exactly, so a test can hold one config against
 the other field by field.  Only the configurations this package can
-serve are registered (see ``configs/__init__.py``).
+serve are registered (:func:`get_config` imports each module).
 """
 from __future__ import annotations
 
@@ -106,9 +106,19 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-def get_config(name: str) -> ModelConfig:
-    from repro_torch.configs import gpt2_345m  # noqa: F401  (registers)
+def _ensure_loaded() -> None:
+    from repro_torch.configs import (  # noqa: F401  (each registers)
+        gemma_7b, gpt2_345m, llama3_8b, minitron_4b, tinyllama_1_1b)
 
+
+def get_config(name: str) -> ModelConfig:
+    _ensure_loaded()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_archs() -> Tuple[str, ...]:
+    """The ``--arch`` names this package serves."""
+    _ensure_loaded()
+    return tuple(sorted(_REGISTRY))

@@ -1,0 +1,21 @@
+"""gemma-7b — GeGLU, head_dim=256, 16 KV heads (MHA) [arXiv:2403.08295; hf]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(
+    ModelConfig(
+        name="gemma-7b",
+        family="dense",
+        n_layers=28,
+        d_model=3072,
+        n_heads=16,
+        n_kv_heads=16,
+        head_dim=256,
+        d_ff=24576,
+        vocab_size=256000,
+        activation="geglu",
+        norm="rmsnorm",
+        pos="rope",
+        tie_embeddings=True,
+        source="arXiv:2403.08295",
+    )
+)

@@ -38,7 +38,10 @@
 //   * Each of the 4 warps walks its own 16-key tiles of the block's run (tile
 //     i goes to warp i % 4) through a ring of STAGES buffers filled with
 //     16-byte cp.async copies of K and V rows: no block barrier inside the
-//     walk.  Inside a warp, D / 8 lanes share a key, each holding 8 of its
+//     walk.  Where four warps' rings would not fit a block's shared memory
+//     (a float32 cache at D 256: 393,216 of 232,448 bytes) the block runs
+//     2 warps, tile i going to warp i % 2; the split geometry is the same.
+//     Inside a warp, D / 8 lanes share a key, each holding 8 of its
 //     dimensions: one 16-byte chunk of a bf16 row, two of a float32 row (a
 //     lane's c-th chunk sits c * D / 2 elements into the row, so the 8
 //     lanes of each quarter-warp read 128 consecutive bytes of shared
@@ -61,19 +64,28 @@
 
 namespace decode {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
+constexpr int WARPS = 4;  // warps per block, where the rings fit
 constexpr int TILE = 16;   // keys per warp step
 constexpr int STAGES = 3;  // K/V tiles in each warp's ring
 constexpr int MAX_HG = 8;  // query heads per block
 constexpr int EPL = 8;     // dimensions of a key per lane
 constexpr float M_INIT = -1e30f;  // finite: exp2(M_INIT - M_INIT) is 1
+constexpr size_t SMEM_LIMIT = 232448;  // shared memory a block may use
+
+// Warps per block for `elem`-byte cache elements at head dim D: WARPS, or
+// half as many where WARPS rings would not fit.
+constexpr int warps(int D, int elem) {
+  return (size_t)WARPS * STAGES * 2 * TILE * D * elem <= SMEM_LIMIT
+             ? WARPS
+             : WARPS / 2;
+}
 
 // Shared memory of the split kernel, in bytes: the warps' K/V rings of
 // `elem`-byte elements, reused for the warps' partials.
 inline size_t smem_bytes(int D, int HG, int elem) {
-  const size_t ring = (size_t)WARPS * STAGES * 2 * TILE * D * elem;
-  const size_t merge = (size_t)WARPS * HG * (D + 2) * 4;
+  const int w = warps(D, elem);
+  const size_t ring = (size_t)w * STAGES * 2 * TILE * D * elem;
+  const size_t merge = (size_t)w * HG * (D + 2) * 4;
   return ring > merge ? ring : merge;
 }
 
@@ -121,8 +133,8 @@ __device__ __forceinline__ void load16(const float* p, float* f) {
 // ((b * Hkv + hk) * h_chunks + hc) * splits + s.  Scratch: part_o (splits,
 // B, H, D) and part_ml (splits, B, H, 2) float32, the layout of
 // verify::combine_kernel with C = 1.
-template <typename T, typename Addr, int D, int HG>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, typename Addr, int D, int HG, int W>
+__global__ void __launch_bounds__(32 * W)
 split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
              const T* __restrict__ kc, const T* __restrict__ vc,
              const int* __restrict__ lengths,  // (B,)
@@ -136,6 +148,7 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
   constexpr int ITERS = TILE / KPI;         // key steps per tile
   constexpr int CH = D / VEC;               // 16-byte chunks per key row
   constexpr int STAGE = 2 * TILE * D;       // elements per ring slot
+  constexpr int NTH = 32 * W;               // threads
   static_assert(EPL % VEC == 0 && D % EPL == 0 && 32 % LPK == 0 &&
                     TILE % KPI == 0 && (TILE * CH) % 32 == 0,
                 "unsupported head dim / lane split");
@@ -160,7 +173,7 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   if (lo >= hi) {  // nothing of this split is visible to the row
-    for (int r = tid; r < nh; r += THREADS) {
+    for (int r = tid; r < nh; r += NTH) {
       float* ml = part_ml + 2 * ((size_t)s * BH + (size_t)b * H + h0 + r);
       ml[0] = -INFINITY;
       ml[1] = 0.0f;
@@ -185,10 +198,10 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
     }
   };
   const int span = (hi - lo + TILE - 1) / TILE;
-  const int mine = span > warp ? (span - warp + WARPS - 1) / WARPS : 0;
+  const int mine = span > warp ? (span - warp + W - 1) / W : 0;
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < mine) issue(warp + WARPS * st, st);
+    if (st < mine) issue(warp + W * st, st);
     verify::cp_async_commit();
   }
 
@@ -223,12 +236,12 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
   }
   for (int i = 0; i < mine; ++i) {
     const int in = i + STAGES - 1;
-    if (in < mine) issue(warp + WARPS * in, in % STAGES);
+    if (in < mine) issue(warp + W * in, in % STAGES);
     verify::cp_async_commit();
     verify::cp_async_wait<STAGES - 1>();
     __syncwarp();
 
-    const int t = warp + WARPS * i;
+    const int t = warp + W * i;
     const T* sk = ring + (i % STAGES) * STAGE;
     const T* sv = sk + TILE * D;
 #pragma unroll
@@ -285,9 +298,9 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
 
   // merge the warps, in warp order, into the split's partial
   __syncthreads();  // every ring is spent: reuse it
-  float* ow = reinterpret_cast<float*>(smem);  // [WARPS][HG][D]
-  float* mw = ow + WARPS * HG * D;             // [WARPS][HG]
-  float* lw = mw + WARPS * HG;                 // [WARPS][HG]
+  float* ow = reinterpret_cast<float*>(smem);  // [W][HG][D]
+  float* mw = ow + W * HG * D;             // [W][HG]
+  float* lw = mw + W * HG;                 // [W][HG]
   if (ks == 0) {
 #pragma unroll
     for (int h = 0; h < HG; ++h) {
@@ -300,14 +313,14 @@ split_kernel(const void* __restrict__ q_,  // (B, H, D) float32 or bf16
     }
   }
   __syncthreads();
-  for (int i = tid; i < nh * D; i += THREADS) {
+  for (int i = tid; i < nh * D; i += NTH) {
     const int h = i / D, d = i % D;
     float M = M_INIT;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, mw[w * HG + h]);
+    for (int w = 0; w < W; ++w) M = fmaxf(M, mw[w * HG + h]);
     float L = 0.0f, O = 0.0f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
+    for (int w = 0; w < W; ++w) {
       const float f = exp2f(mw[w * HG + h] - M);
       L += lw[w * HG + h] * f;
       O += ow[(w * HG + h) * D + d] * f;
@@ -335,8 +348,9 @@ struct Call {
 
 template <typename T, typename Addr, int D, int HG>
 int launch_hg(const Call& c, Addr addr) {
+  constexpr int W = warps(D, (int)sizeof(T));
   const size_t smem = smem_bytes(D, HG, (int)sizeof(T));
-  auto kernel = split_kernel<T, Addr, D, HG>;
+  auto kernel = split_kernel<T, Addr, D, HG, W>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -344,7 +358,7 @@ int launch_hg(const Call& c, Addr addr) {
   const int h_chunks = (c.H / c.Hkv + HG - 1) / HG;
   float* part_o = c.scratch;
   float* part_ml = c.scratch + (size_t)c.splits * BH * D;
-  kernel<<<c.B * c.Hkv * h_chunks * c.splits, THREADS, smem, c.stream>>>(
+  kernel<<<c.B * c.Hkv * h_chunks * c.splits, 32 * W, smem, c.stream>>>(
       c.q, static_cast<const T*>(c.k), static_cast<const T*>(c.v),
       c.lengths, addr, part_o, part_ml, c.q_bf16, c.B, c.H, c.Hkv, c.window,
       c.kps, c.splits, 1.4426950408889634f / sqrtf((float)D));
@@ -379,7 +393,7 @@ int launch_d(const Call& c, Addr addr) {
 }
 
 // Launch the split kernel and the combine on c.stream; returns
-// cudaGetLastError().  D is 16, 64 or 128; hg (query heads per block) 1,
+// cudaGetLastError().  D is 16, 64, 128 or 256; hg (query heads per block) 1,
 // 2, 4 or 8; kps keys per split, splits * kps covering addr.cap().
 template <typename T, typename Addr>
 int launch(const Call& c, int D, Addr addr, long long cap) {
@@ -393,6 +407,8 @@ int launch(const Call& c, int D, Addr addr, long long cap) {
       return launch_d<T, Addr, 64>(c, addr);
     case 128:
       return launch_d<T, Addr, 128>(c, addr);
+    case 256:
+      return launch_d<T, Addr, 256>(c, addr);
     default:
       return (int)cudaErrorInvalidValue;
   }

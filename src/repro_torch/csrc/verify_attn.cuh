@@ -49,6 +49,17 @@
 //     probabilities (p_hi + p_lo): about 16 significant bits each, where a
 //     single bf16 operand would keep 8.  The score fragment becomes the
 //     P V operand in registers.
+//   * Registers: a lane holds its rows' Q fragments (hi and lo: D / 2
+//     registers) and its share of the 16 x D float32 accumulator (D / 2).
+//     Up to D 128 both stay in registers.  At D 256 that would be 256
+//     registers before the scores, so there the block stages Q hi and lo
+//     once in shared memory (a padded row stride, conflict-free 4-byte
+//     reads), each warp reading the fragments of one k16 step at a time,
+//     and the P V product is split over D: two blocks (the grid's fastest
+//     index) each compute the same scores over all 256 dimensions of K
+//     and accumulate half of the value dimensions, DV = 128 (64
+//     accumulator registers).  They see the same keys in the same order,
+//     so their maxima and sums are equal, and the first writes them.
 //   * The tree mask: the block's rows of `anc` are packed once into bit
 //     words in shared memory (one ballot per 32 keys); each score tests
 //     its bit there.
@@ -79,13 +90,26 @@ constexpr int ROWS = 16;   // query rows per block: one m16 MMA tile
 constexpr int TILE = 16;   // keys per warp step: one k16 step of P V
 constexpr int STAGES = 2;  // K/V tiles in each warp's ring
 constexpr float M_INIT = -1e30f;  // finite: exp2(M_INIT - M_INIT) is 1
+// The widest head whose Q fragments and accumulator stay in registers;
+// past it Q is staged in shared memory and P V split over two blocks.
+constexpr int REG_MAX_D = 128;
+
+// Value dimensions one block accumulates: all of them up to REG_MAX_D,
+// half of them past it.
+__host__ __device__ constexpr int value_dims(int D) {
+  return D > REG_MAX_D ? D / 2 : D;
+}
 
 // Shared memory of the split kernel, in bytes: the warps' K/V rings (reused
-// by the warp merge), the merge's maxima and sums, the anc bit words.
+// by the warp merge), Q hi and lo (past REG_MAX_D), the merge's maxima and
+// sums, the anc bit words.
 inline size_t smem_bytes(int D, int C, int nq) {
-  const size_t ring = (size_t)WARPS * STAGES * 2 * TILE * (D + 8) * 2;
-  const size_t merge = (size_t)WARPS * ROWS * D * 4;
-  return (ring > merge ? ring : merge) + 2 * WARPS * ROWS * 4 +
+  const int DV = value_dims(D);
+  const size_t ring =
+      (size_t)WARPS * STAGES * TILE * ((D + 8) + (DV + 8)) * 2;
+  const size_t merge = (size_t)WARPS * ROWS * DV * 4;
+  const size_t qs = D > REG_MAX_D ? (size_t)2 * ROWS * (D + 8) * 2 : 0;
+  return (ring > merge ? ring : merge) + qs + 2 * WARPS * ROWS * 4 +
          (size_t)nq * ((C + 31) / 32) * 4;
 }
 
@@ -151,8 +175,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// One block per (row b, KV head hk, split s, query tile qt), blockIdx.x =
-// ((b * Hkv + hk) * splits + s) * q_tiles + qt.  Scratch: part_o
+// One block per (row b, KV head hk, split s, query tile qt, value half dh),
+// blockIdx.x = (((b * Hkv + hk) * splits + s) * q_tiles + qt) * (D / DV) +
+// dh.  Scratch: part_o
 // (splits, B, C, H, D) and part_ml (splits, B, C, H, 2) float32.
 template <typename QT, int D>
 __global__ void __launch_bounds__(THREADS)
@@ -166,13 +191,19 @@ split_kernel(const QT* __restrict__ q,                // (B, C, H, D)
              int C, int H, int Hkv, int ps, int n_pg, int window, int nq,
              int pps, int splits, float scale_log2) {
   constexpr int KS = D / 16;  // k16 steps of Q K^T
-  constexpr int NT = D / 8;   // n8 tiles of P V
-  constexpr int DP = D + 8;   // staged row stride (bf16)
+  constexpr bool WIDE = D > REG_MAX_D;  // Q staged, P V split over D
+  constexpr int DV = value_dims(D);     // value dimensions of this block
+  constexpr int NT = DV / 8;   // n8 tiles of P V
+  constexpr int DP = D + 8;    // staged K and Q row stride (bf16)
+  constexpr int DVP = DV + 8;  // staged V row stride (bf16)
+  constexpr int SLOT = TILE * (DP + DVP);  // ring slot: K then V
   constexpr bool SPLIT_Q = std::is_same<QT, float>::value;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int q_tiles = (C + nq - 1) / nq;
   int idx = blockIdx.x;
+  const int dh = idx % (D / DV);
+  idx /= D / DV;
   const int qt = idx % q_tiles;
   idx /= q_tiles;
   const int s = idx % splits;
@@ -199,7 +230,7 @@ split_kernel(const QT* __restrict__ q,                // (B, C, H, D)
   };
 
   if (t_lo >= t_hi) {  // nothing of this split is visible to the block
-    for (int r = tid; r < R; r += THREADS) {
+    for (int r = tid; r < R && dh == 0; r += THREADS) {
       float* ml = part_ml + 2 * ((size_t)s * BCH + vec(r));
       ml[0] = -INFINITY;
       ml[1] = 0.0f;
@@ -208,24 +239,36 @@ split_kernel(const QT* __restrict__ q,                // (B, C, H, D)
   }
 
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem) +
-                        (size_t)warp * STAGES * 2 * TILE * DP;
+                        (size_t)warp * STAGES * SLOT;
   const int* row_bt = bt + (size_t)b * n_pg;
-  // stage tile t (positions 16 t .. 16 t + 15) of K and V into slot st
+  // stage tile t (positions 16 t .. 16 t + 15) of K and of this block's
+  // value dimensions of V into slot st
   auto issue = [&](int t, int st) {
-    constexpr int CH = D / 8;  // 16-byte chunks per key row
-    __nv_bfloat16* sk = ring + st * 2 * TILE * DP;
+    __nv_bfloat16* sk = ring + st * SLOT;
     __nv_bfloat16* sv = sk + TILE * DP;
+    auto row = [&](int pos) {  // element offset of key pos's row
+      return (((size_t)row_bt[pos / ps] * Hkv + hk) * ps + pos % ps) * D;
+    };
+    constexpr int CH = D / 8, CHV = DV / 8;  // 16-byte chunks per row
 #pragma unroll
     for (int k = 0; k < TILE * CH / 32; ++k) {
       const int j = (lane + 32 * k) / CH, part = (lane + 32 * k) % CH;
       const int pos = t * TILE + j;
       const bool in = pos < key_end;
-      size_t src = 0;
-      if (in)
-        src = (((size_t)row_bt[pos / ps] * Hkv + hk) * ps + pos % ps) * D +
-              8 * part;
+      const size_t src = (in ? row(pos) : 0) + 8 * part;
       cp_async16(sk + j * DP + 8 * part, kpool + src, in);
-      cp_async16(sv + j * DP + 8 * part, vpool + src, in);
+      if constexpr (!WIDE)
+        cp_async16(sv + j * DP + 8 * part, vpool + src, in);
+    }
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int k = 0; k < TILE * CHV / 32; ++k) {
+        const int j = (lane + 32 * k) / CHV, part = (lane + 32 * k) % CHV;
+        const int pos = t * TILE + j;
+        const bool in = pos < key_end;
+        cp_async16(sv + j * DVP + 8 * part,
+                   vpool + (in ? row(pos) + dh * DV : 0) + 8 * part, in);
+      }
     }
   };
   // this warp's tiles: t_lo + warp, t_lo + warp + WARPS, ...; the first
@@ -238,10 +281,13 @@ split_kernel(const QT* __restrict__ q,                // (B, C, H, D)
     cp_async_commit();
   }
 
-  const size_t ring_bytes = (size_t)WARPS * STAGES * 2 * TILE * DP * 2;
-  const size_t merge_bytes = (size_t)WARPS * ROWS * D * 4;
-  float* mw = reinterpret_cast<float*>(
+  const size_t ring_bytes = (size_t)WARPS * STAGES * SLOT * 2;
+  const size_t merge_bytes = (size_t)WARPS * ROWS * DV * 4;
+  // Q hi then Q lo, [ROWS][DP] bf16 each, when staged
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(
       smem + (ring_bytes > merge_bytes ? ring_bytes : merge_bytes));
+  constexpr int Q_ELEMS = WIDE ? 2 * ROWS * DP : 0;
+  float* mw = reinterpret_cast<float*>(qs + Q_ELEMS);
   float* lw = mw + WARPS * ROWS;
   uint32_t* words = reinterpret_cast<uint32_t*>(lw + WARPS * ROWS);
   const int W = (C + 31) / 32;  // bit words per query's anc row
@@ -252,6 +298,21 @@ split_kernel(const QT* __restrict__ q,                // (B, C, H, D)
           j < C && anc[((size_t)b * C + c0 + i / W) * C + j] != 0;
       const uint32_t word = __ballot_sync(0xffffffffu, bit);
       if (lane == 0) words[i] = word;
+    }
+  }
+  if constexpr (WIDE) {  // the block's Q rows, split hi + lo; dead rows 0
+    for (int i = tid; i < ROWS * D / 2; i += THREADS) {
+      const int r = i / (D / 2), d = 2 * (i % (D / 2));
+      float x0 = 0.0f, x1 = 0.0f;
+      if (r < R) {
+        const QT* qr = q + vec(r) * D;
+        x0 = to_f(qr[d]);
+        x1 = to_f(qr[d + 1]);
+      }
+      uint32_t hi, lo;
+      split2(x0, x1, hi, lo);
+      *reinterpret_cast<uint32_t*>(qs + r * DP + d) = hi;
+      *reinterpret_cast<uint32_t*>(qs + (ROWS + r) * DP + d) = lo;
     }
   }
   __syncthreads();
@@ -270,9 +331,23 @@ split_kernel(const QT* __restrict__ q,                // (B, C, H, D)
   }
 
   // Q as MMA A fragments, hi and lo: register 2 * half + i holds row
-  // gid + 8 i, dims 16 kk + 8 half + 2 tig and + 1
-  uint32_t qh[KS][4], ql[KS][4];
-  {
+  // gid + 8 i, dims 16 kk + 8 half + 2 tig and + 1 (in registers up to
+  // D 128; from shared memory, one k16 step at a time, past it)
+  constexpr int KR = WIDE ? 1 : KS;
+  uint32_t qh[KR][4], ql[KR][4];
+  auto q_frag = [&](int kk, uint32_t (&h)[4], uint32_t (&l)[4]) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int at = (gid + 8 * i) * DP + 16 * kk + 8 * half + 2 * tig;
+        h[2 * half + i] = *reinterpret_cast<const uint32_t*>(qs + at);
+        if (SPLIT_Q)
+          l[2 * half + i] =
+              *reinterpret_cast<const uint32_t*>(qs + ROWS * DP + at);
+      }
+  };
+  if constexpr (!WIDE) {
     const QT* qr[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -323,18 +398,20 @@ split_kernel(const QT* __restrict__ q,                // (B, C, H, D)
         any |= ok[nt][e];
       }
     if (__any_sync(0xffffffffu, any)) {
-      const __nv_bfloat16* sk = ring + (j % STAGES) * 2 * TILE * DP;
+      const __nv_bfloat16* sk = ring + (j % STAGES) * SLOT;
       const __nv_bfloat16* sv = sk + TILE * DP;
       float sc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
+        const int kq = WIDE ? 0 : kk;
+        if constexpr (WIDE) q_frag(kk, qh[0], ql[0]);
         uint32_t kb[4];  // keys 0-7 / 8-15 x dims 16 kk + 0-7 / 8-15
         ldsm_x4(kb, sk + ((mi >> 1) * 8 + rr) * DP + 16 * kk + (mi & 1) * 8);
-        mma(sc[0], qh[kk], kb[0], kb[1]);
-        mma(sc[1], qh[kk], kb[2], kb[3]);
+        mma(sc[0], qh[kq], kb[0], kb[1]);
+        mma(sc[1], qh[kq], kb[2], kb[3]);
         if (SPLIT_Q) {
-          mma(sc[0], ql[kk], kb[0], kb[1]);
-          mma(sc[1], ql[kk], kb[2], kb[3]);
+          mma(sc[0], ql[kq], kb[0], kb[1]);
+          mma(sc[1], ql[kq], kb[2], kb[3]);
         }
       }
       // online softmax in base 2; masked scores are -inf, so exactly 0
@@ -379,10 +456,11 @@ split_kernel(const QT* __restrict__ q,                // (B, C, H, D)
       split2(sc[1][0], sc[1][1], ph[2], pl[2]);
       split2(sc[1][2], sc[1][3], ph[3], pl[3]);
 #pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
+      for (int n2 = 0; n2 < DV / 16; ++n2) {
         uint32_t vb[4];  // keys 0-7 / 8-15 x dims 16 n2 + 0-7 / 8-15
         ldsm_x4_trans(vb,
-                      sv + ((mi & 1) * 8 + rr) * DP + 16 * n2 + (mi >> 1) * 8);
+                      sv + ((mi & 1) * 8 + rr) * DVP + 16 * n2 +
+                          (mi >> 1) * 8);
         mma(o[2 * n2], ph, vb[0], vb[1]);
         mma(o[2 * n2], pl, vb[0], vb[1]);
         mma(o[2 * n2 + 1], ph, vb[2], vb[3]);
@@ -400,7 +478,7 @@ split_kernel(const QT* __restrict__ q,                // (B, C, H, D)
 
   // merge the warps, in warp order, into the split's partial
   __syncthreads();  // every ring is spent: reuse it for the accumulators
-  float* ow = reinterpret_cast<float*>(smem);  // [WARPS][ROWS][D]
+  float* ow = reinterpret_cast<float*>(smem);  // [WARPS][ROWS][DV]
   if (tig == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -412,11 +490,11 @@ split_kernel(const QT* __restrict__ q,                // (B, C, H, D)
   for (int n = 0; n < NT; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      ow[(warp * ROWS + gid + 8 * (e >> 1)) * D + 8 * n + 2 * tig + (e & 1)] =
-          o[n][e];
+      ow[(warp * ROWS + gid + 8 * (e >> 1)) * DV + 8 * n + 2 * tig +
+         (e & 1)] = o[n][e];
   __syncthreads();
-  for (int i = tid; i < R * D; i += THREADS) {
-    const int r = i / D, d = i % D;
+  for (int i = tid; i < R * DV; i += THREADS) {
+    const int r = i / DV, d = i % DV;
     float M = M_INIT;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) M = fmaxf(M, mw[w * ROWS + r]);
@@ -425,11 +503,11 @@ split_kernel(const QT* __restrict__ q,                // (B, C, H, D)
     for (int w = 0; w < WARPS; ++w) {
       const float f = exp2f(mw[w * ROWS + r] - M);
       L += lw[w * ROWS + r] * f;
-      O += ow[(w * ROWS + r) * D + d] * f;
+      O += ow[(w * ROWS + r) * DV + d] * f;
     }
     const size_t v = (size_t)s * BCH + vec(r);
-    if (L > 0.0f) part_o[v * D + d] = O;
-    if (d == 0) {
+    if (L > 0.0f) part_o[v * D + dh * DV + d] = O;
+    if (d == 0 && dh == 0) {
       part_ml[2 * v] = L > 0.0f ? M : -INFINITY;
       part_ml[2 * v + 1] = L;
     }
@@ -486,7 +564,9 @@ int launch_d(const void* q, const void* kpool, const void* vpool,
   const int q_tiles = (C + nq - 1) / nq;
   float* part_o = scratch;
   float* part_ml = scratch + (size_t)splits * BCH * D;
-  split_kernel<QT, D><<<B * Hkv * splits * q_tiles, THREADS, smem, stream>>>(
+  constexpr int parts = D / value_dims(D);
+  split_kernel<QT, D>
+      <<<B * Hkv * splits * q_tiles * parts, THREADS, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const __nv_bfloat16*>(kpool),
       static_cast<const __nv_bfloat16*>(vpool), static_cast<const int*>(base),
       static_cast<const int*>(bt), static_cast<const int*>(anc), part_o,
@@ -500,7 +580,7 @@ int launch_d(const void* q, const void* kpool, const void* vpool,
 }
 
 // Launch both kernels on `stream`; returns cudaGetLastError().  D is 16
-// (the reduced configs), 64 or 128; H / Hkv <= ROWS; pps * ps a multiple
+// (the reduced configs), 64, 128 or 256; H / Hkv <= ROWS; pps * ps a multiple
 // of TILE; scratch holds splits * B * C * H * (D + 2) floats.  anc =
 // nullptr is the causal/window mask.
 template <typename QT>
@@ -522,6 +602,9 @@ int launch(const void* q, const void* kpool, const void* vpool,
                               H, Hkv, ps, n_pg, window, nq, pps, splits, st);
     case 128:
       return launch_d<QT, 128>(q, kpool, vpool, base, bt, anc, out, sc, B, C,
+                               H, Hkv, ps, n_pg, window, nq, pps, splits, st);
+    case 256:
+      return launch_d<QT, 256>(q, kpool, vpool, base, bt, anc, out, sc, B, C,
                                H, Hkv, ps, n_pg, window, nq, pps, splits, st);
     default:
       return (int)cudaErrorInvalidValue;

@@ -39,16 +39,19 @@ _MP_W_STRIDE, _MP_X_STRIDE = 80, 48
 #: blocks the mp_matmul geometry aims at: two per SM
 _MP_BLOCKS = 2 * _N_SMS
 #: verify_attn.cuh: warps per block, query rows per block (one m16 MMA
-#: tile), keys per warp step, K/V tiles in each warp's ring, head dims built
+#: tile), keys per warp step, K/V tiles in each warp's ring, head dims built,
+#: the widest head whose Q fragments and accumulators stay in registers
+#: (wider heads stage Q in shared memory and split P V over two blocks)
 _VERIFY_WARPS, _VERIFY_ROWS, _VERIFY_TILE, _VERIFY_STAGES = 4, 16, 16, 2
-_VERIFY_HEAD_DIMS = (16, 64, 128)
+_VERIFY_HEAD_DIMS = (16, 64, 128, 256)
+_VERIFY_REG_MAX_D = 128
 #: blocks the verify geometry aims at: a few per SM
 _VERIFY_BLOCKS = 4 * _N_SMS
-#: decode_attn.cuh: warps per block, keys per warp step, K/V tiles in each
-#: warp's ring, query heads per block at most, head dims built; blocks the
-#: decode geometry aims at
+#: decode_attn.cuh: warps per block (where their rings fit), keys per warp
+#: step, K/V tiles in each warp's ring, query heads per block at most, head
+#: dims built; blocks the decode geometry aims at
 _DECODE_WARPS, _DECODE_TILE, _DECODE_STAGES, _DECODE_MAX_HG = 4, 16, 3, 8
-_DECODE_HEAD_DIMS = (16, 64, 128)
+_DECODE_HEAD_DIMS = (16, 64, 128, 256)
 _DECODE_BLOCKS = 4 * _N_SMS
 #: ln_res.cu: threads per row (one block), 8-column chunks a thread may
 #: hold
@@ -237,12 +240,21 @@ def _head_chunks(group: int):
     return hg, -(-group // hg)
 
 
+def _decode_warps(D: int, elem: int) -> int:
+    """Warps of a decode block (``decode::warps``): 4, or 2 where four
+    warps' rings of ``elem``-byte elements would not fit (float32 at D
+    256)."""
+    ring = _DECODE_WARPS * _DECODE_STAGES * 2 * _DECODE_TILE * D * elem
+    return _DECODE_WARPS if ring <= _SMEM_LIMIT else _DECODE_WARPS // 2
+
+
 def _decode_smem(D: int, hg: int, elem: int) -> int:
     """Shared memory of the decode body's block: the warps' K/V rings of
     ``elem``-byte elements, reused for the warps' partials of ``hg``
     heads (``decode::smem_bytes``)."""
-    ring = _DECODE_WARPS * _DECODE_STAGES * 2 * _DECODE_TILE * D * elem
-    return max(ring, _DECODE_WARPS * hg * (D + 2) * 4)
+    w = _decode_warps(D, elem)
+    ring = w * _DECODE_STAGES * 2 * _DECODE_TILE * D * elem
+    return max(ring, w * hg * (D + 2) * 4)
 
 
 def _decode_geometry(B: int, H: int, Hkv: int, ps: int, D: int,
@@ -294,6 +306,7 @@ class VerifyGeometry(NamedTuple):
     """Launch geometry of the split-KV verify kernel (``verify_attn.cuh``)."""
     nq: int         # queries per block (16 // group query rows)
     q_tiles: int    # blocks along the chunk
+    parts: int      # blocks along the value dimensions (2 past D 128)
     pps: int        # pages per key split
     splits: int     # key splits per (row, KV head, query tile)
     smem: int       # dynamic shared memory per block, bytes
@@ -319,11 +332,16 @@ def _verify_geometry(B: int, C: int, H: int, Hkv: int, ps: int, D: int,
     wanted = -(-_VERIFY_BLOCKS // (B * Hkv * q_tiles))
     pps = max(least, whole(-(-n_pg // wanted)))
     splits = -(-n_pg // pps)
-    ring = _VERIFY_WARPS * _VERIFY_STAGES * 2 * _VERIFY_TILE * (D + 8) * 2
-    merge = _VERIFY_WARPS * _VERIFY_ROWS * D * 4
-    smem = (max(ring, merge) + 2 * _VERIFY_WARPS * _VERIFY_ROWS * 4
+    # past D 128: Q hi and lo staged, each block half the value dims
+    wide = D > _VERIFY_REG_MAX_D
+    dv = D // 2 if wide else D
+    ring = (_VERIFY_WARPS * _VERIFY_STAGES * _VERIFY_TILE
+            * ((D + 8) + (dv + 8)) * 2)
+    merge = _VERIFY_WARPS * _VERIFY_ROWS * dv * 4
+    qs = 2 * _VERIFY_ROWS * (D + 8) * 2 if wide else 0
+    smem = (max(ring, merge) + qs + 2 * _VERIFY_WARPS * _VERIFY_ROWS * 4
             + nq * -(-C // 32) * 4)
-    return VerifyGeometry(nq, q_tiles, pps, splits, smem,
+    return VerifyGeometry(nq, q_tiles, D // dv, pps, splits, smem,
                           splits * B * C * H * (D + 2))
 
 

@@ -1,9 +1,12 @@
-"""Serving launcher: GPT-2 345M, W8A8 SmoothQuant, paged KV cache, chunked
-prefill and batched continuous decode on one NVIDIA H100.
+"""Serving launcher: a dense decoder (``--arch``, GPT-2 345M by default),
+W8A8 SmoothQuant, paged KV cache, chunked prefill and batched continuous
+decode on one NVIDIA H100.
 
     PYTHONPATH=src python -m repro_torch.launch.serve                # card
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced \\
         --device cpu --requests 4 --max-new 6                         # CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+        --reduced --device cpu                                        # RoPE
     PYTHONPATH=src python -m repro_torch.launch.serve --profile out/  # trace
     PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram    # spec
     PYTHONPATH=src python -m repro_torch.launch.serve --spec model \
@@ -39,7 +42,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.serving.engine import ServeEngine, resolve_device
@@ -55,6 +58,7 @@ def synthetic_prompts(rng: np.random.Generator, n: int, vocab: int,
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="gpt2-345m", choices=list_archs())
     ap.add_argument("--reduced", action="store_true",
                     help="the tiny same-family config of the CPU tests")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
@@ -75,7 +79,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = get_config("gpt2-345m")
+    cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     gen = torch.Generator(device=dev).manual_seed(args.seed)

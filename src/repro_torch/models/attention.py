@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import linear, linear_init
+from repro_torch.models.layers import linear, linear_init, rope
 
 _NEG_INF = -1e30
 
@@ -43,7 +43,10 @@ def attn_init(gen, cfg: ModelConfig, *, dtype=torch.float32, device=None):
     }
 
 
-def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, name: str):
+def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, name: str,
+                 positions: torch.Tensor):
+    """q (B, S, H, hd), k and v (B, S, Hkv, hd); on a rotary stack q and k
+    turned to ``positions`` (B, S), as the reference turns them."""
     B, S = x.shape[:2]
     q = linear(p["q"], x, name + ".q").reshape(
         B, S, cfg.n_heads, cfg.head_dim)
@@ -51,15 +54,19 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, name: str):
         B, S, cfg.n_kv_heads, cfg.head_dim)
     v = linear(p["v"], x, name + ".v").reshape(
         B, S, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.pos == "rope":
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def full_attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                    name: str = "") -> torch.Tensor:
     """Causal self-attention over a whole sequence (B, S, D) -> (B, S, D)."""
-    q, k, v = _project_qkv(p, cfg, x, name)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    q, k, v = _project_qkv(p, cfg, x, name, positions)
     group = cfg.n_heads // cfg.n_kv_heads
-    B, S = q.shape[:2]
     qg = q.reshape(B, S, cfg.n_kv_heads, group, cfg.head_dim)
     scores = torch.einsum(
         "bqhgd,bkhd->bhgqk", qg.float(), k.float()) / (cfg.head_dim ** 0.5)
@@ -99,12 +106,13 @@ def decode_attention(
     name: str = "",
 ):
     """One-token attention against the contiguous cache through the
-    contiguous decode kernel (``ops.mha_decode``).  The new token's K/V
-    are written at position ``lengths[b]`` first (a row at or past the
-    cache end writes nothing), then it attends ``lengths[b] + 1``
-    positions.  Returns ``(out (B, 1, D), k_cache, v_cache)``."""
+    contiguous decode kernel (``ops.mha_decode``).  The new token (turned
+    to position ``lengths[b]`` on a rotary stack) writes its K/V at that
+    position first (a row at or past the cache end writes nothing), then
+    it attends ``lengths[b] + 1`` positions.  Returns ``(out (B, 1, D),
+    k_cache, v_cache)``."""
     B = x.shape[0]
-    q, k, v = _project_qkv(p, cfg, x, name)
+    q, k, v = _project_qkv(p, cfg, x, name, lengths[:, None])
     pos = lengths.long()
     _write_rows(k_cache, k[:, 0], pos)
     _write_rows(v_cache, v[:, 0], pos)
@@ -123,6 +131,7 @@ def chunk_attention(
     positions: torch.Tensor,  # (B, C) absolute positions
     *,
     anc: Optional[torch.Tensor] = None,  # (B, C, C) tree ancestor bitmask
+    rope_positions: Optional[torch.Tensor] = None,  # (B, C) logical
     name: str = "",
 ):
     """Multi-token attention over the contiguous cache, in plain
@@ -132,10 +141,15 @@ def chunk_attention(
     nothing), then each query attends every key at or below its position.
     With ``anc`` (tree verify) query ``i`` attends every key below the
     chunk's base ``positions[:, 0]`` and exactly the chunk positions
-    ``anc[b, i]`` names.  Returns ``(out (B, C, D), k_cache, v_cache)``."""
+    ``anc[b, i]`` names.  On a rotary stack q and k turn to
+    ``rope_positions`` (a tree node's logical position, base + depth)
+    where given, else to ``positions``, while the K/V land at
+    ``positions``.  Returns ``(out (B, C, D), k_cache, v_cache)``."""
     B, C = x.shape[:2]
     S = k_cache.shape[2]
-    q, k, v = _project_qkv(p, cfg, x, name)
+    q, k, v = _project_qkv(
+        p, cfg, x, name,
+        positions if rope_positions is None else rope_positions)
     pos = positions.long()
     # a position outside the cache rewrites its row's position 0 with that
     # position's own content (no boolean indexing: that would wait for the
@@ -187,12 +201,13 @@ def paged_decode_attention(
     The new token's K/V are written into the page the block table names
     for position ``lengths[b]``; rows the ``active`` mask declares as
     tag-alongs park their write on the null page (position ``n_pg * ps``,
-    past the table), as the reference does.  Idle rows may all write page
+    past the table), as the reference does; on a rotary stack every row
+    turns to ``lengths[b]``, parked or not.  Idle rows may all write page
     0 at once: the write order there does not matter.  Returns
     ``(out (B, 1, D), k_pages, v_pages)``."""
     B = x.shape[0]
     ps, n_pg = k_pages.shape[2], block_table.shape[1]
-    q, k, v = _project_qkv(p, cfg, x, name)
+    q, k, v = _project_qkv(p, cfg, x, name, lengths[:, None])
     wpos = lengths.long()
     if active is not None:
         wpos = torch.where(active, wpos, n_pg * ps)
@@ -220,6 +235,7 @@ def paged_chunk_attention(
     block_tables: torch.Tensor,  # (B, n_pg) i32
     *,
     anc: Optional[torch.Tensor] = None,  # (B, C, C) i32 ancestor bitmask
+    rope_positions: Optional[torch.Tensor] = None,  # (B, C) logical
     name: str = "",
 ):
     """Multi-token attention in place over the paged cache (chunked
@@ -230,13 +246,18 @@ def paged_chunk_attention(
     past the cache, a verify row parked at ``max_seq``) resolve to the
     null page explicitly.  With ``anc`` (tree verify) query ``j`` attends
     the row's prefix and exactly the chunk positions its bits name; the
-    K/V still land at the flat chunk positions.  (GPT-2's positions are
-    learned, so a tree node's logical position only moves its position
-    embedding, which :func:`repro_torch.models.lm.verify_chunk` adds.)
-    Returns ``(out (B, C, D), k_pages, v_pages)``."""
+    K/V still land at the flat chunk positions, so they survive
+    :func:`repro_torch.models.lm.compact_accepted_path`, while on a rotary
+    stack q and k turn to ``rope_positions``, each node's logical position
+    (base + depth).  (With learned positions the logical position moves
+    the position embedding instead, which
+    :func:`repro_torch.models.lm.verify_chunk` adds.)  Returns ``(out (B,
+    C, D), k_pages, v_pages)``."""
     B, C = x.shape[:2]
     ps, n_pg = k_pages.shape[2], block_tables.shape[1]
-    q, k, v = _project_qkv(p, cfg, x, name)
+    q, k, v = _project_qkv(
+        p, cfg, x, name,
+        positions if rope_positions is None else rope_positions)
     pos = positions.long()
     blk = pos // ps
     page = torch.where(

@@ -1,8 +1,9 @@
 """Transformer blocks: pre-norm attention + MLP with a shared residual.
 
 The ``attn`` kind only (global causal attention), which is every layer of
-GPT-2; the other kinds of the JAX package (``local_attn``, ``rglru``,
-``mlstm``, ``slstm``) raise ``NotImplementedError``.
+GPT-2 and of the RoPE dense decoders (Llama, TinyLlama, Minitron, Gemma);
+the other kinds of the JAX package (``local_attn``, ``rglru``, ``mlstm``,
+``slstm``) raise ``NotImplementedError``.
 
   * ``block_init``        — params for one layer
   * ``block_apply_seq``   — full-sequence path (calibration forward)
@@ -95,20 +96,23 @@ def block_apply_chunk(p: Dict, x: torch.Tensor, cache: Dict,
                       positions: torch.Tensor,
                       block_tables: Optional[torch.Tensor] = None,
                       anc: Optional[torch.Tensor] = None,
+                      rope_positions: Optional[torch.Tensor] = None,
                       name: str = ""):
     """One prefill or verify chunk (B, C, d) -> (x_out, cache); the cache
     is written in place: the page pool through ``block_tables``, or the
     contiguous cache without; ``anc`` is an optional tree mask on
-    either."""
+    either, and ``rope_positions`` (B, C) the tree nodes' logical
+    positions for a rotary stack's phase (``positions`` without)."""
     _require_attn(kind)
     h = apply_norm(p["ln1"], x, cfg.norm)
     if block_tables is None:
         out, k_c, v_c = attention.chunk_attention(
             p["attn"], h, cfg, cache["k"], cache["v"], positions, anc=anc,
-            name=name + ".attn")
+            rope_positions=rope_positions, name=name + ".attn")
     else:
         out, k_c, v_c = attention.paged_chunk_attention(
             p["attn"], h, cfg, cache["k"], cache["v"], positions,
-            block_tables, anc=anc, name=name + ".attn")
+            block_tables, anc=anc, rope_positions=rope_positions,
+            name=name + ".attn")
     x = _ffn(p, x + out, cfg, name)
     return x, {"k": k_c, "v": v_c}

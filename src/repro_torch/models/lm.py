@@ -14,9 +14,11 @@ steps update it in place and also return it;
 :func:`gather_request_cache` / :func:`scatter_request_cache` copy one
 request's share of it to host memory and back (preemption to host).
 
-The stacks served are those of GPT-2: every layer global ``attn``,
-learned (or no) positions, no MoE and no encoder; anything else raises
-``NotImplementedError`` (:func:`check_supported`).
+The stacks served are dense decoders with every layer global ``attn``:
+GPT-2 (learned positions, tied embeddings) and the RoPE family (Llama,
+TinyLlama, Minitron, Gemma: rotary positions, GQA, an untied ``lm_head``
+or a tied one); no MoE, no other block kind and no encoder.  Anything
+else raises ``NotImplementedError`` (:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -36,16 +38,14 @@ def check_supported(cfg: ModelConfig) -> None:
     bad = []
     if any(k != "attn" for k in cfg.block_pattern):
         bad.append(f"block kinds {sorted(set(cfg.block_pattern))}")
-    if cfg.pos not in ("learned", "none"):
-        bad.append(f"pos={cfg.pos!r}")
     if cfg.n_experts:
         bad.append("MoE")
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         bad.append("encoder/frontend")
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported (global-attention "
-            "decoder stacks with learned positions only)")
+            f"{cfg.name}: {', '.join(bad)} not ported (dense "
+            "global-attention decoder stacks only)")
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, *, max_seq: int = 0,
@@ -230,18 +230,20 @@ def verify_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     ``j`` holds a tree node in DFS layout.  Its K/V still land at the flat
     position ``lengths[b] + j``, it attends the row's prefix and exactly
     the chunk positions ``anc[b, j]`` names (its root path), and its
-    position embedding is that of its logical position ``lengths[b] +
-    depths[b, j]``, so ``logits[b, j]`` follows the context plus ``j``'s
-    root path.  Returns ``(logits (B, C, V) f32, cache)``."""
+    position signal (the position embedding, or the rotary phase of its q
+    and k) is that of its logical position ``lengths[b] + depths[b, j]``,
+    so ``logits[b, j]`` follows the context plus ``j``'s root path.
+    Returns ``(logits (B, C, V) f32, cache)``."""
     B, C = tokens.shape
     dev = tokens.device
     base = lengths.long()[:, None]
     positions = base + torch.arange(C, device=dev)[None]
+    logical = None if depths is None else base + depths.long()
     x = embed(params["embed"], tokens, dtype)
     if cfg.pos == "learned":
         # logical positions drive the embedding; parked rows and padding
         # read a clamped row, as the reference's clipped gather does
-        epos = positions if depths is None else base + depths.long()
+        epos = positions if logical is None else logical
         P = params["pos_embed"].shape[0]
         x = x + params["pos_embed"][epos.clamp(0, P - 1)].to(dtype)
     if anc is not None:
@@ -250,7 +252,7 @@ def verify_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         x, _ = blocks.block_apply_chunk(
             layer_p, x, cache["layers"][li], cfg, cfg.block_kind(li),
             positions=positions, block_tables=block_tables, anc=anc,
-            name=f"l{li}")
+            rope_positions=logical, name=f"l{li}")
     return _logits(params, cfg, x).float(), cache
 
 

@@ -776,3 +776,190 @@ def test_stacked_and_overcommit_engines_on_card(h100):
     assert len(done) == 3 and all(len(r.out) == 20 for r in done)
     assert s["preemptions"] >= 1 and s["restores"] == s["preemptions"]
     assert s["pages_in_use"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the RoPE family's linears: llama3-8b (4096 -> 1024 k/v, 14336 FFN, an
+# untied head of 128,256), minitron-4b (9216 FFN, a head of 256,000) and
+# gemma-7b (4096-wide q, 24,576 FFN)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(4096, 1024), (4096, 14336), (14336, 4096),
+                                 (3072, 9216), (9216, 3072), (3072, 24576),
+                                 (24576, 3072), (4096, 128256),
+                                 (3072, 256000)])
+@pytest.mark.parametrize("M", [1, 8, 32, 40, 72])
+def test_mp_matmul_bitexact_at_family_widths_on_card(h100, M, K, N):
+    """The W8A8 kernel at the family's weight shapes, at a decode tick's,
+    a prefill chunk's and the verifies' token counts, with bias, float32
+    out (a W8A8 engine's activations): bit-identical, twice."""
+    rng = np.random.default_rng(M + K + N)
+    args = _mp_case(rng, M, K, N, True, h100)
+    got = ops.quant_matmul(*args, out_dtype=torch.float32)
+    again = ops.quant_matmul(*args, out_dtype=torch.float32)
+    want = ref.quant_matmul_ref(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+# ---------------------------------------------------------------------------
+# head dim 256 (gemma-7b) and the RoPE family's groups: 3 (minitron-4b), 4
+# (llama3-8b), 8 (tinyllama-1.1b), 1 (gemma-7b), and 16 x D 256 on the
+# contiguous decode (recurrentgemma's local attention)
+
+#: (Hkv, group, D) of the decode and verify cases
+_WIDE_SHAPES = [(2, 1, 128), (2, 3, 128), (2, 4, 128), (2, 8, 128),
+                (2, 1, 256), (2, 3, 256), (2, 4, 256), (2, 8, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hkv,group,D", _WIDE_SHAPES)
+def test_paged_mha_decode_wide_heads_and_groups_on_card(h100, window, qdtype,
+                                                        Hkv, group, D):
+    """The paged decode at head dims 128 and 256 with groups 1, 3, 4 and
+    8: rows of lengths 0, 1, 16, at key-split edges +-1 and at the end of
+    the table.  Each output vector within 1e-2 of its largest magnitude,
+    the empty row exactly 0, two calls bit-identical."""
+    rng = np.random.default_rng(300 + window + group + D)
+    ps, n_pg = 16, 40
+    lengths_np = _decode_split_lengths(Hkv * group, Hkv, ps, D, n_pg)
+    q, kp, vp, lengths, bt = _decode_case(rng, h100, lengths_np, Hkv, group,
+                                          D, ps, n_pg, qdtype)
+    got = ops.paged_mha_decode(q, kp, vp, lengths, bt, window=window)
+    again = ops.paged_mha_decode(q, kp, vp, lengths, bt, window=window)
+    want = ref.paged_mha_decode_ref(q, kp, vp, lengths, bt, window=window)
+    torch.cuda.synchronize()
+    assert bool((got[0] == 0).all())
+    assert _rel_err(got[1:], want[1:]) <= ATTN_REL_TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tree", [False, True])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [5, 32])
+@pytest.mark.parametrize("Hkv,group,D", _WIDE_SHAPES)
+def test_paged_verify_wide_heads_and_groups_on_card(h100, tree, qdtype, C,
+                                                    Hkv, group, D):
+    """Both verify bodies at head dims 128 and 256 (where Q is staged in
+    shared memory) with groups 1, 3, 4 and 8 (16 // group queries per
+    16-row tile: 15 rows used at group 3): rows ending on a key-split
+    edge, past it and a page past it, at base 0, at the end of the table
+    and parked.  Each vector within 1e-2, two calls bit-identical, and a
+    lower-triangular mask bit-identical to the causal kernel."""
+    rng = np.random.default_rng(400 + C + group + D + 2 * tree)
+    ps, n_pg = 16, 24
+    base_np = _split_edge_bases(C, Hkv, group, ps, n_pg)
+    B = len(base_np)
+    q, kp, vp, base, bt = _verify_case(rng, h100, B, C, Hkv, group, base_np,
+                                       qdtype, D=D, n_pg=n_pg)
+    anc = torch.from_numpy(_tree_anc(rng, B, C)).to(h100) if tree else None
+    got = ops.paged_verify(q, kp, vp, base, bt, anc=anc)
+    again = ops.paged_verify(q, kp, vp, base, bt, anc=anc)
+    want = ref.paged_verify_ref(q, kp, vp, base, bt, anc=anc)
+    torch.cuda.synchronize()
+    assert _rel_err(got[:-1], want[:-1]) <= ATTN_REL_TOL
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    if not tree:
+        tril = torch.tril(torch.ones((B, C, C), dtype=torch.int32,
+                                     device=h100))
+        assert torch.equal(ops.paged_verify(q, kp, vp, base, bt, anc=tril),
+                           got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 128])
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kvdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Hkv,group,D", _WIDE_SHAPES + [(1, 16, 256)])
+def test_mha_decode_wide_heads_and_groups_on_card(h100, window, qdtype,
+                                                  kvdtype, Hkv, group, D):
+    """The contiguous decode at head dims 128 and 256 with groups 1, 3, 4,
+    8 and 16 (two head chunks); a float32 cache at D 256 runs blocks of 2
+    warps.  Rows of lengths 0, 1, 16, at key-split edges +-1, S - 1 and S;
+    each vector within 1e-2, the empty row 0, two calls bit-identical."""
+    rng = np.random.default_rng(500 + window + group + D)
+    S = 520
+    elem = 2 if kvdtype == "bfloat16" else 4
+    lengths_np = _mha_split_lengths(Hkv * group, Hkv, S, D, elem)
+    q, k, v, lengths = _mha_case(rng, h100, lengths_np, Hkv, group, D, S,
+                                 qdtype, kvdtype)
+    got = ops.mha_decode(q, k, v, lengths, window=window)
+    again = ops.mha_decode(q, k, v, lengths, window=window)
+    want = ref.mha_decode_ref(q, k, v, lengths, window=window)
+    torch.cuda.synchronize()
+    assert bool((got[0] == 0).all())
+    assert _rel_err(got[1:], want[1:]) <= ATTN_REL_TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_wide_heads_make_no_host_sync_on_card(h100):
+    """At head dim 256 the three attention wrappers never wait for the
+    card (``set_sync_debug_mode("error")``)."""
+    rng = np.random.default_rng(11)
+    qd, kp, vp, lengths, bt = _decode_case(rng, h100, [0, 40, 300], 2, 1,
+                                           256)
+    qv, kv, vv, base, btv = _verify_case(rng, h100, 3, 9, 2, 4, [0, 40, 200],
+                                         D=256)
+    qm, km, vm, lm_ = _mha_case(rng, h100, [0, 40, 300], 2, 4, 256, 333,
+                                "float32", "float32")
+    calls = (lambda: ops.paged_mha_decode(qd, kp, vp, lengths, bt),
+             lambda: ops.paged_verify(qv, kv, vv, base, btv),
+             lambda: ops.mha_decode(qm, km, vm, lm_))
+    for fn in calls:  # build and load
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3-8b", "gemma-7b"])
+def test_rope_engine_on_card_runs_every_kernel(h100, arch):
+    """A reduced RoPE config's W8A8 engine on the card, paged with chain
+    speculation and stacked: every linear, prefill chunk, verify and
+    decode step goes through its kernel, and every request gets its
+    tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.speculative import SpecConfig
+
+    cfg = get_config(arch).reduced()
+    params = lm.init(cfg, torch.Generator(device=h100).manual_seed(0),
+                     device=h100)
+    calib = [np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 16))]
+    L = cfg.n_layers
+    n_mp = 7 if cfg.activation in ("swiglu", "geglu") else 6
+    n_mp_head = 0 if cfg.tie_embeddings else 1
+    for layout, spec in (("paged", SpecConfig(k=3)), ("stacked", None)):
+        eng = ServeEngine(cfg, params, batch_slots=2, max_seq=64, eos_id=-1,
+                          quantized=True, calibration_batches=calib,
+                          chunk_size=16, kv_layout=layout, spec=spec)
+        for n in (5, 30, 12):
+            eng.submit(([3, 4, 5] * n)[:n], max_new=6)
+        ops.reset_launch_counts()
+        done = eng.run()
+        s, n = eng.stats(), ops.launch_counts()
+        assert len(done) == 3 and all(len(r.out) == 6 for r in done)
+        assert n["mp_matmul"] == (n_mp * L + n_mp_head) * s["model_calls"]
+        decodes = (s["model_calls"] - s["prefill_calls"]
+                   - s.get("spec_ticks", 0))
+        if layout == "paged":
+            assert s["spec_ticks"] > 0
+            assert n["paged_verify"] == L * (s["prefill_calls"]
+                                             + s["spec_ticks"])
+            assert n["paged_mha_decode"] == L * decodes
+        else:
+            assert n["mha_decode"] == L * decodes > 0

@@ -286,7 +286,8 @@ _VERIFY_SHAPES = [
     (8, 9, 16, 16, 16, 64, 64), (3, 33, 8, 4, 16, 64, 6),
     (5, 9, 16, 2, 8, 128, 40), (2, 17, 4, 1, 4, 16, 100),
     (4, 5, 6, 2, 24, 16, 7), (64, 1, 16, 16, 16, 64, 64),
-    (1, 256, 32, 4, 32, 128, 8), (2, 3, 2, 2, 1, 16, 50)]
+    (1, 256, 32, 4, 32, 128, 8), (2, 3, 2, 2, 1, 16, 50),
+    (8, 5, 16, 16, 16, 256, 64), (1, 32, 24, 8, 16, 128, 64)]
 
 
 @pytest.mark.parametrize("shape", _VERIFY_SHAPES)
@@ -331,8 +332,8 @@ def test_verify_scratch_is_what_the_kernel_indexes(shape):
     assert last_o + 1 == ml_at and last_ml + 1 == geo.scratch
 
 
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
 def test_verify_shared_memory_fits_the_h100(D, group):
     """Rings, merge buffers and the tree's bit words stay within the
     232,448 bytes one block may use, for chunks up to 2,048 positions and
@@ -515,7 +516,8 @@ def test_mp_matmul_refuses_what_the_kernel_does_not_take(monkeypatch):
 _DECODE_SHAPES = [
     (8, 16, 16, 16, 64, 64), (1, 16, 16, 16, 64, 64), (4, 8, 2, 16, 64, 9),
     (5, 16, 2, 8, 128, 40), (2, 4, 1, 24, 16, 7), (3, 64, 1, 16, 16, 20),
-    (64, 16, 16, 16, 64, 64), (2, 6, 2, 1, 64, 300), (7, 32, 4, 5, 128, 13)]
+    (64, 16, 16, 16, 64, 64), (2, 6, 2, 1, 64, 300), (7, 32, 4, 5, 128, 13),
+    (8, 16, 16, 16, 256, 64)]
 
 
 @pytest.mark.parametrize("shape", _DECODE_SHAPES)
@@ -558,7 +560,7 @@ def test_decode_splits_cover_the_table_once(shape):
                          B * Hkv * geo.h_chunks * max(1, n_pg // least))
 
 
-@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
 @pytest.mark.parametrize("group", range(1, 9))
 def test_decode_shared_memory_fits_the_h100(D, group):
     """Rings and merge buffers stay within the 232,448 bytes one block may
@@ -608,8 +610,8 @@ def test_decode_entry_geometry_and_count_one_launch(monkeypatch):
 
 
 def test_decode_refuses_what_the_kernel_does_not_take(monkeypatch):
-    """A head dim the kernel is not built for (48, and 256, which waits on
-    a wider body), misaligned pages and an empty table raise before any
+    """A head dim the kernel is not built for (48, and 512, past the widest
+    built, 256), misaligned pages and an empty table raise before any
     launch."""
     monkeypatch.setattr(ops, "_route", lambda *a: True)
     monkeypatch.setattr(ops.build, "library", lambda: pytest.fail(
@@ -624,8 +626,8 @@ def test_decode_refuses_what_the_kernel_does_not_take(monkeypatch):
 
     with pytest.raises(ValueError, match="head_dim 48"):
         call(2, 2, 48)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        call(2, 2, 256)
+    with pytest.raises(ValueError, match="head_dim 512"):
+        call(2, 2, 512)
     with pytest.raises(ValueError, match="16-byte aligned"):
         call(2, 2, 64, offset=4)
     with pytest.raises(ValueError, match="empty"):
@@ -639,7 +641,8 @@ _MHA_SHAPES = [
     (8, 16, 16, 1024, 64, 4), (8, 16, 16, 1024, 64, 2),
     (4, 8, 2, 100, 64, 4), (3, 16, 1, 333, 128, 4), (2, 16, 1, 77, 128, 2),
     (5, 4, 4, 7, 16, 4), (1, 16, 16, 1000, 64, 2), (64, 16, 16, 1024, 64, 4),
-    (2, 6, 2, 50, 16, 2), (7, 32, 4, 129, 128, 2)]
+    (2, 6, 2, 50, 16, 2), (7, 32, 4, 129, 128, 2), (8, 16, 16, 1024, 256, 4),
+    (3, 16, 1, 300, 256, 2)]
 
 
 @pytest.mark.parametrize("shape", _MHA_SHAPES)
@@ -693,14 +696,18 @@ def test_mha_scratch_is_what_the_kernel_indexes(shape):
 
 
 @pytest.mark.parametrize("elem", [2, 4])
-@pytest.mark.parametrize("D", [16, 64, 128])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
 @pytest.mark.parametrize("group", [1, 2, 3, 4, 8, 16])
 def test_mha_shared_memory_fits_the_h100(elem, D, group):
     """Rings (3 stages of 16-key K and V tiles per warp, 196,608 B at D 128
-    in float32) and the warps' partials of every head chunk stay within
-    the 232,448 bytes one block may use."""
+    in float32 with 4 warps, and at D 256 in float32 with 2) and the
+    warps' partials of every head chunk stay within the 232,448 bytes one
+    block may use."""
     geo = ops._mha_geometry(8, 2 * group, 2, 1024, D, elem)
-    assert geo.smem == max(4 * 3 * 2 * 16 * D * elem, 4 * geo.hg * (D + 2) * 4)
+    warps = 2 if D * elem > 128 * 4 else 4
+    assert ops._decode_warps(D, elem) == warps
+    assert geo.smem == max(warps * 3 * 2 * 16 * D * elem,
+                           warps * geo.hg * (D + 2) * 4)
     assert geo.smem <= 232_448
 
 
@@ -757,9 +764,9 @@ def test_mha_entry_counts_one_launch_and_takes_wide_groups(monkeypatch):
 
 
 def test_mha_refuses_what_the_kernel_does_not_take(monkeypatch):
-    """Head dims the decode body is not built for (32, and 256, which
-    waits on a wider body) are refused by name, as are a misaligned cache
-    and an empty one, before any launch."""
+    """Head dims the decode body is not built for (32, and 512, past the
+    widest built, 256) are refused by name, as are a misaligned cache and
+    an empty one, before any launch."""
     monkeypatch.setattr(ops, "_route", lambda *a: True)
     monkeypatch.setattr(ops.build, "library", lambda: pytest.fail(
         "launched a kernel it should have refused"))
@@ -770,7 +777,7 @@ def test_mha_refuses_what_the_kernel_does_not_take(monkeypatch):
         k = pool[offset:].view(2, 2, S, D)
         ops.mha_decode(torch.zeros((2, 4, D)), k, k, lengths)
 
-    for D in (32, 256):
+    for D in (32, 512):
         with pytest.raises(ValueError, match=f"head_dim {D} not one of"):
             call(D)
     with pytest.raises(ValueError, match="16-byte aligned"):
