@@ -46,16 +46,24 @@ is caught and continued:
    the same weight bytes.
    No PyTorch call computes ``ln_res``; ``F.layer_norm`` of the sum is
    printed beside it as the norm alone.
-   Then the RoPE family's heads: ``paged_mha_decode``, ``paged_verify``
-   (a prefill chunk and a chain verify), its tree body and ``mha_decode``
-   (float32 and bf16 caches) at ``llama3-8b``'s group 4 and
-   ``minitron-4b``'s group 3 at D 128 and ``gemma-7b``'s D 256, each held
-   to its plain version per output vector, twice bit-identical (a
-   lower-triangular mask as the causal kernel), empty decode rows zero,
-   and timed as above beside SDPA (``enable_gqa``) and its bound; and
-   ``mp_matmul`` at their weight shapes (every (K, N) of a layer and the
-   untied heads, N up to 256,000) bit for bit at M 8, 32 and 40, one
-   layer's calls and the head timed at M 8 and 32.
+   Then the RoPE family's and olmoe's heads: ``paged_mha_decode``,
+   ``paged_verify`` (a prefill chunk and a chain verify), its tree body
+   and ``mha_decode`` (float32 and bf16 caches) at ``llama3-8b``'s group
+   4 and ``minitron-4b``'s group 3 at D 128, ``gemma-7b``'s D 256 and
+   ``olmoe-1b-7b``'s 16 heads of 128 (group 1), each held to its plain
+   version per output vector, twice bit-identical (a lower-triangular
+   mask as the causal kernel), empty decode rows zero, and timed as above
+   beside SDPA (``enable_gqa``) and its bound; and ``mp_matmul`` at their
+   weight shapes (every quantized (K, N) of a layer: olmoe's q, k, v and
+   out, its experts staying float; and the untied heads, N up to
+   256,000) bit for bit at M 8, 32 and 40, one layer's calls and the
+   head timed at M 8 and 32.
+   Then one full-width ``olmoe-1b-7b`` layer's MoE FFN (plain PyTorch,
+   as in the reference: router, dispatch, three batched float32 expert
+   products at exact capacity, combine) at 8 and 32 tokens: routing equal
+   to the CPU's and the output within 1e-4 at 8 tokens; timed whole, its
+   router alone and its products alone, beside its bytes bound and the
+   padded products' operations bound; one ``moe_ffn`` JSON line.
 5. Serving: full-width ``gpt2-345m`` with random weights from a seeded
    generator, W8A8 SmoothQuant calibrated on seeded prompts, paged KV
    cache, chunk 32, 8 slots, ``max_seq`` 1024, 16 greedy requests with
@@ -103,20 +111,36 @@ is caught and continued:
     their range, and each one's margin of its own token over the other's
     is at most twice their largest logit difference, the most that
     difference can overturn.
-11. The RoPE dense family at full width (``FAMILY_RUNS``): ``llama3-8b``
-    (32 layers, d 4096, 32 heads over 8 of 128, vocab 128,256, an untied
-    head) paged plain, paged chain speculation (n-gram, k 4) and stacked
-    plain, then ``gemma-7b`` (28 layers, d 3072, 16 heads of 256, vocab
-    256,000) paged and stacked plain.  Random weights from a seeded
-    generator, W8A8 SmoothQuant calibrated on 2 x 128 seeded tokens, the
-    engine settings of phase 5, 8 requests of 64 new tokens on prompts of
-    16-512 tokens that repeat short runs.  Each run's launch counts are
-    zeroed before and read after it and must match its calls; every run's
-    streams are held to the paged plain run's under the near-tie rule,
-    logits recomputed in the batch shapes of each run; each model is
-    freed before the next, and the peak memory printed.
-12. Reduced-config agreement (as phase 10) for ``llama3-8b`` and
-    ``gemma-7b``.
+11. The RoPE dense family and the MoE decoder at full width
+    (``FAMILY_RUNS``): ``llama3-8b`` (32 layers, d 4096, 32 heads over 8
+    of 128, vocab 128,256, an untied head) paged plain, paged chain
+    speculation (n-gram, k 4) and stacked plain, then ``gemma-7b`` (28
+    layers, d 3072, 16 heads of 256, vocab 256,000) paged and stacked
+    plain, then ``olmoe-1b-7b`` (16 layers, d 2048, 16 heads of 128, 64
+    float32 experts of d_ff 1024 and top 8 at exact capacity, vocab
+    50,304, an untied head) paged plain, paged chain and stacked plain.
+    Random weights from a seeded generator, W8A8 SmoothQuant calibrated
+    on 2 x 128 seeded tokens, the engine settings of phase 5, 8 requests
+    of 64 new tokens on prompts of 16-512 tokens that repeat short runs.
+    Each run's launch counts are zeroed before and read after it and must
+    match its calls; every run's streams are held to the paged plain
+    run's under the near-tie rule (for olmoe with phase 12's routing
+    near-ties), logits recomputed in the batch shapes of each run; each
+    model is freed before the next, and the peak memory printed.
+12. Reduced-config agreement (as phase 10) for ``llama3-8b``,
+    ``gemma-7b``, ``olmoe-1b-7b`` and ``kimi-k2-1t-a32b``.  For a MoE
+    stack the near-tie rule also takes a routing near-tie: at a parting,
+    the routers' choices along the shared history are recorded on both
+    sides, and where they differ the logits may differ by more than
+    ``LOGIT_REL_TOL`` of their range if the first differing choice was a
+    near-tie of the router (there the two sides' expert probabilities
+    agree to ``LOGIT_REL_TOL`` of their range, and each side's gap
+    between its k-th and (k+1)-th probability is within twice their
+    difference) and, with the first computation's routers pinned to the
+    second's choices, the two computations' logits agree to
+    ``LOGIT_REL_TOL`` of their range again: only the routing is exempt,
+    nothing after it.  The margins are held as before.  Phase 11 holds
+    the MoE runs the same way.
 13. The device time of each CUDA function of the timed calls
     (``torch.profiler``): one layer's six ``mp_matmul`` calls at M 8 and
     32 (one function), the timed paged and contiguous decodes and the
@@ -150,8 +174,8 @@ from repro_torch.core import scheduler  # noqa: E402
 from repro_torch.core.mdk import MDK_REGISTRY  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
-from repro_torch.models.layers import to_device  # noqa: E402
+from repro_torch.models import lm, moe  # noqa: E402
+from repro_torch.models.layers import activation_fn, to_device  # noqa: E402
 from repro_torch.serving.admission import (  # noqa: E402
     FIFOAdmission, OvercommitAdmission)
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
@@ -195,10 +219,16 @@ LN_TIMED = (8, 32, 256)
 LN_SCALE_RTOL, LN_YQ_EQUAL = 1e-5, 0.999
 #: the RoPE family's head shapes held and timed beside GPT-2's: groups 4
 #: and 3 at D 128, and D 256
-WIDE_ARCHS = ("llama3-8b", "minitron-4b", "gemma-7b")
-#: the full-width RoPE serving phases: config -> runs (layout, variant)
+WIDE_ARCHS = ("llama3-8b", "minitron-4b", "gemma-7b", "olmoe-1b-7b")
+#: the full-width serving phases: config -> runs (layout, variant)
 FAMILY_RUNS = {"llama3-8b": ("paged plain", "paged chain", "stacked plain"),
-               "gemma-7b": ("paged plain", "stacked plain")}
+               "gemma-7b": ("paged plain", "stacked plain"),
+               "olmoe-1b-7b": ("paged plain", "paged chain",
+                               "stacked plain")}
+#: the reduced-config agreement phases after GPT-2's
+AGREE_ARCHS = ("llama3-8b", "gemma-7b", "olmoe-1b-7b", "kimi-k2-1t-a32b")
+#: the MoE FFN timed alone: a decode tick's tokens and a prefill chunk's
+MOE_TIMED_T = (SLOTS, CHUNK)
 #: the over-commit phase's page pool (pages of 16, the null page included):
 #: every prompt fits, the requests' reservations together do not
 OVERCOMMIT_PAGES = 97
@@ -1011,17 +1041,18 @@ def ln_res_phase(dev, timer, rng):
 
 
 def wide_heads_phase(dev, timer):
-    """The three attention kernels at the RoPE family's heads: D 128 with
-    groups 4 (``llama3-8b``: 32 heads over 8) and 3 (``minitron-4b``: 24
-    over 8, 15 of a verify tile's 16 rows used), and D 256 (``gemma-7b``:
-    16 over 16, Q staged in shared memory and P V split over two blocks
-    in the verify, a float32 contiguous cache on blocks of 2 warps).  Each
+    """The three attention kernels at the RoPE family's and olmoe's heads:
+    D 128 with groups 4 (``llama3-8b``: 32 heads over 8), 3
+    (``minitron-4b``: 24 over 8, 15 of a verify tile's 16 rows used) and
+    1 (``olmoe-1b-7b``: 16 over 16), and D 256 (``gemma-7b``: 16 over 16,
+    Q staged in shared memory and P V split over two blocks in the
+    verify, a float32 contiguous cache on blocks of 2 warps).  Each
     call is held to its plain version per output vector, a second call
     must be bit-identical and an empty decode row zero; then each is
     timed at its serving shape beside its plain version, SDPA and its
     bound.  Returns {kernel: [row, ...]}."""
-    phase("kernel vs plain at the RoPE family's heads (D 128 groups 3 and "
-          "4, D 256)")
+    phase("kernel vs plain at the RoPE family's and olmoe's heads (D 128 "
+          "groups 1, 3 and 4, D 256)")
     rng = np.random.default_rng(6)
     rows = {k: [] for k in ("paged_mha_decode", "paged_verify",
                             "paged_verify_tree", "mha_decode")}
@@ -1160,15 +1191,17 @@ def wide_heads_phase(dev, timer):
 
 
 def family_mp_phase(dev, timer):
-    """``mp_matmul`` at the RoPE family's widths: every (K, N) of a decoder
-    layer of ``WIDE_ARCHS`` and the untied heads (``llama3-8b``: N
-    128,256; ``minitron-4b``: 256,000), bit-identical to its plain version
+    """``mp_matmul`` at the RoPE family's and olmoe's widths: every (K, N)
+    of a decoder layer of ``WIDE_ARCHS`` (olmoe's: q, k, v and out; its
+    experts are not quantized) and the untied heads (``llama3-8b``: N
+    128,256; ``minitron-4b``: 256,000; ``olmoe-1b-7b``: 50,304),
+    bit-identical to its plain version
     at a decode tick's rows, a prefill chunk's and a chain verify's (8,
     32, 40), with bias and bf16 out, two calls equal.  Then one decoder
     layer's calls and the head timed at M 8 and 32 (beside
     ``torch._int_mm`` and the same epilogue at 32), float32 out as in a
     W8A8 engine.  Returns the rows."""
-    phase("mp_matmul at the RoPE family's widths")
+    phase("mp_matmul at the RoPE family's and olmoe's widths")
     rng = np.random.default_rng(8)
     rows = []
     for arch in WIDE_ARCHS:
@@ -1176,8 +1209,9 @@ def family_mp_phase(dev, timer):
         d = cfg.d_model
         gated = cfg.activation in ("swiglu", "geglu")
         layer = [(d, cfg.q_dim), (d, cfg.kv_dim), (d, cfg.kv_dim),
-                 (cfg.q_dim, d), (d, cfg.d_ff)] + [(d, cfg.d_ff)] * gated \
-            + [(cfg.d_ff, d)]
+                 (cfg.q_dim, d)]
+        if not cfg.n_experts:  # a MoE layer's experts stay float
+            layer += [(d, cfg.d_ff)] * (1 + gated) + [(cfg.d_ff, d)]
         head = [] if cfg.tie_embeddings else [(d, cfg.vocab_size)]
         for what, calls in (("one decoder layer", layer), ("head", head)):
             if not calls:
@@ -1227,8 +1261,83 @@ def family_mp_phase(dev, timer):
     return rows
 
 
+def moe_ffn_phase(dev, timer):
+    """One full-width ``olmoe-1b-7b`` layer's MoE FFN (64 float32 experts
+    of 2048 x 1024, top 8, exact capacity) at a decode tick's 8 tokens and
+    a prefill chunk's 32: the output finite, and at 8 tokens equal in
+    routing to the CPU's and within ``1e-4`` of its largest magnitude;
+    then timed whole, its router and slot assignment alone, and its three
+    expert products alone (on a buffer of the padded shape), beside the
+    bytes bound (the three banks read once) and the operations bound of
+    the padded products at the float32 peak.  Not a kernel of the port:
+    plain PyTorch, as the reference's ``jnp.einsum``.  Returns the rows."""
+    phase("the MoE FFN alone (one full-width olmoe-1b-7b layer, float32 "
+          "experts, exact capacity)")
+    cfg = get_config("olmoe-1b-7b")
+    E, d, f, k = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.experts_per_token
+    p = moe.moe_init(torch.Generator(device=dev).manual_seed(5), cfg,
+                     device=dev)
+    act = activation_fn(cfg.activation)
+    rng = np.random.default_rng(10)
+    rows = []
+    for T in MOE_TIMED_T:
+        shape = (T, 1, d) if T == SLOTS else (1, T, d)
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev)
+        out, aux = moe.moe_apply(p, x, cfg)
+        check(out.shape == x.shape and bool(torch.isfinite(out).all())
+              and bool(torch.isfinite(aux)), f"MoE FFN T={T}: shape or "
+              "non-finite output")
+        if T == SLOTS:
+            pc = to_device(p, torch.device("cpu"))
+            want, _ = moe.moe_apply(pc, x.cpu(), cfg)
+            same = torch.equal(moe.route(p, x.reshape(T, d), cfg, None)[1]
+                               .cpu(), moe.route(pc, x.cpu().reshape(T, d),
+                                                 cfg, None)[1])
+            err, rel = rel_err(out.cpu().reshape(T, d), want.reshape(T, d))
+            check(same and rel <= 1e-4, f"MoE FFN T={T} card vs CPU: "
+                  f"routing equal {same}, rel err {rel}")
+            print(f"MoE FFN T={T} card vs CPU: the same experts, max abs "
+                  f"err {err:.3e} (rel {rel:.3e} <= 1e-4)")
+            del pc
+        C = moe.capacity(cfg, T, None)
+        buf = torch.from_numpy(rng.standard_normal((E, C, d)).astype(
+            np.float32)).to(dev)
+
+        def products(buf=buf):
+            h = act(torch.bmm(buf, p["w_gate"])) * torch.bmm(buf, p["w_up"])
+            return torch.bmm(h, p["w_down"])
+
+        t = timer.ms(partial(moe.moe_apply, p, x, cfg))
+        t_route = timer.ms(partial(moe.route, p, x.reshape(T, d), cfg, None))
+        t_prod = timer.ms(products)
+        t_one = timer.ms(partial(torch.bmm, buf, p["w_up"]))
+        nbytes = 3 * E * d * f * 4 + d * E * 4 + 2 * T * d * 4
+        b_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        b_ops = 1e3 * 3 * 2 * E * C * d * f / PEAK_OPS["f32"]
+        b_useful = 1e3 * 3 * 2 * T * k * d * f / PEAK_OPS["f32"]
+        r = {"T": T, "C": C, "ms": t, "route_ms": t_route,
+             "products_ms": t_prod, "one_product_ms": t_one,
+             "bytes_bound_ms": b_bytes, "padded_ops_bound_ms": b_ops,
+             "useful_ops_bound_ms": b_useful,
+             "padded_gflop": 3 * 2 * E * C * d * f / 1e9}
+        rows.append(r)
+        print(f"MoE FFN T={T} (C {C} slots per expert): {t:.4f} ms whole, "
+              f"router and slots {t_route:.4f} ms, the three products "
+              f"{t_prod:.4f} ms (one: {t_one:.4f} ms); bounds: bytes "
+              f"{b_bytes:.4f} ms ({nbytes / 1e9:.3f} GB), padded products "
+              f"{b_ops:.4f} ms ({r['padded_gflop']:.1f} GFLOP at the "
+              f"float32 peak), useful products {b_useful:.4f} ms")
+        del buf
+    print(json.dumps({"moe_ffn": rows}))
+    del p
+    torch.cuda.empty_cache()
+    return rows
+
+
 def family_serving_phase(dev, arch):
-    """Full-width W8A8 serving of a RoPE dense config: random weights from
+    """Full-width W8A8 serving of a RoPE dense or MoE config (whose router
+    and float32 expert banks stay unquantized): random weights from
     a seeded generator, SmoothQuant calibrated on 2 x 128 seeded tokens,
     the engine settings of phase 5, 8 requests of 64 new tokens on prompts
     of 16-512 tokens that repeat short runs.  The runs of
@@ -1256,9 +1365,11 @@ def family_serving_phase(dev, arch):
     torch.cuda.empty_cache()
     q_bytes = sum(t.numel() * t.element_size()
                   for t in _tensors(qparams))
+    experts = (f" in each of {cfg.n_experts} experts, top "
+               f"{cfg.experts_per_token}" if cfg.n_experts else "")
     print(f"{arch}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} "
           f"heads over {cfg.n_kv_heads} KV heads of {cfg.head_dim}, d_ff "
-          f"{cfg.d_ff} ({cfg.activation}), vocab {cfg.vocab_size}, "
+          f"{cfg.d_ff}{experts} ({cfg.activation}), vocab {cfg.vocab_size}, "
           f"{'tied' if cfg.tie_embeddings else 'untied'} head, rope theta "
           f"{cfg.rope_theta:g}: random float32 weights calibrated and "
           f"quantized in {time.perf_counter() - t0:.2f} s; W8A8 model "
@@ -1267,7 +1378,8 @@ def family_serving_phase(dev, arch):
                                  *SPEC_PROMPT_LENS)
     L = cfg.n_layers
     gated = cfg.activation in ("swiglu", "geglu")
-    mp_per_call = (6 + gated) * L + (not cfg.tie_embeddings)
+    ffn_mp = 0 if cfg.n_experts else 2 + gated  # experts stay float
+    mp_per_call = (4 + ffn_mp) * L + (not cfg.tie_embeddings)
     streams, out = {}, {}
     for run in FAMILY_RUNS[arch]:
         layout, variant = run.split()
@@ -1308,7 +1420,8 @@ def family_serving_phase(dev, arch):
             qparams, cfg, p, h, dev, layout=lay, **w, **shape))
         hold_streams(f"{arch} {run} vs paged plain on the card",
                      (streams[run], streams["paged plain"]), prompts,
-                     (fa, fb), SPEC_NEW)
+                     (fa, fb), SPEC_NEW,
+                     moe_cfg=cfg if cfg.n_experts else None)
     del qparams
     torch.cuda.empty_cache()
     print(f"{arch}: freed; memory allocated now "
@@ -1512,6 +1625,8 @@ def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
         piece = prompt[off:off + chunk]
         toks = torch.zeros(chunk, dtype=torch.int64)
         toks[:len(piece)] = torch.tensor(piece)
+        if RouterProbe.active is not None:
+            RouterProbe.active.at(len(piece), off)
         lg, cache = lm.prefill_into_slot(
             params, cfg, toks.to(dev), cache, off, valid=len(piece),
             dtype=torch.float32, **into)
@@ -1521,6 +1636,8 @@ def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
             toks = torch.zeros((rows, verify), dtype=torch.int64)
             toks[0, :len(piece)] = torch.tensor(piece)
             lengths[0] = len(prompt) + off
+            if RouterProbe.active is not None:
+                RouterProbe.active.at(len(piece), len(prompt) + off)
             lgs, cache = lm.verify_chunk(
                 params, cfg, toks.to(dev), cache, lengths.to(dev),
                 dtype=torch.float32, **ver)
@@ -1530,6 +1647,8 @@ def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
         toks = torch.zeros((rows, 1), dtype=torch.int64)
         toks[0, 0] = t
         lengths[0] = len(prompt) + i
+        if RouterProbe.active is not None:
+            RouterProbe.active.at(1, len(prompt) + i)
         lg, cache = lm.decode_step(
             params, cfg, toks.to(dev), cache, lengths.to(dev),
             dtype=torch.float32, **step)
@@ -1537,7 +1656,87 @@ def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
     return lg.float().cpu()
 
 
-def hold_streams(what, streams, prompts, logits_fns, n_new):
+class RouterProbe:
+    """While entered, records the router probabilities of row 0's tokens
+    at every MoE routing call of :func:`logits_after`, by (layer,
+    position): ``logits_after`` names the row's valid tokens and their
+    first position before each model call (:meth:`at`).  With ``pin``
+    (another probe's records) each of those tokens whose top-k experts
+    differ from the ones ``pin`` records at its (layer, position) is
+    routed to ``pin``'s instead, with gates from its own probabilities;
+    ``pinned`` counts such choices."""
+
+    active = None
+
+    def __init__(self, cfg, pin=None):
+        self.L, self.k = cfg.n_layers, cfg.experts_per_token
+        self.pin = pin
+        self.rec = {}
+        self.n = self.pos0 = self.calls = self.pinned = 0
+
+    def at(self, n: int, pos0: int) -> None:
+        self.n, self.pos0, self.calls = n, pos0, 0
+
+    def __enter__(self):
+        self._route = moe.route
+
+        def route(p, xt, cfg, capacity_factor):
+            gates, experts, slots, C, aux = self._route(p, xt, cfg,
+                                                        capacity_factor)
+            probs = moe.router_probs(p, xt)
+            layer, self.calls = self.calls % self.L, self.calls + 1
+            keys = [(layer, self.pos0 + i) for i in range(self.n)]
+            self.rec.update(zip(keys, probs[:self.n].cpu()))
+            if self.pin is None:
+                return gates, experts, slots, C, aux
+            chosen = experts.cpu()
+            for i, key in enumerate(keys):
+                if key not in self.pin:
+                    continue
+                want = self.pin[key].sort(descending=True)[1][:self.k]
+                if set(want.tolist()) != set(chosen[i].tolist()):
+                    chosen[i] = want
+                    self.pinned += 1
+            experts = chosen.to(xt.device)
+            g = probs.gather(1, experts)
+            gates = g / g.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+            return (gates, experts, moe.slots_of(experts, cfg.n_experts, C),
+                    C, aux)
+
+        moe.route, RouterProbe.active = route, self
+        return self
+
+    def __exit__(self, *exc):
+        moe.route, RouterProbe.active = self._route, None
+
+
+def routing_split(ra, rb, k):
+    """Where two probes' routers chose different top-``k`` experts: the
+    count of such (layer, position) choices among the shared ones, and
+    the first (by position, then layer: every choice depends only on
+    earlier ones in that order) as ``(key, (gap_a, gap_b), diff, span)``:
+    each side's gap between its k-th and (k+1)-th probability, the two
+    sides' largest probability difference there and the range of ``b``'s
+    probabilities.  That first split is a routing near-tie when the two
+    sides agree there (``diff <= LOGIT_REL_TOL * span``, as the logits
+    must) and both gaps are within ``2 * diff``."""
+    keys = sorted(set(ra.rec) & set(rb.rec), key=lambda t: (t[1], t[0]))
+    n_diff, first = 0, None
+    for key in keys:
+        pa, pb = ra.rec[key], rb.rec[key]
+        sa, ia = pa.sort(descending=True)
+        sb, ib = pb.sort(descending=True)
+        if set(ia[:k].tolist()) == set(ib[:k].tolist()):
+            continue
+        n_diff += 1
+        if first is None:
+            first = (key, ((sa[k - 1] - sa[k]).item(),
+                           (sb[k - 1] - sb[k]).item()),
+                     (pa - pb).abs().max().item(), (sb[0] - sb[-1]).item())
+    return n_diff, len(keys), first
+
+
+def hold_streams(what, streams, prompts, logits_fns, n_new, moe_cfg=None):
     """Two computations' served streams (``streams = (a, b)``, rid ->
     tokens; ``prompts`` indexed by rid) must be equal up to where a pair
     parts, and each parting must
@@ -1545,7 +1744,17 @@ def hold_streams(what, streams, prompts, logits_fns, n_new):
     (``logits_fns = (fa, fb)``, each ``(prompt, history) -> logits``)
     agree to ``LOGIT_REL_TOL`` of their range, and each one's margin of
     its own token over the other's is at most twice their largest logit
-    difference.  Returns the free-running agreement."""
+    difference.  For a MoE stack (``moe_cfg``) the logits may instead
+    differ by more where the two computations' routers chose different
+    experts along the shared history, if the first such choice was a
+    routing near-tie (:func:`routing_split`: there the two sides' router
+    probabilities agree to ``LOGIT_REL_TOL`` of their range, and each
+    side's gap at the top-k boundary is within twice their difference)
+    and only the routing explains the rest: ``fa`` computed again with
+    its routers pinned to ``fb``'s choices (:class:`RouterProbe`) agrees
+    with ``fb`` to ``LOGIT_REL_TOL`` of their range.  The margins are
+    held against the unpinned difference all the same.  Returns the
+    free-running agreement."""
     a_out, b_out = streams
     fa, fb = logits_fns
     check(sorted(a_out) == sorted(b_out), f"{what}: a request was not "
@@ -1561,17 +1770,51 @@ def hold_streams(what, streams, prompts, logits_fns, n_new):
         if i is None:
             continue
         parted += 1
-        la, lb = fa(prompts[rid], b[:i]), fb(prompts[rid], b[:i])
+        routing_tie = False
+        if moe_cfg is None:
+            la, lb = fa(prompts[rid], b[:i]), fb(prompts[rid], b[:i])
+        else:
+            with RouterProbe(moe_cfg) as ra:
+                la = fa(prompts[rid], b[:i])
+            with RouterProbe(moe_cfg) as rb:
+                lb = fb(prompts[rid], b[:i])
+            n_diff, n_all, first = routing_split(
+                ra, rb, moe_cfg.experts_per_token)
+            if first is None:
+                print(f"{what}: request {rid}: the routers chose the same "
+                      f"experts at all {n_all} (layer, position) choices")
+            else:
+                (li, pos), gaps, diff, pspan = first
+                routing_tie = (max(gaps) <= 2 * diff
+                               and diff <= LOGIT_REL_TOL * pspan)
+                print(f"{what}: request {rid}: the routers chose different "
+                      f"experts at {n_diff} of {n_all} (layer, position) "
+                      f"choices; the first, layer {li} position {pos}: "
+                      f"top-k boundary gaps {gaps[0]:.3e}, {gaps[1]:.3e} "
+                      f"(<= 2 x diff) against a probability difference "
+                      f"{diff:.3e} = {diff / pspan:.3e} of their range (<= "
+                      f"{LOGIT_REL_TOL}): "
+                      f"{'a' if routing_tie else 'NOT a'} routing near-tie")
         err = (la - lb).abs().max().item()
         span = (lb.max() - lb.min()).item()
         m_a = (la[a[i]] - la[b[i]]).item()
         m_b = (lb[b[i]] - lb[a[i]]).item()
+        tie = ", or a routing near-tie" if moe_cfg else ""
         print(f"{what}: request {rid} parts at token {i}: {a[i]} vs {b[i]};"
               f" logits max err {err:.3e} = {err / span:.3e} of their range "
-              f"(<= {LOGIT_REL_TOL}); margins {m_a:.3e}, {m_b:.3e} "
-              f"(<= 2 x err)")
-        check(err <= LOGIT_REL_TOL * span,
-              f"{what}: request {rid} logits err {err}")
+              f"(<= {LOGIT_REL_TOL}{tie}); margins {m_a:.3e}, {m_b:.3e} "
+              "(<= 2 x err)")
+        ok = err <= LOGIT_REL_TOL * span
+        if not ok and routing_tie:
+            with RouterProbe(moe_cfg, pin=rb.rec) as rp:
+                lp = fa(prompts[rid], b[:i])
+            err_p = (lp - lb).abs().max().item()
+            ok = err_p <= LOGIT_REL_TOL * span
+            print(f"{what}: request {rid}: with the first's routers pinned "
+                  f"to the second's choices ({rp.pinned} (layer, position) "
+                  f"choices moved) the logits max err is {err_p:.3e} = "
+                  f"{err_p / span:.3e} of their range (<= {LOGIT_REL_TOL})")
+        check(ok, f"{what}: request {rid} logits err {err}")
         check(max(m_a, m_b) <= 2 * err,
               f"{what}: request {rid} parts at token {i} with margins "
               f"{m_a}, {m_b} beyond twice the logit difference {err}")
@@ -1927,7 +2170,8 @@ def agreement_phase(dev, arch="gpt2-345m"):
                       f"({s['spec_accepted']}/{s['spec_proposed']}), "
                       f"{s['spec_ticks']} verify calls")
         agree[name] = hold_streams(f"reduced {arch} {name} card vs CPU",
-                                   outs, prompts, fns, 16)
+                                   outs, prompts, fns, 16,
+                                   moe_cfg=cfg if cfg.n_experts else None)
     return agree
 
 
@@ -1944,6 +2188,7 @@ def main() -> int:
     for name, rows in wide_heads_phase(dev, timer).items():
         entries[name]["wide_heads"] = rows
     entries["mp_matmul"]["family_widths"] = family_mp_phase(dev, timer)
+    moe_ffn_phase(dev, timer)
     del timer
     launches, qparams, cfg = serving_phase(dev)
     ln_launches = mdk_program_phase(dev, qparams, cfg)
@@ -1955,7 +2200,7 @@ def main() -> int:
     family_launches = {}
     for arch in FAMILY_RUNS:
         family_launches.update(family_serving_phase(dev, arch))
-    for arch in FAMILY_RUNS:
+    for arch in AGREE_ARCHS:
         agreement_phase(dev, arch)
     by_kernel_phase(dev, entries)
     phase("kernels")

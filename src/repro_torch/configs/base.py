@@ -108,7 +108,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401  (each registers)
-        gemma_7b, gpt2_345m, llama3_8b, minitron_4b, tinyllama_1_1b)
+        gemma_7b, gpt2_345m, kimi_k2, llama3_8b, minitron_4b, olmoe_1b_7b,
+        tinyllama_1_1b)
 
 
 def get_config(name: str) -> ModelConfig:

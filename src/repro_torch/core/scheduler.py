@@ -4,7 +4,10 @@ Turns a model config into an explicit sequence of (stage, MDK kind)
 pairs.  The analytic perf model walks the same program, and the serving
 engine reports its per-token kernel reuse from it.  A copy of the JAX
 package's ``repro/core/scheduler.py`` for the stacks this package serves
-(global-attention blocks with a dense FFN).
+(global-attention blocks with a dense or a MoE FFN).  As in the
+reference, a MoE block's expert products are priced as MP-kernel stages
+(``moe_up``, ``moe_down``, k experts a token) although the W8A8
+conversion leaves the expert banks in floating point.
 """
 from __future__ import annotations
 
@@ -26,9 +29,9 @@ class Stage:
 
 def block_program(cfg: ModelConfig, li: int) -> List[Stage]:
     kind = cfg.block_kind(li)
-    if kind != "attn" or cfg.n_experts:
+    if kind != "attn":
         raise NotImplementedError(
-            f"stage program for block kind {kind!r} / MoE is not ported")
+            f"stage program for block kind {kind!r} is not ported")
     d, pre = cfg.d_model, f"l{li}."
     stages = [
         Stage(pre + "ln1", "ln_res", k=d, n=d),
@@ -36,16 +39,24 @@ def block_program(cfg: ModelConfig, li: int) -> List[Stage]:
         Stage(pre + "attn", "mha", k=cfg.head_dim, n=cfg.n_heads),
         Stage(pre + "attn_out", "mp", k=cfg.q_dim, n=d),
     ]
-    if cfg.d_ff:
-        gated = cfg.activation in ("swiglu", "geglu")
-        stages += [
-            Stage(pre + "ln2", "ln_res", k=d, n=d),
-            Stage(pre + "ffn_up", "mp", k=d,
-                  n=2 * cfg.d_ff if gated else cfg.d_ff),
+    if not cfg.d_ff:
+        return stages
+    up_n = 2 * cfg.d_ff if cfg.activation in ("swiglu", "geglu") \
+        else cfg.d_ff
+    stages.append(Stage(pre + "ln2", "ln_res", k=d, n=d))
+    if cfg.n_experts:
+        k = cfg.experts_per_token  # active experts per token
+        return stages + [
+            Stage(pre + "router", "func", k=d, n=cfg.n_experts),
+            Stage(pre + "moe_up", "mp", k=d, n=up_n * k),
             Stage(pre + "act", "func", k=cfg.d_ff, n=1),
-            Stage(pre + "ffn_down", "mp", k=cfg.d_ff, n=d),
+            Stage(pre + "moe_down", "mp", k=cfg.d_ff * k, n=d),
         ]
-    return stages
+    return stages + [
+        Stage(pre + "ffn_up", "mp", k=d, n=up_n),
+        Stage(pre + "act", "func", k=cfg.d_ff, n=1),
+        Stage(pre + "ffn_down", "mp", k=cfg.d_ff, n=d),
+    ]
 
 
 def model_program(cfg: ModelConfig) -> List[Stage]:

@@ -1,4 +1,4 @@
-"""Serving launcher: a dense decoder (``--arch``, GPT-2 345M by default),
+"""Serving launcher: a decoder (``--arch``, GPT-2 345M by default),
 W8A8 SmoothQuant, paged KV cache, chunked prefill and batched continuous
 decode on one NVIDIA H100.
 
@@ -7,6 +7,8 @@ decode on one NVIDIA H100.
         --device cpu --requests 4 --max-new 6                         # CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
         --reduced --device cpu                                        # RoPE
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
+        --reduced --device cpu                                        # MoE
     PYTHONPATH=src python -m repro_torch.launch.serve --profile out/  # trace
     PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram    # spec
     PYTHONPATH=src python -m repro_torch.launch.serve --spec model \

@@ -1,9 +1,12 @@
 """Transformer blocks: pre-norm attention + MLP with a shared residual.
 
 The ``attn`` kind only (global causal attention), which is every layer of
-GPT-2 and of the RoPE dense decoders (Llama, TinyLlama, Minitron, Gemma);
-the other kinds of the JAX package (``local_attn``, ``rglru``, ``mlstm``,
-``slstm``) raise ``NotImplementedError``.
+GPT-2, of the RoPE dense decoders (Llama, TinyLlama, Minitron, Gemma) and
+of the MoE decoders (OLMoE, Kimi K2); the other kinds of the JAX package
+(``local_attn``, ``rglru``, ``mlstm``, ``slstm``) raise
+``NotImplementedError``.  The FFN is a dense MLP, or with
+``cfg.n_experts`` a top-k MoE (``models/moe.py``) whose serving calls use
+exact capacity, as the reference's do; its aux loss is dropped here.
 
   * ``block_init``        — params for one layer
   * ``block_apply_seq``   — full-sequence path (calibration forward)
@@ -19,7 +22,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, moe
 from repro_torch.models.layers import apply_norm, mlp, mlp_init, norm_init
 
 
@@ -37,7 +40,11 @@ def block_init(gen, cfg: ModelConfig, kind: str, *, dtype=torch.float32,
                "attn": attention.attn_init(gen, cfg, **kw)}
     if cfg.d_ff > 0:
         p["ln2"] = norm_init(cfg.d_model, cfg.norm, **kw)
-        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation, **kw)
+        if cfg.n_experts:
+            p["moe"] = moe.moe_init(gen, cfg, **kw)
+        else:
+            p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation,
+                                **kw)
     return p
 
 
@@ -45,6 +52,10 @@ def _ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, name: str):
     if "mlp" in p:
         h = apply_norm(p["ln2"], x, cfg.norm)
         x = x + mlp(p["mlp"], h, cfg.activation, name + ".mlp")
+    elif "moe" in p:
+        h = apply_norm(p["ln2"], x, cfg.norm)
+        out, _ = moe.moe_apply(p["moe"], h, cfg, capacity_factor=None)
+        x = x + out
     return x
 
 

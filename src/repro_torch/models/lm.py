@@ -14,11 +14,12 @@ steps update it in place and also return it;
 :func:`gather_request_cache` / :func:`scatter_request_cache` copy one
 request's share of it to host memory and back (preemption to host).
 
-The stacks served are dense decoders with every layer global ``attn``:
-GPT-2 (learned positions, tied embeddings) and the RoPE family (Llama,
-TinyLlama, Minitron, Gemma: rotary positions, GQA, an untied ``lm_head``
-or a tied one); no MoE, no other block kind and no encoder.  Anything
-else raises ``NotImplementedError`` (:func:`check_supported`).
+The stacks served are decoders with every layer global ``attn``: GPT-2
+(learned positions, tied embeddings), the RoPE family (Llama, TinyLlama,
+Minitron, Gemma: rotary positions, GQA, an untied ``lm_head`` or a tied
+one) and the MoE decoders (OLMoE, Kimi K2: the same with a top-k MoE
+FFN); no other block kind and no encoder.  Anything else raises
+``NotImplementedError`` (:func:`check_supported`).
 """
 from __future__ import annotations
 
@@ -38,14 +39,12 @@ def check_supported(cfg: ModelConfig) -> None:
     bad = []
     if any(k != "attn" for k in cfg.block_pattern):
         bad.append(f"block kinds {sorted(set(cfg.block_pattern))}")
-    if cfg.n_experts:
-        bad.append("MoE")
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         bad.append("encoder/frontend")
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported (dense "
-            "global-attention decoder stacks only)")
+            f"{cfg.name}: {', '.join(bad)} not ported (global-attention "
+            "decoder stacks only)")
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, *, max_seq: int = 0,

@@ -51,9 +51,13 @@ for each step of a draft model.  The engine runs on ``device`` (default
 ``"cuda"``) and raises if that device is missing; the CPU tests pass
 ``device="cpu"``, which takes the plain versions.
 
-Not ported (they raise ``NotImplementedError``): replay prefill and ring
-tensor parallelism (``mesh=``); stacks other than global attention raise
-in :func:`repro_torch.models.lm.check_supported`.
+The stacks served are global-attention decoders with a dense or a MoE
+FFN (``models/moe.py``: the router and the expert banks stay in floating
+point under W8A8, as in the reference, and run as batched products in
+the activation stream's dtype).  Not ported (they raise
+``NotImplementedError``): replay prefill and ring tensor parallelism
+(``mesh=``); other block kinds, encoders and frontends raise in
+:func:`repro_torch.models.lm.check_supported`.
 """
 from __future__ import annotations
 

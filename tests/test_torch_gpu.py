@@ -963,3 +963,116 @@ def test_rope_engine_on_card_runs_every_kernel(h100, arch):
             assert n["paged_mha_decode"] == L * decodes
         else:
             assert n["mha_decode"] == L * decodes > 0
+
+
+# ---------------------------------------------------------------------------
+# the MoE decoders: olmoe-1b-7b's linears (q, k, v and out at 2048 x 2048,
+# the untied head of 50,304; the experts stay float) and the reduced MoE
+# engines
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 50304)])
+@pytest.mark.parametrize("M", [8, 32, 40])
+def test_mp_matmul_bitexact_at_olmoe_widths_on_card(h100, M, K, N):
+    """The W8A8 kernel at olmoe-1b-7b's quantized weight shapes, at a
+    decode tick's, a prefill chunk's and a chain verify's token counts,
+    with bias, float32 out: bit-identical, twice."""
+    rng = np.random.default_rng(M + K + N + 1)
+    args = _mp_case(rng, M, K, N, True, h100)
+    got = ops.quant_matmul(*args, out_dtype=torch.float32)
+    again = ops.quant_matmul(*args, out_dtype=torch.float32)
+    want = ref.quant_matmul_ref(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-a32b"])
+def test_moe_apply_on_card_makes_no_host_sync(h100, arch):
+    """The MoE FFN on the card never waits for it (its capacity comes from
+    the shapes alone), at exact capacity and with drops, and agrees with
+    the CPU: the same expert choices and slots, float32 outputs within
+    ``1e-5``.  The card's float32 products stay float32 (no TF32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import to_device
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch).reduced()
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    pd = to_device(p, h100)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (8, 5, cfg.d_model)).astype(np.float32))
+    xd = x.to(h100)
+    for cf in (None, 1.25):
+        moe.moe_apply(pd, xd, cfg, capacity_factor=cf)  # cuBLAS set-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, aux = moe.moe_apply(pd, xd, cfg, capacity_factor=cf)
+            route = moe.route(pd, xd.reshape(-1, cfg.d_model), cfg, cf)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want, want_aux = moe.moe_apply(p, x, cfg, capacity_factor=cf)
+        want_route = moe.route(p, x.reshape(-1, cfg.d_model), cfg, cf)
+        assert torch.equal(route[1].cpu(), want_route[1])
+        assert torch.equal(route[2].cpu(), want_route[2])
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+        assert abs(float(aux) - float(want_aux)) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "kimi-k2-1t-a32b"])
+def test_moe_engine_on_card_runs_every_kernel(h100, arch):
+    """A reduced MoE config's W8A8 engine on the card: paged plain, chain
+    speculation, tree speculation with a draft model, and stacked plain.
+    Every quantized linear (q, k, v, out and the head; the experts stay
+    float) goes through the MP kernel, every prefill chunk and verify
+    through its verify body, every decode step through its decode kernel,
+    and every request gets its tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import noisy_copy
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.speculative import SpecConfig
+
+    cfg = get_config(arch).reduced()
+    params = lm.init(cfg, torch.Generator(device=h100).manual_seed(0),
+                     device=h100)
+    draft = noisy_copy(params, 1)
+    calib = [np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 16))]
+    L = cfg.n_layers
+    runs = (("paged", None), ("paged", SpecConfig(k=3)),
+            ("paged", SpecConfig(k=4, proposer="model", draft_cfg=cfg,
+                                 draft_params=draft, tree=True, branch=2)),
+            ("stacked", None))
+    for layout, spec in runs:
+        eng = ServeEngine(cfg, params, batch_slots=2, max_seq=64, eos_id=-1,
+                          quantized=True, calibration_batches=calib,
+                          chunk_size=16, kv_layout=layout, spec=spec)
+        assert eng.device.type == "cuda"
+        for n in (5, 30, 12):
+            eng.submit(([3, 4, 5] * n)[:n], max_new=6)
+        ops.reset_launch_counts()
+        done = eng.run()
+        s, n = eng.stats(), ops.launch_counts()
+        assert len(done) == 3 and all(len(r.out) == 6 for r in done)
+        assert n["mp_matmul"] == (4 * L + 1) * s["model_calls"]
+        verifies = s.get("spec_ticks", 0)
+        decodes = s["model_calls"] - s["prefill_calls"] - verifies
+        if spec is not None:
+            assert verifies > 0
+        if layout == "stacked":
+            assert n["mha_decode"] == L * decodes > 0
+            assert n["paged_verify"] == n["paged_mha_decode"] == 0
+        elif spec is not None and spec.tree:
+            assert n["paged_verify_tree"] == L * verifies
+            assert n["paged_verify"] == L * s["prefill_calls"]
+            assert n["mha_decode"] > 0  # the draft's steps
+        else:
+            assert n["paged_verify"] == L * (s["prefill_calls"] + verifies)
+            assert n["paged_verify_tree"] == n["mha_decode"] == 0
+        assert n["paged_mha_decode"] == (0 if layout == "stacked"
+                                         else L * decodes)
