@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printed as it runs; any failure exits non-zero and nothing
-is caught and continued:
+Phases, each printed as it runs with the seconds since the start; any
+failure exits non-zero and nothing is caught and continued:
 
 1. Device: the card's name and power limit (``nvidia-smi``) and its
    compute capability, which must be (9, 0).
@@ -64,6 +64,16 @@ is caught and continued:
    to the CPU's and the output within 1e-4 at 8 tokens; timed whole, its
    router alone and its products alone, beside its bytes bound and the
    padded products' operations bound; one ``moe_ffn`` JSON line.
+   Then the hybrid stacks' kernels: ``mha_decode`` on
+   ``recurrentgemma-9b``'s ring (8 rows, 16 query heads over one KV head
+   of 256, a bf16 ring of 2,048 slots, lengths up to W + 1 as the ring
+   decode passes them; a row at W + 1 bit-identical to the same row at
+   W), held and timed as above, and ``mp_matmul`` at every quantized
+   (K, N) of a recurrentgemma RG-LRU and local-attention layer and an
+   ``xlstm-350m`` mLSTM layer; and one full-width W8A8 block of each
+   recurrent kind (RG-LRU with its GeGLU MLP, mLSTM, sLSTM) timed as a
+   decode step of 8 rows and a prefill chunk of 32 tokens, beside the
+   bytes it must move; one ``recurrent_blocks`` JSON line.
 5. Serving: full-width ``gpt2-345m`` with random weights from a seeded
    generator, W8A8 SmoothQuant calibrated on seeded prompts, paged KV
    cache, chunk 32, 8 slots, ``max_seq`` 1024, 16 greedy requests with
@@ -111,14 +121,15 @@ is caught and continued:
     their range, and each one's margin of its own token over the other's
     is at most twice their largest logit difference, the most that
     difference can overturn.
-11. The RoPE dense family and the MoE decoder at full width
-    (``FAMILY_RUNS``): ``llama3-8b`` (32 layers, d 4096, 32 heads over 8
-    of 128, vocab 128,256, an untied head) paged plain, paged chain
-    speculation (n-gram, k 4) and stacked plain, then ``gemma-7b`` (28
-    layers, d 3072, 16 heads of 256, vocab 256,000) paged and stacked
-    plain, then ``olmoe-1b-7b`` (16 layers, d 2048, 16 heads of 128, 64
-    float32 experts of d_ff 1024 and top 8 at exact capacity, vocab
-    50,304, an untied head) paged plain, paged chain and stacked plain.
+11. The RoPE dense family and the MoE decoder at full width, at a
+    quarter of their depth (``FAMILY_LAYERS``; ``FAMILY_RUNS``):
+    ``llama3-8b`` (8 of 32 layers, d 4096, 32 heads over 8 of 128, vocab
+    128,256, an untied head) paged plain, paged chain speculation
+    (n-gram, k 4) and stacked plain, then ``gemma-7b`` (7 of 28 layers,
+    d 3072, 16 heads of 256, vocab 256,000) paged and stacked plain, then
+    ``olmoe-1b-7b`` (4 of 16 layers, d 2048, 16 heads of 128, 64 float32
+    experts of d_ff 1024 and top 8 at exact capacity, vocab 50,304, an
+    untied head) paged plain, paged chain and stacked plain.
     Random weights from a seeded generator, W8A8 SmoothQuant calibrated
     on 2 x 128 seeded tokens, the engine settings of phase 5, 8 requests
     of 64 new tokens on prompts of 16-512 tokens that repeat short runs.
@@ -126,9 +137,22 @@ is caught and continued:
     match its calls; every run's streams are held to the paged plain
     run's under the near-tie rule (for olmoe with phase 12's routing
     near-ties), logits recomputed in the batch shapes of each run; each
-    model is freed before the next, and the peak memory printed.
+    model is freed before the next, and the peak memory printed.  Then
+    the hybrid stacks at full width and full depth
+    (``HYBRID_MAX_SEQ``): ``recurrentgemma-9b`` (38 layers: 26 RG-LRU of
+    width 4,096 and 12 local attention of 16 heads over one KV head of
+    256 on a ring of 2,048 slots, GeGLU 12,288, vocab 256,000, tied;
+    ``max_seq`` 2,048) and ``xlstm-350m`` (24 layers: 18 mLSTM of 4 heads
+    of 256 and 6 sLSTM, d 1024, vocab 50,304; ``max_seq`` 1,024), each
+    stacked plain and stacked chain, 8 requests of 64 new tokens on six
+    prompts of 16-512 tokens and two of 2,100-2,400 (rings wrap in
+    prefill and decode, requests run past ``max_seq``: no ceiling); the
+    MP kernel's, the ring decode's and the paged kernels' launches
+    checked against the calls; the chain run held to the plain one.
 12. Reduced-config agreement (as phase 10) for ``llama3-8b``,
-    ``gemma-7b``, ``olmoe-1b-7b`` and ``kimi-k2-1t-a32b``.  For a MoE
+    ``gemma-7b``, ``olmoe-1b-7b``, ``kimi-k2-1t-a32b``,
+    ``recurrentgemma-9b`` and ``xlstm-350m`` (the hybrid ones on the
+    stacked layout, plain and chain: they refuse the tree).  For a MoE
     stack the near-tie rule also takes a routing near-tie: at a parting,
     the routers' choices along the shared history are recorded on both
     sides, and where they differ the logits may differ by more than
@@ -149,12 +173,14 @@ is caught and continued:
     calls; last of the measuring phases because the profiler leaves later
     launches slower.
 14. One ``kernels`` JSON line (six kernels, each with its launches on its
-    own path and per run, and the RoPE family's rows under
-    ``wide_heads``), the total time, the card's name and power limit, then
-    the device JSON line last.
+    own path and per run, the RoPE family's rows under ``wide_heads``
+    and ``family_widths``, the hybrid stacks' under ``hybrid``), the
+    total time, the card's name and power limit, then the device JSON
+    line last.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -174,7 +200,7 @@ from repro_torch.core import scheduler  # noqa: E402
 from repro_torch.core.mdk import MDK_REGISTRY  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import lm, moe  # noqa: E402
+from repro_torch.models import blocks, lm, moe  # noqa: E402
 from repro_torch.models.layers import activation_fn, to_device  # noqa: E402
 from repro_torch.serving.admission import (  # noqa: E402
     FIFOAdmission, OvercommitAdmission)
@@ -220,13 +246,27 @@ LN_SCALE_RTOL, LN_YQ_EQUAL = 1e-5, 0.999
 #: the RoPE family's head shapes held and timed beside GPT-2's: groups 4
 #: and 3 at D 128, and D 256
 WIDE_ARCHS = ("llama3-8b", "minitron-4b", "gemma-7b", "olmoe-1b-7b")
-#: the full-width serving phases: config -> runs (layout, variant)
+#: the full-width serving phases: config -> runs (layout, variant), and
+#: the depth each config serves at (a quarter of its layers: the hybrid
+#: stacks' phases took the time)
+FAMILY_LAYERS = {"llama3-8b": 8, "gemma-7b": 7, "olmoe-1b-7b": 4}
 FAMILY_RUNS = {"llama3-8b": ("paged plain", "paged chain", "stacked plain"),
                "gemma-7b": ("paged plain", "stacked plain"),
                "olmoe-1b-7b": ("paged plain", "paged chain",
                                "stacked plain")}
 #: the reduced-config agreement phases after GPT-2's
-AGREE_ARCHS = ("llama3-8b", "gemma-7b", "olmoe-1b-7b", "kimi-k2-1t-a32b")
+AGREE_ARCHS = ("llama3-8b", "gemma-7b", "olmoe-1b-7b", "kimi-k2-1t-a32b",
+               "recurrentgemma-9b", "xlstm-350m")
+#: the hybrid stacks at full width, stacked plain and chain: config ->
+#: max_seq (recurrentgemma's ring is then its published 2,048-token
+#: window); six prompts of 16-512 tokens and two of 2,100-2,400, which
+#: wrap the rings in prefill and decode and run past max_seq
+HYBRID_MAX_SEQ = {"recurrentgemma-9b": 2048, "xlstm-350m": 1024}
+HYBRID_LONG = (2100, 2400)
+#: the recurrent blocks timed alone: (config, kind), at a decode tick's
+#: rows and a prefill chunk's tokens
+RECURRENT_BLOCKS = (("recurrentgemma-9b", "rglru"), ("xlstm-350m", "mlstm"),
+                    ("xlstm-350m", "slstm"))
 #: the MoE FFN timed alone: a decode tick's tokens and a prefill chunk's
 MOE_TIMED_T = (SLOTS, CHUNK)
 #: the over-commit phase's page pool (pages of 16, the null page included):
@@ -249,8 +289,12 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+#: the script's start, for the elapsed time each phase header prints
+T_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} [{time.perf_counter() - T_START:.1f} s]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1214,50 +1258,58 @@ def family_mp_phase(dev, timer):
             layer += [(d, cfg.d_ff)] * (1 + gated) + [(cfg.d_ff, d)]
         head = [] if cfg.tie_embeddings else [(d, cfg.vocab_size)]
         for what, calls in (("one decoder layer", layer), ("head", head)):
-            if not calls:
-                continue
-            for M in (SLOTS, CHUNK, SLOTS * (CHAIN_K + 1)):
-                seen = {}
-                for K, N in calls:
-                    if (K, N) not in seen:
-                        args = mp_inputs(rng, M, K, N, dev, bias=True)
-                        got = ops.quant_matmul(*args)
-                        again = ops.quant_matmul(*args)
-                        want = ref.quant_matmul_ref(*args)
-                        check(torch.equal(got, want)
-                              and torch.equal(got, again),
-                              f"mp_matmul {arch} M={M} K={K} N={N}: not "
-                              "bit-identical")
-                        seen[(K, N)] = args[:4]
-                if M == CHAIN_K * SLOTS + SLOTS:
-                    continue
-                t = tp = b = 0.0
-                for K, N in calls:
-                    x, w, xs, ws = seen[(K, N)]
-                    # float32 out, as a W8A8 engine's activations
-                    t += timer.ms(partial(ops.quant_matmul, x, w, xs, ws,
-                                          out_dtype=torch.float32))
-                    tp += timer.ms(partial(ref.quant_matmul_ref, x, w, xs,
-                                           ws, out_dtype=torch.float32))
-                    b += bound_ms(M * K + K * N + 4 * (M + N) + 4 * M * N,
-                                  2 * M * K * N, "int8")[0]
-                tl = None
-                if M > 16:  # torch._int_mm takes M > 16 only
-                    tl = sum(timer.ms(partial(
-                        lambda x, w, xs, ws: (torch._int_mm(x, w).float()
-                                              * xs) * ws, *seen[kn]))
-                        for kn in calls)
-                r = {"model": arch, "shape": f"{what}, {len(calls)} calls "
+            if calls:
+                rows += mp_rows(timer, rng, arch, what, calls, dev)
+    return rows
+
+
+def mp_rows(timer, rng, arch, what, calls, dev):
+    """``mp_matmul`` at the (K, N) of ``calls`` (one layer's, or a head):
+    bit-identical to its plain version at a decode tick's rows, a prefill
+    chunk's and a chain verify's (8, 32, 40), with bias and bf16 out, two
+    calls equal; then all the calls timed together at M 8 and 32 (beside
+    ``torch._int_mm`` and the same epilogue at 32), float32 out as in a
+    W8A8 engine.  Returns one row per timed M."""
+    rows = []
+    for M in (SLOTS, CHUNK, SLOTS * (CHAIN_K + 1)):
+        seen = {}
+        for K, N in calls:
+            if (K, N) not in seen:
+                args = mp_inputs(rng, M, K, N, dev, bias=True)
+                got = ops.quant_matmul(*args)
+                again = ops.quant_matmul(*args)
+                want = ref.quant_matmul_ref(*args)
+                check(torch.equal(got, want) and torch.equal(got, again),
+                      f"mp_matmul {arch} M={M} K={K} N={N}: not "
+                      "bit-identical")
+                seen[(K, N)] = args[:4]
+        if M == CHAIN_K * SLOTS + SLOTS:
+            continue
+        t = tp = b = 0.0
+        for K, N in calls:
+            x, w, xs, ws = seen[(K, N)]
+            # float32 out, as a W8A8 engine's activations
+            t += timer.ms(partial(ops.quant_matmul, x, w, xs, ws,
+                                  out_dtype=torch.float32))
+            tp += timer.ms(partial(ref.quant_matmul_ref, x, w, xs, ws,
+                                   out_dtype=torch.float32))
+            b += bound_ms(M * K + K * N + 4 * (M + N) + 4 * M * N,
+                          2 * M * K * N, "int8")[0]
+        tl = None
+        if M > 16:  # torch._int_mm takes M > 16 only
+            tl = sum(timer.ms(partial(
+                lambda x, w, xs, ws: (torch._int_mm(x, w).float() * xs) * ws,
+                *seen[kn])) for kn in calls)
+        rows.append({"model": arch, "shape": f"{what}, {len(calls)} calls "
                      f"{sorted(set(calls))} at M={M}", "ms": t,
                      "plain_ms": tp, "library_ms": tl, "bound_ms": b,
-                     "bound_by": "bytes"}
-                rows.append(r)
-                print(f"mp_matmul {arch} {what} ({len(calls)} calls) at "
-                      f"M={M}: bit-identical at M {SLOTS}, {CHUNK} and "
-                      f"{SLOTS * (CHAIN_K + 1)}, two calls equal; kernel "
-                      f"{t:.4f} ms, plain {tp:.4f} ms, library "
-                      f"{'n/a (M <= 16)' if tl is None else f'{tl:.4f}'} ms, "
-                      f"bound {b:.5f} ms")
+                     "bound_by": "bytes"})
+        print(f"mp_matmul {arch} {what} ({len(calls)} calls) at M={M}: "
+              f"bit-identical at M {SLOTS}, {CHUNK} and "
+              f"{SLOTS * (CHAIN_K + 1)}, two calls equal; kernel {t:.4f} "
+              f"ms, plain {tp:.4f} ms, library "
+              f"{'n/a (M <= 16)' if tl is None else f'{tl:.4f}'} ms, bound "
+              f"{b:.5f} ms")
     return rows
 
 
@@ -1335,6 +1387,246 @@ def moe_ffn_phase(dev, timer):
     return rows
 
 
+def mp_per_call(cfg) -> int:
+    """``mp_matmul`` launches of one model call: q, k, v and out of each
+    attention layer, in_proj and out_proj of each RG-LRU, qkv, o_gate and
+    out of each mLSTM (sLSTM's gates and a MoE's experts stay float), the
+    MLP's two or three and an untied head."""
+    per_kind = {"attn": 4, "local_attn": 4, "rglru": 2, "mlstm": 3,
+                "slstm": 0}
+    ffn = 0 if (cfg.n_experts or not cfg.d_ff) else (
+        3 if cfg.activation in ("swiglu", "geglu") else 2)
+    return sum(per_kind[k] + (ffn if k != "slstm" else 0)
+               for k in map(cfg.block_kind, range(cfg.n_layers))) + (
+        not cfg.tie_embeddings)
+
+
+def hybrid_kernels_phase(dev, timer):
+    """The two kernels of the hybrid stacks' path at their shapes.
+    ``mha_decode`` on ``recurrentgemma-9b``'s ring: 8 rows of 16 query
+    heads (float32, a W8A8 engine's) over one KV head of 256 on a bf16
+    ring of W = 2,048 slots, at the lengths the ring decode passes
+    (``min(len, W) + 1``: W + 1 once the ring is full) and shorter ones;
+    held to its plain version per output vector, two calls bit-identical,
+    a row at W + 1 bit-identical to the same row at W; timed beside its
+    plain version, SDPA and its bound.  ``mp_matmul`` at every quantized
+    (K, N) of a ``recurrentgemma-9b`` RG-LRU layer and local-attention
+    layer (each with its GeGLU MLP) and of an ``xlstm-350m`` mLSTM layer,
+    as ``mp_rows`` holds and times them.  Returns ({"mha_decode": rows,
+    "mp_matmul": rows})."""
+    phase("kernels at the hybrid stacks' shapes (recurrentgemma-9b's ring, "
+          "both stacks' linears)")
+    rng = np.random.default_rng(12)
+    cfg = get_config("recurrentgemma-9b")
+    H, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    lengths_np = np.array([W + 1, W + 1, W, 1, 300, 1024, W - 1, 1700],
+                          np.int32)
+    q = torch.from_numpy(rng.standard_normal((SLOTS, H, D)).astype(
+        np.float32)).to(dev)
+    k, v = (torch.from_numpy(rng.standard_normal((SLOTS, Hkv, W, D)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(2))
+    for t in (q, k, v):
+        t[2] = t[1]  # rows 1 and 2: one query and ring, lengths W + 1, W
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    call = partial(ops.mha_decode, q, k, v, lengths)
+    got, again = call(), call()
+    want = ref.mha_decode_ref(q, k, v, lengths)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    label = f"recurrentgemma-9b ring (H {H} / Hkv {Hkv}, D {D})"
+    check(rel <= ATTN_REL_TOL and torch.equal(got, again)
+          and torch.equal(got[1], got[2]),
+          f"mha_decode {label}: rel err {rel}, two calls differ, or W + 1 "
+          "differs from W")
+    keys = np.minimum(lengths_np, W)
+    tot = int(keys.sum())
+    mask = (torch.arange(W, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    qs = q[:, :, None].to(torch.bfloat16)
+    t = timer.ms(call)
+    tp = timer.ms(partial(ref.mha_decode_ref, q, k, v, lengths))
+    tl = timer.ms(partial(F.scaled_dot_product_attention, qs, k, v,
+                          attn_mask=mask, enable_gqa=True))
+    b, by = bound_ms(2 * tot * Hkv * D * 2 + 2 * SLOTS * H * D * 4
+                     + 4 * SLOTS, 4 * tot * H * D, "f32")
+    shape = (f"B={SLOTS} S={W} bf16 ring, lengths {lengths_np.tolist()} "
+             f"({tot} keys)")
+    ring = {"model": label, "shape": shape, "max_abs_err": err,
+            "max_rel_err": rel, "ms": t, "plain_ms": tp, "library_ms": tl,
+            "bound_ms": b, "bound_by": by}
+    PROFILED.append((f"mha_decode {label}", ring, "by_kernel", call,
+                     ("decode::", "verify::")))
+    print(f"mha_decode {label} {shape}: max abs err {err:.3e} (rel "
+          f"{rel:.3e} <= {ATTN_REL_TOL}), two calls bit-identical, W + 1 = "
+          f"W; kernel {t:.4f} ms, plain {tp:.4f} ms, SDPA {tl:.4f} ms, "
+          f"bound {b:.5f} ms ({by})")
+    del k, v
+    d, w, ff = cfg.d_model, cfg.lru_width, cfg.d_ff
+    mlp = [(d, ff), (d, ff), (ff, d)]
+    xcfg = get_config("xlstm-350m")
+    xd = xcfg.d_model
+    layers = (("recurrentgemma-9b", "one RG-LRU layer",
+               [(d, 2 * w), (w, d)] + mlp),
+              ("recurrentgemma-9b", "one local-attention layer",
+               [(d, cfg.q_dim), (d, cfg.kv_dim), (d, cfg.kv_dim),
+                (cfg.q_dim, d)] + mlp),
+              ("xlstm-350m", "one mLSTM layer",
+               [(xd, xcfg.q_dim + 2 * xcfg.kv_dim), (xd, xcfg.q_dim),
+                (xcfg.q_dim, xd)]))
+    mp = []
+    for arch, what, calls in layers:
+        mp += mp_rows(timer, rng, arch, what, calls, dev)
+    return {"mha_decode": [ring], "mp_matmul": mp}
+
+
+def recurrent_block_phase(dev, timer):
+    """One full-width W8A8 block of each recurrent kind (RG-LRU of
+    ``recurrentgemma-9b`` with its GeGLU MLP; mLSTM and sLSTM of
+    ``xlstm-350m``), timed as the engine calls it: a decode step of 8
+    rows and a prefill chunk of 32 tokens, beside the bytes the call must
+    move (the block's weights, its state read and written, the
+    activations in and out).  The recurrences run in plain PyTorch, as
+    in the reference; the output must be finite.  Returns the rows."""
+    phase("recurrent blocks (full width, W8A8, plain PyTorch recurrences)")
+    rows = []
+    for arch, kind in RECURRENT_BLOCKS:
+        cfg = get_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        p = blocks.block_init(gen, cfg, kind, device=dev)
+        qp = quantize_model_params({"layers": [p]}, cfg)["layers"][0]
+        del p
+        w_bytes = sum(t.numel() * t.element_size() for t in _tensors(qp))
+        ts = {}
+        for T in (SLOTS, CHUNK):
+            B, C = (T, 1) if T == SLOTS else (1, T)
+            x = torch.randn((B, C, cfg.d_model), generator=gen, device=dev)
+            cache = blocks.block_init_cache(cfg, kind, B, MAX_SEQ,
+                                            device=dev)
+            s_bytes = sum(t.numel() * t.element_size()
+                          for t in cache.values())
+            if T == SLOTS:
+                lengths = torch.arange(1, B + 1, dtype=torch.int32,
+                                       device=dev) * 100
+                call = partial(blocks.block_apply_step, qp, x, cache,
+                               lengths, cfg, kind)
+            else:
+                pos = 100 + torch.arange(C, device=dev)[None]
+                call = partial(blocks.block_apply_chunk, qp, x, cache, cfg,
+                               kind, positions=pos)
+            out = call()[0]
+            check(bool(torch.isfinite(out).all()),
+                  f"{kind} block T={T}: non-finite output")
+            t = timer.ms(call)
+            nbytes = w_bytes + 2 * s_bytes + 2 * x.numel() * 4
+            b = 1e3 * nbytes / HBM_BYTES_PER_S
+            ts[T] = (t, b)
+            rows.append({"model": arch, "kind": kind, "T": T, "ms": t,
+                         "bound_ms": b, "bound_by": "bytes",
+                         "bytes": nbytes})
+        print(f"{kind} block ({arch}, W8A8 weights {w_bytes / 2**20:.1f} "
+              f"MiB): T={SLOTS} decode step {ts[SLOTS][0]:.4f} ms against "
+              f"a bytes bound of {ts[SLOTS][1]:.5f} ms; T={CHUNK} prefill "
+              f"chunk {ts[CHUNK][0]:.4f} ms against {ts[CHUNK][1]:.5f} ms")
+        del qp
+        torch.cuda.empty_cache()
+    print(json.dumps({"recurrent_blocks": rows}))
+    return rows
+
+
+def hybrid_serving_phase(dev, arch):
+    """Full-width W8A8 serving of a hybrid stack (``HYBRID_MAX_SEQ``):
+    random weights from a seeded generator, SmoothQuant calibrated on 2 x
+    128 seeded tokens, 8 slots, chunk 32, 8 requests of 64 new tokens:
+    six prompts of 16-512 tokens that repeat short runs and two of
+    2,100-2,400, past ``max_seq`` (window-capped stacks take any length).
+    Stacked plain and stacked chain speculation (n-gram, k ``CHAIN_K``),
+    each with its launch counts zeroed before and read after: the MP
+    kernel at the block pattern's count per model call, the contiguous
+    decode kernel once per local-attention layer and decode step, no
+    paged kernel.  The chain run's streams held to the plain run's under
+    the near-tie rule, logits recomputed in each run's batch shapes.  The
+    model is freed at the end.  Returns each run's launch counts."""
+    cfg = get_config(arch)
+    max_seq = HYBRID_MAX_SEQ[arch]
+    phase(f"serving (full-width {arch}, W8A8, stacked plain and chain, "
+          f"max_seq {max_seq})")
+    rng = np.random.default_rng(7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    n_params = sum(t.numel() for t in _tensors(params))
+    stats = calibrate(params, cfg, [rng.integers(1, cfg.vocab_size,
+                                                 (2, 128))])
+    qparams = quantize_model_params(params, cfg, stats)
+    del params, stats
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    q_bytes = sum(t.numel() * t.element_size() for t in _tensors(qparams))
+    kinds = [cfg.block_kind(li) for li in range(cfg.n_layers)]
+    n_local = kinds.count("local_attn")
+    print(f"{arch}: {cfg.n_layers} layers "
+          f"({', '.join(f'{kinds.count(k)} {k}' for k in sorted(set(kinds)))}"
+          f"), d {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV "
+          f"heads of {cfg.head_dim}, window {cfg.window}, lru width "
+          f"{cfg.lru_width}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+          f"{n_params / 1e9:.3f} B parameters drawn in float32 on the card, "
+          f"calibrated and quantized in {time.perf_counter() - t0:.2f} s; "
+          f"W8A8 model {q_bytes / 2**30:.2f} GiB; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    prompts = repetitive_prompts(rng, SPEC_REQUESTS - 2, cfg.vocab_size,
+                                 *SPEC_PROMPT_LENS)
+    prompts += repetitive_prompts(rng, 2, cfg.vocab_size, *HYBRID_LONG)
+    check(max(map(len, prompts)) > max_seq and (
+        n_local == 0 or max(map(len, prompts)) > cfg.window),
+        f"{arch}: no prompt runs past the cache or the window")
+    streams, out = {}, {}
+    for run in ("stacked plain", "stacked chain"):
+        spec = SpecConfig(k=CHAIN_K) if run.endswith("chain") else None
+        eng = ServeEngine(cfg, qparams, batch_slots=SLOTS, max_seq=max_seq,
+                          eos_id=-1, act_dtype=torch.float32,
+                          chunk_size=CHUNK, seed=0, device=dev, spec=spec)
+        check(eng.kv_layout == "stacked" and eng.seq_ceiling is None,
+              f"{arch}: not on the stacked layout without a ceiling")
+        got, s, n, _ = engine_run(f"{arch} {run}", eng, prompts, SPEC_NEW)
+        check(len(got) == len(prompts) and all(
+            0 <= t < cfg.vocab_size for o in got.values() for t in o),
+            f"{arch} {run}: a request was not served, or a token lies "
+            "outside the vocabulary")
+        verifies = s.get("spec_ticks", 0)
+        decodes = s["model_calls"] - s["prefill_calls"] - verifies
+        if spec is not None:
+            print(f"{arch} {run}: acceptance {s['acceptance_rate']:.3f} "
+                  f"({s['spec_accepted']}/{s['spec_proposed']}), "
+                  f"{verifies} verify calls")
+        print(f"{arch} {run} stats:", json.dumps(s, sort_keys=True))
+        check(n["mp_matmul"] == mp_per_call(cfg) * s["model_calls"]
+              and n["mha_decode"] == n_local * decodes
+              and (n_local == 0 or decodes > 0)
+              and n["paged_mha_decode"] == n["paged_verify"]
+              == n["paged_verify_tree"] == 0
+              and (spec is None or verifies > 0),
+              f"{arch} {run}: launch counts {n} do not match the calls")
+        streams[run], out[f"{arch} {run}"] = got, n
+        del eng
+        torch.cuda.empty_cache()
+    shape = dict(max_seq=max_seq, chunk=CHUNK, rows=SLOTS, layout="stacked")
+    hold_streams(f"{arch} stacked chain vs stacked plain on the card",
+                 (streams["stacked chain"], streams["stacked plain"]),
+                 prompts,
+                 (lambda p, h: logits_after(qparams, cfg, p, h, dev,
+                                            verify=CHAIN_K + 1, **shape),
+                  lambda p, h: logits_after(qparams, cfg, p, h, dev,
+                                            **shape)), SPEC_NEW)
+    del qparams
+    torch.cuda.empty_cache()
+    print(f"{arch}: freed; memory allocated now "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return out
+
+
 def family_serving_phase(dev, arch):
     """Full-width W8A8 serving of a RoPE dense or MoE config (whose router
     and float32 expert banks stay unquantized): random weights from
@@ -1346,9 +1638,11 @@ def family_serving_phase(dev, arch):
     before and read after and checked against its calls; every other
     run's streams held to the paged plain run's under the near-tie rule,
     the logits recomputed in the batch shapes of each run.  The model is
-    freed at the end.  Returns each run's launch counts."""
-    cfg = get_config(arch)
-    phase(f"serving (full-width {arch}, W8A8, "
+    freed at the end.  Depth is cut to ``FAMILY_LAYERS[arch]`` layers;
+    every width is the config's.  Returns each run's launch counts."""
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=FAMILY_LAYERS[arch])
+    phase(f"serving (full-width {arch} at {cfg.n_layers} layers, W8A8, "
           f"{', '.join(FAMILY_RUNS[arch])})")
     rng = np.random.default_rng(7)
     torch.cuda.synchronize()
@@ -1377,9 +1671,6 @@ def family_serving_phase(dev, arch):
     prompts = repetitive_prompts(rng, SPEC_REQUESTS, cfg.vocab_size,
                                  *SPEC_PROMPT_LENS)
     L = cfg.n_layers
-    gated = cfg.activation in ("swiglu", "geglu")
-    ffn_mp = 0 if cfg.n_experts else 2 + gated  # experts stay float
-    mp_per_call = (4 + ffn_mp) * L + (not cfg.tie_embeddings)
     streams, out = {}, {}
     for run in FAMILY_RUNS[arch]:
         layout, variant = run.split()
@@ -1405,7 +1696,7 @@ def family_serving_phase(dev, arch):
             ok = (n["mha_decode"] == L * decodes > 0
                   and n["paged_mha_decode"] == n["paged_verify"]
                   == n["paged_verify_tree"] == 0)
-        check(ok and n["mp_matmul"] == mp_per_call * s["model_calls"]
+        check(ok and n["mp_matmul"] == mp_per_call(cfg) * s["model_calls"]
               and (spec is None or verifies > 0),
               f"{arch} {run}: launch counts {n} do not match the calls")
         streams[run], out[f"{arch} {run}"] = got, n
@@ -1604,8 +1895,14 @@ def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
     speculative verify calls of that width instead of decode steps.  The
     request is row 0 of a batch of ``rows`` (the others parked), so every
     call has the engine's shapes: the float32 matrix products round
-    differently at different row counts."""
+    differently at different row counts.  The cache after the prompt's
+    prefill is kept for the next call with the same model, prompt and
+    shapes (the near-tie rule asks both computations at each parting;
+    their prefills are the same calls), which starts from a copy."""
     lengths = torch.full((rows,), max_seq, dtype=torch.int32)
+    key = (id(params), cfg, tuple(prompt), str(dev), max_seq, page, chunk,
+           rows, layout, RouterProbe.active is None)
+    hit = _PREFILLED.get("key") == key
     if layout == "paged":
         n_pg = max_seq // page
         cache = lm.init_cache(cfg, 1 + n_pg, page, device=dev)
@@ -1618,10 +1915,14 @@ def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
         step = {"block_table": bts, "active": active}
         ver = {"block_tables": bts}
     else:
-        cache = lm.init_cache(cfg, rows, max_seq, layout="stacked",
-                              device=dev)
+        cache = (None if hit else lm.init_cache(
+            cfg, rows, max_seq, layout="stacked", device=dev))
         into, step, ver = {"slot": 0}, {}, {}
-    for off in range(0, len(prompt), chunk):
+    if hit:
+        lg = _PREFILLED["logits"]
+        cache = {"layers": [{k: t.clone() for k, t in layer.items()}
+                            for layer in _PREFILLED["cache"]["layers"]]}
+    for off in range(0, 0 if hit else len(prompt), chunk):
         piece = prompt[off:off + chunk]
         toks = torch.zeros(chunk, dtype=torch.int64)
         toks[:len(piece)] = torch.tensor(piece)
@@ -1630,6 +1931,11 @@ def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
         lg, cache = lm.prefill_into_slot(
             params, cfg, toks.to(dev), cache, off, valid=len(piece),
             dtype=torch.float32, **into)
+    if not hit and RouterProbe.active is None:
+        _PREFILLED.clear()
+        _PREFILLED.update(key=key, logits=lg, cache={"layers": [
+            {k: t.clone() for k, t in layer.items()}
+            for layer in cache["layers"]]})
     if verify:
         for off in range(0, len(forced), verify):
             piece = forced[off:off + verify]
@@ -1654,6 +1960,10 @@ def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
             dtype=torch.float32, **step)
         lg = lg[0]
     return lg.float().cpu()
+
+
+#: the last prefill of ``logits_after``: {"key", "logits", "cache"}
+_PREFILLED = {}
 
 
 class RouterProbe:
@@ -2125,7 +2435,9 @@ def agreement_phase(dev, arch="gpt2-345m"):
     rounds probabilities to bf16, the kernels keep them in float32).  So
     the served streams must be equal up to where they part, and each
     parting must be such a near-tie.  Plain decode, chain speculation and
-    tree speculation with a draft model, on ``arch``'s reduced config."""
+    tree speculation with a draft model, on ``arch``'s reduced config; a
+    hybrid stack (rings, recurrent states) serves on the stacked layout
+    and without the tree, which it refuses."""
     phase(f"reduced-config agreement ({arch}, card vs CPU, same W8A8 "
           "weights)")
     cfg = get_config(arch).reduced()
@@ -2142,8 +2454,10 @@ def agreement_phase(dev, arch="gpt2-345m"):
     prompts += [shared + [5, 6], shared + [7]]
     cpu_dev = torch.device("cpu")
     qdev = to_device(qparams, dev)
-    fns = (lambda p, h: logits_after(qdev, cfg, p, h, dev),
-           lambda p, h: logits_after(qparams, cfg, p, h, cpu_dev))
+    layout = "paged" if blocks.page_addressable(cfg) else "stacked"
+    fns = (lambda p, h: logits_after(qdev, cfg, p, h, dev, layout=layout),
+           lambda p, h: logits_after(qparams, cfg, p, h, cpu_dev,
+                                     layout=layout))
     variants = {
         "plain": None,
         "chain": SpecConfig(k=CHAIN_K),
@@ -2151,6 +2465,8 @@ def agreement_phase(dev, arch="gpt2-345m"):
                            draft_params=draft, tree=True,
                            branch=TREE_BRANCH),
     }
+    if layout == "stacked":
+        del variants["tree"]
     agree = {}
     for name, spec in variants.items():
         outs = []  # [card, CPU]
@@ -2180,7 +2496,6 @@ def main() -> int:
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
-    t_start = time.perf_counter()
     smi = device_phase()
     build_phase()
     timer = Timer(dev)
@@ -2188,7 +2503,10 @@ def main() -> int:
     for name, rows in wide_heads_phase(dev, timer).items():
         entries[name]["wide_heads"] = rows
     entries["mp_matmul"]["family_widths"] = family_mp_phase(dev, timer)
+    for name, rows in hybrid_kernels_phase(dev, timer).items():
+        entries[name]["hybrid"] = rows
     moe_ffn_phase(dev, timer)
+    recurrent_block_phase(dev, timer)
     del timer
     launches, qparams, cfg = serving_phase(dev)
     ln_launches = mdk_program_phase(dev, qparams, cfg)
@@ -2200,6 +2518,8 @@ def main() -> int:
     family_launches = {}
     for arch in FAMILY_RUNS:
         family_launches.update(family_serving_phase(dev, arch))
+    for arch in HYBRID_MAX_SEQ:
+        family_launches.update(hybrid_serving_phase(dev, arch))
     for arch in AGREE_ARCHS:
         agreement_phase(dev, arch)
     by_kernel_phase(dev, entries)
@@ -2223,7 +2543,7 @@ def main() -> int:
         check(e["launches"] > 0, f"kernel {name} never launched on its path")
         kernels.append(e)
     check(len(kernels) == 6, f"{len(kernels)} kernels in the line")
-    print(f"total {time.perf_counter() - t_start:.1f} s on {smi}")
+    print(f"total {time.perf_counter() - T_START:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

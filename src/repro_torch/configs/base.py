@@ -109,7 +109,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401  (each registers)
         gemma_7b, gpt2_345m, kimi_k2, llama3_8b, minitron_4b, olmoe_1b_7b,
-        tinyllama_1_1b)
+        recurrentgemma_9b, tinyllama_1_1b, xlstm_350m)
 
 
 def get_config(name: str) -> ModelConfig:

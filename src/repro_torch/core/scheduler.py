@@ -3,11 +3,11 @@
 Turns a model config into an explicit sequence of (stage, MDK kind)
 pairs.  The analytic perf model walks the same program, and the serving
 engine reports its per-token kernel reuse from it.  A copy of the JAX
-package's ``repro/core/scheduler.py`` for the stacks this package serves
-(global-attention blocks with a dense or a MoE FFN).  As in the
-reference, a MoE block's expert products are priced as MP-kernel stages
-(``moe_up``, ``moe_down``, k experts a token) although the W8A8
-conversion leaves the expert banks in floating point.
+package's ``repro/core/scheduler.py`` for every decoder block kind.  As
+in the reference, some stages are priced as MP-kernel stages although
+the W8A8 conversion leaves them in floating point: a MoE block's expert
+products (``moe_up``, ``moe_down``, k experts a token) and sLSTM's
+``gates``.
 """
 from __future__ import annotations
 
@@ -27,23 +27,24 @@ class Stage:
     n: int = 0
 
 
-def block_program(cfg: ModelConfig, li: int) -> List[Stage]:
-    kind = cfg.block_kind(li)
-    if kind != "attn":
-        raise NotImplementedError(
-            f"stage program for block kind {kind!r} is not ported")
+def _attn_stages(cfg: ModelConfig, li: int, local: bool) -> List[Stage]:
     d, pre = cfg.d_model, f"l{li}."
-    stages = [
+    return [
         Stage(pre + "ln1", "ln_res", k=d, n=d),
         Stage(pre + "qkv", "mp", k=d, n=cfg.q_dim + 2 * cfg.kv_dim),
-        Stage(pre + "attn", "mha", k=cfg.head_dim, n=cfg.n_heads),
+        Stage(pre + ("local_attn" if local else "attn"), "mha",
+              k=cfg.head_dim, n=cfg.n_heads),
         Stage(pre + "attn_out", "mp", k=cfg.q_dim, n=d),
     ]
+
+
+def _ffn_stages(cfg: ModelConfig, li: int) -> List[Stage]:
     if not cfg.d_ff:
-        return stages
+        return []
+    d, pre = cfg.d_model, f"l{li}."
     up_n = 2 * cfg.d_ff if cfg.activation in ("swiglu", "geglu") \
         else cfg.d_ff
-    stages.append(Stage(pre + "ln2", "ln_res", k=d, n=d))
+    stages = [Stage(pre + "ln2", "ln_res", k=d, n=d)]
     if cfg.n_experts:
         k = cfg.experts_per_token  # active experts per token
         return stages + [
@@ -57,6 +58,41 @@ def block_program(cfg: ModelConfig, li: int) -> List[Stage]:
         Stage(pre + "act", "func", k=cfg.d_ff, n=1),
         Stage(pre + "ffn_down", "mp", k=cfg.d_ff, n=d),
     ]
+
+
+def _recurrent_stages(cfg: ModelConfig, li: int, kind: str) -> List[Stage]:
+    d, pre = cfg.d_model, f"l{li}."
+    if kind == "rglru":
+        w = cfg.lru_width or d
+        return [
+            Stage(pre + "ln1", "ln_res", k=d, n=d),
+            Stage(pre + "lru_in", "mp", k=d, n=2 * w),
+            Stage(pre + "rglru", "func", k=w, n=1),
+            Stage(pre + "lru_out", "mp", k=w, n=d),
+        ]
+    if kind == "mlstm":
+        return [
+            Stage(pre + "ln1", "ln_res", k=d, n=d),
+            Stage(pre + "qkv", "mp", k=d, n=cfg.q_dim + 2 * cfg.kv_dim),
+            Stage(pre + "mlstm", "func", k=cfg.head_dim, n=cfg.n_heads),
+            Stage(pre + "out", "mp", k=cfg.q_dim, n=d),
+        ]
+    if kind == "slstm":
+        return [
+            Stage(pre + "ln1", "ln_res", k=d, n=d),
+            Stage(pre + "gates", "mp", k=d, n=4 * d),
+            Stage(pre + "slstm", "func", k=d, n=1),
+        ]
+    raise ValueError(kind)
+
+
+def block_program(cfg: ModelConfig, li: int) -> List[Stage]:
+    kind = cfg.block_kind(li)
+    if kind in ("attn", "local_attn"):
+        mixer = _attn_stages(cfg, li, local=kind == "local_attn")
+    else:
+        mixer = _recurrent_stages(cfg, li, kind)
+    return mixer + _ffn_stages(cfg, li)
 
 
 def model_program(cfg: ModelConfig) -> List[Stage]:

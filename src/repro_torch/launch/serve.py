@@ -9,12 +9,17 @@ decode on one NVIDIA H100.
         --reduced --device cpu                                        # RoPE
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \\
         --reduced --device cpu                                        # MoE
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --reduced --device cpu           # hybrid
     PYTHONPATH=src python -m repro_torch.launch.serve --profile out/  # trace
     PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram    # spec
     PYTHONPATH=src python -m repro_torch.launch.serve --spec model \
         --spec-k 8 --tree-branch 3                                    # tree
 
-Draws random weights from ``--seed``, calibrates SmoothQuant on synthetic
+A global-attention stack serves on the paged layout; a hybrid one
+(``recurrentgemma-9b``, ``xlstm-350m``: rings and recurrent states) on
+the stacked layout, with no request ceiling.  Draws random weights from
+``--seed``, calibrates SmoothQuant on synthetic
 prompts made with numpy from the same seed, serves ``--requests``
 requests of mixed prompt lengths greedily, and prints the engine's stats
 and the kernels' launch counts.  The counterpart of the JAX package's

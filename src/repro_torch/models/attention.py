@@ -9,9 +9,12 @@ no gathered ``max_seq`` view.  On the contiguous ``(B, Hkv, S, hd)``
 cache (``kv_layout="stacked"``, and the draft model of speculative
 decoding) decode goes through the contiguous decode kernel
 (``ops.mha_decode``) and a chunk attends in plain PyTorch, causal or
-tree-masked, as in the reference.  Caches and page pools are updated
-**in place** (``index_put_``): the functions return them only to keep
-the reference's call shape.
+tree-masked, as in the reference.  A sliding-window layer keeps a ring
+of W slots (slot = position mod W): its decode goes through the same
+contiguous decode kernel over the ring, and its chunk attends in plain
+PyTorch over the pre-write ring and its own K/V.  Caches and page pools
+are updated **in place** (``index_put_``): the functions return them
+only to keep the reference's call shape.
 
 Where the JAX reference relies on jnp's clamped gathers and dropped
 scatters, these functions mask explicitly (torch raises on out-of-range
@@ -61,8 +64,10 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, name: str,
 
 
 def full_attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
-                   name: str = "") -> torch.Tensor:
-    """Causal self-attention over a whole sequence (B, S, D) -> (B, S, D)."""
+                   window: int = 0, name: str = "") -> torch.Tensor:
+    """Causal self-attention over a whole sequence (B, S, D) -> (B, S, D);
+    with ``window`` each query attends only its last ``window`` keys
+    (itself included)."""
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = _project_qkv(p, cfg, x, name, positions)
@@ -72,6 +77,8 @@ def full_attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
         "bqhgd,bkhd->bhgqk", qg.float(), k.float()) / (cfg.head_dim ** 0.5)
     ar = torch.arange(S, device=x.device)
     mask = ar[None, :] <= ar[:, None]
+    if window:
+        mask = mask & (ar[None, :] > ar[:, None] - window)
     scores = torch.where(mask, scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
@@ -120,6 +127,108 @@ def decode_attention(
                          (lengths + 1).to(torch.int32))
     out = out.reshape(B, 1, cfg.q_dim)
     return linear(p["out"], out, name + ".out"), k_cache, v_cache
+
+
+def ring_decode_attention(
+    p: Dict,
+    x: torch.Tensor,  # (B, 1, D) current token
+    cfg: ModelConfig,
+    k_ring: torch.Tensor,  # (B, Hkv, W, hd) rotating-window cache
+    v_ring: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) i32 position of the new token
+    *,
+    active: Optional[torch.Tensor] = None,  # (B,) bool rows really decoding
+    name: str = "",
+):
+    """One-token sliding-window attention over a ring (slot = position mod
+    W), through the contiguous decode kernel (``ops.mha_decode``).  The
+    new token writes its K/V at slot ``lengths[b] % W`` (rows outside
+    ``active`` write nothing: a ring has no length mask), then attends
+    ``min(lengths[b], W) + 1`` entries.  Once the ring is full that is W
+    + 1 > W: every slot holds one of the last W positions, and the kernel
+    and its plain version both read no further than the ring's end.
+    Returns ``(out (B, 1, D), k_ring, v_ring)``."""
+    B = x.shape[0]
+    W = k_ring.shape[2]
+    q, k, v = _project_qkv(p, cfg, x, name, lengths[:, None])
+    pos = lengths.long()
+    rows = torch.arange(B, device=x.device)
+    slot = pos % W
+    ok = (torch.ones(B, dtype=torch.bool, device=x.device) if active is None
+          else active)
+    for ring, new in ((k_ring, k), (v_ring, v)):
+        ring[rows, :, slot] = torch.where(
+            ok[:, None, None], new[:, 0].to(ring.dtype), ring[rows, :, slot])
+    out = ops.mha_decode(q[:, 0].contiguous(), k_ring, v_ring,
+                         (torch.clamp_max(lengths, W) + 1).to(torch.int32))
+    out = out.reshape(B, 1, cfg.q_dim)
+    return linear(p["out"], out, name + ".out"), k_ring, v_ring
+
+
+def chunk_attention_rotating(
+    p: Dict,
+    x: torch.Tensor,  # (B, C, D) chunk of prompt / draft tokens
+    cfg: ModelConfig,
+    k_ring: torch.Tensor,  # (B, Hkv, W, hd) rotating-window cache
+    v_ring: torch.Tensor,
+    positions: torch.Tensor,  # (B, C) absolute positions, contiguous per row
+    limits: torch.Tensor,  # (B,) positions at or past it write nothing
+    *,
+    name: str = "",
+):
+    """Multi-token attention for a sliding-window layer, in plain
+    PyTorch as in the reference.  A ring cannot hold both the chunk's new
+    K/V and the positions they evict, so the chunk attends over the
+    *pre-write* ring (slot ``s`` holding the latest position below the
+    row's chunk start congruent to ``s``) concatenated with its own K/V,
+    under the mask ``query - W < key <= query``.  Then the ring is
+    written in place, last write wins: only positions in ``[limit - W,
+    limit)`` write, so an over-window chunk leaves the ring a token-by-
+    token replay would, and padding or a parked verify row (``limits``
+    at the chunk start) writes nothing.  The positions that do not write
+    rewrite the slot of the row's last writing position with the same
+    value, or, in a row that writes nothing, their slot with its own
+    content: every slot written twice in one call gets one value, with no
+    host sync to filter.  Returns ``(out (B, C, D), k_ring, v_ring)``."""
+    B, C = x.shape[:2]
+    W = k_ring.shape[2]
+    dev = x.device
+    q, k, v = _project_qkv(p, cfg, x, name, positions)
+    # the chunk's K/V at ring precision, read and written alike
+    k = k.to(k_ring.dtype)
+    v = v.to(v_ring.dtype)
+    group = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(B, C, cfg.n_kv_heads, group, cfg.head_dim).float()
+    pos = positions.long()
+    off = pos[:, :1]  # (B, 1) first chunk position per row
+    s_idx = torch.arange(W, device=dev)[None]
+    cache_pos = off - 1 - torch.remainder(off - 1 - s_idx, W)  # (B, W)
+    scale = cfg.head_dim ** 0.5
+    sc_cache = torch.einsum("bqhgd,bhkd->bhgqk", qg, k_ring.float()) / scale
+    sc_self = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / scale
+    qpos = pos[:, None, None, :, None]
+    cpos = cache_pos[:, None, None, None, :]
+    mask_cache = (cpos >= 0) & (cpos > qpos - W)
+    kpos = pos[:, None, None, None, :]
+    mask_self = (kpos <= qpos) & (kpos > qpos - W)
+    scores = torch.cat([torch.where(mask_cache, sc_cache, _NEG_INF),
+                        torch.where(mask_self, sc_self, _NEG_INF)], dim=-1)
+    probs = torch.softmax(scores, dim=-1)
+    vals = torch.cat([v_ring, v.transpose(1, 2)], dim=2)  # (B, Hkv, W+C, hd)
+    out = torch.einsum("bhgqk,bhkd->bqhgd", probs.to(vals.dtype).float(),
+                       vals.float())
+    out = out.to(x.dtype).reshape(B, C, cfg.q_dim)
+    lim = limits.long()[:, None]
+    wvalid = (pos < lim) & (pos >= lim - W)  # distinct slots
+    last = (lim - 1 - off).clamp(0, C - 1)  # the last writing index
+    src = torch.where(wvalid, torch.arange(C, device=dev)[None], last)
+    slot = torch.remainder(torch.gather(pos, 1, src), W)
+    writes = (lim > off)[..., None, None]  # (B, 1, 1, 1)
+    b_idx = torch.arange(B, device=dev)[:, None].expand(B, C)
+    for ring, new in ((k_ring, k), (v_ring, v)):
+        ring[b_idx, :, slot] = torch.where(
+            writes, new[b_idx, src], ring[b_idx, :, slot])
+    return linear(p["out"], out, name + ".out"), k_ring, v_ring
 
 
 def chunk_attention(

@@ -21,9 +21,13 @@ from repro_torch.kernels import ops
 
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
-                dtype=torch.float32, device=None) -> Dict[str, torch.Tensor]:
+                dtype=torch.float32, device=None,
+                bias: bool = False) -> Dict[str, torch.Tensor]:
     w = torch.randn((d_in, d_out), generator=gen, dtype=dtype, device=device)
-    return {"w": w * (1.0 / d_in ** 0.5)}
+    p = {"w": w * (1.0 / d_in ** 0.5)}
+    if bias:
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=device)
+    return p
 
 
 def linear(p: Dict[str, torch.Tensor], x: torch.Tensor,

@@ -1,25 +1,38 @@
 """Decoder-only language model: init, full-sequence forward, and the
 serving steps (``decode_step``, ``prefill_into_slot``, the speculative
-``verify_chunk`` and ``compact_accepted_path``).
+``verify_chunk``, ``compact_accepted_path`` and, for rings and recurrent
+states, ``verify_snapshot`` and ``commit_verify``).
 
 Parameters are ``{"embed": {"table"}, "layers": [block params...],
 "final_ln", "pos_embed"[, "lm_head"]}`` — one dict per layer, where the
 JAX package stacks layers on a ``periods`` axis for ``lax.scan``; the
 weight bridge (``repro_torch/bridge.py``) converts between the two.  The
-cache is ``{"layers": [{"k", "v"}]}``, per layer either a page pool
-``(P, Hkv, ps, hd)`` addressed through block tables (``layout="paged"``)
-or a contiguous ``(B, Hkv, max_seq, hd)`` per-slot cache
-(``layout="stacked"``, which the draft model uses too).  The serving
+cache is ``{"layers": [...]}``, per attention layer ``{"k", "v"}``:
+either a page pool ``(P, Hkv, ps, hd)`` addressed through block tables
+(``layout="paged"``) or a contiguous ``(B, Hkv, max_seq, hd)`` per-slot
+cache (``layout="stacked"``, which the draft model uses too); a
+recurrent layer's entry is its state (``blocks.init_state``).  The serving
 steps update it in place and also return it;
 :func:`gather_request_cache` / :func:`scatter_request_cache` copy one
 request's share of it to host memory and back (preemption to host).
 
-The stacks served are decoders with every layer global ``attn``: GPT-2
-(learned positions, tied embeddings), the RoPE family (Llama, TinyLlama,
-Minitron, Gemma: rotary positions, GQA, an untied ``lm_head`` or a tied
-one) and the MoE decoders (OLMoE, Kimi K2: the same with a top-k MoE
-FFN); no other block kind and no encoder.  Anything else raises
+The stacks served are decoders of any of the reference's decoder block
+kinds: global ``attn`` (GPT-2 with learned positions and tied
+embeddings; the RoPE family, Llama, TinyLlama, Minitron, Gemma; the MoE
+decoders, OLMoE and Kimi K2), and the hybrid stacks' ``local_attn``,
+``rglru``, ``mlstm`` and ``slstm`` (RecurrentGemma, xLSTM).  A
+sliding-window layer's cache is a ring of ``min(window, max_seq)`` slots
+and a recurrent layer's a carried state, both one row per slot, beside
+the other layers' K/V; pages hold global ``attn`` layers only, so a
+stack pages only when every layer is one (a mixed stack's per-kind paged
+layout is not ported).  Encoders and frontends raise
 ``NotImplementedError`` (:func:`check_supported`).
+
+Rings and states have no length mask, so a speculative verify that
+rejects drafts must undo them: :func:`verify_snapshot` copies the ring
+slots a verify will overwrite, and :func:`commit_verify` puts back those
+of rejected drafts and selects each recurrent state off the verify's
+trajectory.
 """
 from __future__ import annotations
 
@@ -37,14 +50,36 @@ from repro_torch.models.layers import (apply_norm, embed, embed_init,
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a stack this package cannot run."""
     bad = []
-    if any(k != "attn" for k in cfg.block_pattern):
-        bad.append(f"block kinds {sorted(set(cfg.block_pattern))}")
+    unknown = sorted(set(cfg.block_pattern) - set(blocks.KINDS))
+    if unknown:
+        bad.append(f"block kinds {unknown}")
     if cfg.is_encoder_decoder or cfg.frontend != "none":
         bad.append("encoder/frontend")
     if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported (global-attention "
-            "decoder stacks only)")
+            f"{cfg.name}: {', '.join(bad)} not ported (decoder stacks of "
+            f"{', '.join(blocks.KINDS)} only)")
+
+
+def _paged_gate(cfg: ModelConfig, what: str) -> None:
+    """Refuse the paged layout for a stack that is not all global
+    ``attn``: with no such layer at all, ``ValueError`` naming every
+    layer, as the reference; a mixed stack needs the per-kind paged
+    layout, which is not ported."""
+    if blocks.page_addressable(cfg):
+        return
+    if not blocks.paged_capable(cfg):
+        bad = ", ".join(
+            f"layer {i} ({cfg.block_kind(i)})" for i in range(cfg.n_layers)
+            if cfg.block_kind(i) != "attn")
+        raise ValueError(
+            f"{what} requires at least one global-attention layer for the "
+            f"paged layout, but every layer of this stack is non-pageable "
+            f"({bad}) — serve it with the stacked layout")
+    raise NotImplementedError(
+        f"{what}: the per-kind paged layout of a mixed stack "
+        f"({sorted(set(cfg.block_pattern))}: rings and states beside the "
+        "page pool) is not ported — serve it with the stacked layout")
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, *, max_seq: int = 0,
@@ -94,16 +129,20 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                layout: str = "paged", dtype=torch.bfloat16,
                device=None) -> Dict:
-    """The KV cache.  ``layout="paged"``: per layer a pool of ``batch``
-    pages of ``max_seq`` (= page size) tokens, page 0 being the null page.
-    ``layout="stacked"``: per layer ``batch`` contiguous slots of
-    ``max_seq`` positions.  (The reference's argument order; its default
+    """The cache.  ``layout="paged"`` (global-attention stacks): per layer
+    a pool of ``batch`` pages of ``max_seq`` (= page size) tokens, page 0
+    being the null page.  ``layout="stacked"``: per layer ``batch`` rows,
+    contiguous ``max_seq`` positions for an ``attn`` layer, a ring of
+    ``min(window, max_seq)`` slots for ``local_attn``, a carried state
+    for a recurrent kind.  (The reference's argument order; its default
     layout is "stacked", this package's engine default is "paged".)"""
     if layout not in ("paged", "stacked"):
         raise NotImplementedError(
             f"cache layout {layout!r} is not ported: only 'paged' and "
             "'stacked' are")
     check_supported(cfg)
+    if layout == "paged":
+        _paged_gate(cfg, "init_cache")
     return {"layers": [
         blocks.block_init_cache(cfg, cfg.block_kind(li), batch, max_seq,
                                 dtype=dtype, device=device)
@@ -119,7 +158,9 @@ def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
     position ``lengths[b]``.  With ``block_table`` (B, n_pg) the cache is
     the page pool and rows outside ``active`` ride along with their
     writes parked on the null page; without, it is the stacked cache,
-    row ``b`` being slot ``b``.  Returns ``(logits (B, V), cache)``."""
+    row ``b`` being slot ``b``, where rows outside ``active`` leave their
+    rings and recurrent states untouched (their K/V writes stay masked).
+    Returns ``(logits (B, V), cache)``."""
     x = embed(params["embed"], token, dtype)  # (B, 1, d)
     if cfg.pos == "learned":
         # idle rows may sit at the table end: clamp explicitly (the
@@ -150,7 +191,9 @@ def prefill_into_slot(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     table, into slot ``slot`` of the stacked cache (positions past the
     cache are dropped).  The chunk attends causally over itself and the
     request's cache below ``offset``; padding lands above the prompt and
-    stays masked by the length accounting.  Returns
+    stays masked by the length accounting, writes no ring slot and
+    commits no recurrent state (a recurrent layer commits its state after
+    ``valid`` tokens).  Returns
     ``(logits (V,) f32 at chunk position valid - 1, cache)``."""
     C = tokens.shape[-1]
     valid = C if valid is None else int(valid)
@@ -159,6 +202,7 @@ def prefill_into_slot(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                          "and slot (stacked cache)")
     tokens = tokens.reshape(1, C)
     positions = (offset + torch.arange(C, device=tokens.device))[None]
+    valids = torch.full((1,), valid, dtype=torch.int32, device=tokens.device)
     x = embed(params["embed"], tokens, dtype)
     if cfg.pos == "learned":
         # clipped gather: the last chunk may hang past the table end
@@ -173,9 +217,10 @@ def prefill_into_slot(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         view = cache["layers"]
         bts = block_table[None]
     for li, layer_p in enumerate(params["layers"]):
-        x, _ = blocks.block_apply_chunk(
+        x, _, _ = blocks.block_apply_chunk(
             layer_p, x, view[li], cfg, cfg.block_kind(li),
-            positions=positions, block_tables=bts, name=f"l{li}")
+            positions=positions, valids=valids, block_tables=bts,
+            name=f"l{li}")
     logits = _logits(params, cfg, x[:, valid - 1:valid])
     return logits[0, 0].float(), cache
 
@@ -215,6 +260,8 @@ def verify_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                  block_tables: Optional[torch.Tensor] = None,
                  anc: Optional[torch.Tensor] = None,
                  depths: Optional[torch.Tensor] = None,
+                 valids: Optional[torch.Tensor] = None,
+                 with_traj: bool = False,
                  dtype=torch.bfloat16):
     """Score C tokens per row against the cache in ONE forward call
     (speculative verification).  Row ``b``'s tokens occupy positions
@@ -232,7 +279,14 @@ def verify_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     position signal (the position embedding, or the rotary phase of its q
     and k) is that of its logical position ``lengths[b] + depths[b, j]``,
     so ``logits[b, j]`` follows the context plus ``j``'s root path.
-    Returns ``(logits (B, C, V) f32, cache)``."""
+
+    ``valids`` (B,) bounds each row's real tokens (``cur_tok`` plus its
+    drafts; 0 parks a row, default C): ring writes stop there and
+    recurrent states commit after that many tokens.  With ``with_traj``
+    the call also returns each layer's state trajectory (None for
+    attention layers), which :func:`commit_verify` selects from once the
+    drafts are accepted or rejected.
+    Returns ``(logits (B, C, V) f32, cache[, traj])``."""
     B, C = tokens.shape
     dev = tokens.device
     base = lengths.long()[:, None]
@@ -247,12 +301,79 @@ def verify_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         x = x + params["pos_embed"][epos.clamp(0, P - 1)].to(dtype)
     if anc is not None:
         anc = anc.to(torch.int32).contiguous()
+    traj = []
     for li, layer_p in enumerate(params["layers"]):
-        x, _ = blocks.block_apply_chunk(
+        x, _, tr = blocks.block_apply_chunk(
             layer_p, x, cache["layers"][li], cfg, cfg.block_kind(li),
-            positions=positions, block_tables=block_tables, anc=anc,
-            rope_positions=logical, name=f"l{li}")
-    return _logits(params, cfg, x).float(), cache
+            positions=positions, valids=valids, block_tables=block_tables,
+            anc=anc, rope_positions=logical, name=f"l{li}")
+        traj.append(tr)
+    logits = _logits(params, cfg, x).float()
+    if with_traj:
+        return logits, cache, traj
+    return logits, cache
+
+
+def _ring_slots(lengths: torch.Tensor, chunk: int, W: int) -> torch.Tensor:
+    """(B, chunk) ring slots of a verify's positions ``lengths[b] + j``."""
+    j = torch.arange(chunk, device=lengths.device)
+    return torch.remainder(lengths.long()[:, None] + j[None], W)
+
+
+def verify_snapshot(cfg: ModelConfig, cache: Dict, lengths: torch.Tensor,
+                    *, chunk: int) -> Dict:
+    """Before a verify of ``chunk`` tokens per row at ``lengths`` (B,):
+    copy the ring slots it may overwrite, ``(lengths[b] + j) % W`` for
+    ``j < chunk``, in every ``local_attn`` layer: ``{layer: {"k", "v"}}``
+    of (B, chunk, Hkv, hd).  That is all :func:`commit_verify` needs to
+    undo: the reference keeps the whole pre-verify cache, which costs
+    nothing in JAX, where this cache is updated in place.  A recurrent
+    layer needs no copy: a row that commits nothing (``counts == 0``)
+    keeps what the verify left, as in the reference."""
+    snap = {}
+    for li, c in enumerate(cache["layers"]):
+        if cfg.block_kind(li) != "local_attn":
+            continue
+        slots = _ring_slots(lengths.to(c["k"].device), chunk,
+                            c["k"].shape[2])
+        rows = torch.arange(slots.shape[0], device=slots.device)[:, None]
+        snap[li] = {k: t[rows, :, slots] for k, t in c.items()}
+    return snap
+
+
+def commit_verify(cfg: ModelConfig, snap: Dict, cache: Dict, traj,
+                  lengths: torch.Tensor, counts: torch.Tensor,
+                  valids: torch.Tensor, *, chunk: int) -> Dict:
+    """Commit the accepted prefix of a verify (``verify_chunk(...,
+    valids=valids, with_traj=True)`` at base ``lengths``), in place:
+    ``counts[b]`` chunk tokens are kept (``cur_tok`` and the accepted
+    drafts; 0 for a parked row).  A rejected draft's ring write at ``(pos
+    % W)`` evicted position ``pos - W``, which the window still needs: the
+    slots of ``counts <= j < valids`` get their ``snap`` content back
+    (:func:`verify_snapshot`).  A recurrent layer's state becomes its
+    trajectory's entry after ``counts`` tokens; rows with ``counts == 0``
+    keep theirs.  Global-attention K/V rewind by length alone (the cache
+    managers' ``rewind``).  The ring slots of one row are distinct only
+    while ``chunk <= W``, which the engine checks.  No host sync: every
+    index stays on the device.  Returns the cache."""
+    j = torch.arange(chunk, device=counts.device)[None]
+    undo = (j >= counts.long()[:, None]) & (j < valids.long()[:, None])
+    for li, c in enumerate(cache["layers"]):
+        kind = cfg.block_kind(li)
+        if kind == "local_attn":
+            slots = _ring_slots(lengths.to(counts.device), chunk,
+                                c["k"].shape[2])
+            rows = torch.arange(slots.shape[0], device=slots.device)[:, None]
+            for k, t in c.items():
+                t[rows, :, slots] = torch.where(
+                    undo[..., None, None], snap[li][k], t[rows, :, slots])
+        elif kind in blocks.RECURRENT_KINDS:
+            keep = counts > 0
+            sel = blocks.select_traj(traj[li], counts)
+            for k, t in c.items():
+                m = keep.reshape((-1,) + (1,) * (t.dim() - 1))
+                t.copy_(torch.where(m, sel[k].to(t.dtype), t))
+    return cache
 
 
 def compact_accepted_path(cfg: ModelConfig, cache: Dict, src: torch.Tensor,

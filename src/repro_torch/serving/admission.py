@@ -79,13 +79,19 @@ class FIFOAdmission:
                    *, max_seq: int) -> int:
         """Admission price of one request in contiguous-slot positions: the
         per-layer maximum of its lifetime footprint.  A global-attention
-        layer pins ``min(len, max_seq)`` positions; the engine's request
-        ceiling (``seq_ceiling``) is this formula taken past the cache."""
+        layer pins ``min(len, max_seq)`` positions, a sliding-window
+        layer at most its window, ``min(len, W, max_seq)``, and a
+        recurrent layer one position's worth of state at any length.  The
+        engine's request ceiling (``seq_ceiling``) is this formula taken
+        past the cache: lifted where the price saturates below it."""
         toks = prompt_len + max_new
         price = 1
         for kind in cfg.block_pattern:
             if kind == "attn":
                 price = max(price, min(toks, max_seq))
+            elif kind == "local_attn":
+                price = max(price, min(toks, cfg.window or max_seq,
+                                       max_seq))
         return price
 
     def plan_chunks(self, prefilling: Sequence[Tuple[int, int, int]]

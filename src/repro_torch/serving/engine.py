@@ -15,8 +15,13 @@ it.
     and shares full prompt pages copy-free between requests with a
     common prefix.  ``"stacked"``:
     :class:`~repro_torch.serving.kv_cache.SlotCacheManager` gives each
-    request one contiguous ``max_seq`` region.  ``"auto"`` pages when
-    ``page_size`` divides ``max_seq``.  Both give the same greedy tokens.
+    request one row: a contiguous ``max_seq`` region per global-attention
+    layer, a ring per sliding-window layer, a state per recurrent layer.
+    ``"auto"`` pages a global-attention stack when ``page_size`` divides
+    ``max_seq`` and serves every other stack stacked.  Both give the same
+    greedy tokens.  A window-capped stack (no global ``attn`` layer:
+    ``recurrentgemma-9b``, ``xlstm-350m``) has no request ceiling: its
+    rings wrap and its states are O(1), so requests run past ``max_seq``.
   * **Quantized serving** — ``quantized=True`` calibrates SmoothQuant on
     ``calibration_batches`` and runs every linear through the Fused MP
     kernel; the activation stream between kernels stays float32.
@@ -40,24 +45,34 @@ it.
     (``admission=OvercommitAdmission(...)``, paged) with preemption to
     host memory or by recompute when the pool runs dry, and
     ``cancel(rid)``.
+  * **Hybrid stacks** — rings and recurrent states have no length mask:
+    the decode step writes them for decoding rows only, and a chain
+    verify snapshots the ring slots it will overwrite and commits
+    through the ``StateStore`` seam (rejected ring writes restored,
+    each recurrent state taken off the verify's trajectory at the
+    accepted length), all on the device.  Tree speculation and a draft
+    model need a global-attention stack and refuse others with
+    ``ValueError``, as in the reference.
 
 Every tick on the card goes through the CUDA kernels: the MP kernel for
 each quantized linear; on the paged layout the paged decode kernel for
 the decode step, the paged verify kernel for each prefill chunk and chain
 verify, and its tree body for a tree verify; on the stacked layout the
 contiguous decode kernel for the decode step (a chunk attends in plain
-PyTorch there, as in the reference); and the contiguous decode kernel
-for each step of a draft model.  The engine runs on ``device`` (default
+PyTorch there, as in the reference), and for a sliding-window layer's
+decode over its ring; and the contiguous decode kernel for each step of
+a draft model.  The recurrences run in plain PyTorch, as in the
+reference.  The engine runs on ``device`` (default
 ``"cuda"``) and raises if that device is missing; the CPU tests pass
 ``device="cpu"``, which takes the plain versions.
 
-The stacks served are global-attention decoders with a dense or a MoE
-FFN (``models/moe.py``: the router and the expert banks stay in floating
-point under W8A8, as in the reference, and run as batched products in
-the activation stream's dtype).  Not ported (they raise
-``NotImplementedError``): replay prefill and ring tensor parallelism
-(``mesh=``); other block kinds, encoders and frontends raise in
-:func:`repro_torch.models.lm.check_supported`.
+The stacks served are decoders of every block kind of the reference
+with a dense or a MoE FFN (``models/moe.py``: the router and the expert
+banks stay in floating point under W8A8, as in the reference, and run as
+batched products in the activation stream's dtype).  Not ported (they
+raise ``NotImplementedError``): replay prefill, ring tensor parallelism
+(``mesh=``) and a mixed stack's per-kind paged layout; encoders and
+frontends raise in :func:`repro_torch.models.lm.check_supported`.
 """
 from __future__ import annotations
 
@@ -71,7 +86,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scheduler as sched
 from repro_torch.core.perfmodel import FPGAPerfModel
-from repro_torch.models import lm
+from repro_torch.models import blocks, lm
 from repro_torch.models.layers import to_device
 from repro_torch.serving import sampler as samplers
 from repro_torch.serving import speculative
@@ -179,8 +194,11 @@ class ServeEngine(LifecycleMixin):
         self.seq_ceiling: Optional[int] = (
             None if probe <= max_seq and cfg.pos != "learned" else max_seq)
         if kv_layout == "auto":
-            # page only with a page size that divides max_seq
-            kv_layout = "paged" if max_seq % page_size == 0 else "stacked"
+            # page a global-attention stack, with a page size that divides
+            # max_seq; rings and states (a mixed stack's too, whose
+            # per-kind paged layout is not ported) serve stacked
+            kv_layout = ("paged" if blocks.page_addressable(cfg)
+                         and max_seq % page_size == 0 else "stacked")
         self.kv_layout = kv_layout
         self.paged = kv_layout == "paged"
         if self.paged:
@@ -198,7 +216,10 @@ class ServeEngine(LifecycleMixin):
             # a slot holds a request's whole lifetime: nothing to
             # over-commit, so an over-commit policy only orders the queue
             self.kv = SlotCacheManager(cfg, batch_slots, max_seq,
-                                       device=self.device)
+                                       device=self.device,
+                                       bounded=self.seq_ceiling is not None)
+        # rings and recurrent states: the verify's rewind seam
+        self._state_store = getattr(self.kv, "state", None)
         # prefix sharing links pages: the paged layout only
         self._share = self.paged and prefix_sharing
         self.cur_tok = np.zeros((batch_slots, 1), np.int64)
@@ -216,6 +237,22 @@ class ServeEngine(LifecycleMixin):
             if spec.tree and spec.branch < 1:
                 raise ValueError(
                     f"SpecConfig.branch={spec.branch} must be >= 1")
+            if "local_attn" in cfg.block_pattern:
+                W = min(cfg.window, max_seq)
+                if spec.k + 1 > W:
+                    raise ValueError(
+                        f"SpecConfig.k={spec.k}: a verify writes k+1 ring "
+                        f"positions but the rotating window holds {W} — "
+                        "state rewind needs k+1 <= W so an accepted write "
+                        "can never share a ring slot with a rejected one")
+            if spec.tree and not blocks.page_addressable(cfg):
+                raise ValueError(
+                    "tree speculation forks K/V across sibling branches, "
+                    "which only absolute-position attn caches support — "
+                    "rings rotate and recurrent states carry, neither can "
+                    "hold two candidate futures at once.  This stack has "
+                    f"kinds {sorted(set(cfg.block_pattern))}; use linear "
+                    "speculation (tree=False) for hybrid stacks")
             self.proposer = speculative.make_proposer(
                 spec, batch_slots, max_seq, chunk_size=self.chunk_size,
                 dtype=self.act_dtype, device=self.device)
@@ -356,8 +393,8 @@ class ServeEngine(LifecycleMixin):
             return
         tr = self.tel.tracer
         t0 = time.perf_counter()
-        where = ({"block_table": self._dev(self.kv.block_tables),
-                  "active": self._dev(decoding)} if self.paged else {})
+        where = ({"block_table": self._dev(self.kv.block_tables)}
+                 if self.paged else {})
         with tr.span("decode.step", "stage", TID_ENGINE,
                      ({"rows": int(decoding.sum()),
                        "modeled_s": self._modeled_decode_s}
@@ -365,7 +402,7 @@ class ServeEngine(LifecycleMixin):
             logits, self.kv.cache = lm.decode_step(
                 self.params, self.cfg, self._dev(self.cur_tok),
                 self.kv.cache, self._dev(self.kv.lengths),
-                dtype=self.act_dtype, **where)
+                active=self._dev(decoding), dtype=self.act_dtype, **where)
         self._c_dec_mod.value += self._modeled_decode_s
         self._c_dec_meas.value += time.perf_counter() - t0
         self.model_calls += 1
@@ -410,7 +447,8 @@ class ServeEngine(LifecycleMixin):
         tr = self.tel.tracer
         lengths_h = self.kv.lengths.copy()
         caps = speculative.draft_caps(self.slots, lengths_h, decoding, k,
-                                      self.max_seq, adaptive=self.adaptive)
+                                      self.seq_ceiling,
+                                      adaptive=self.adaptive)
         with tr.span("spec.propose", "spec"):
             draft, counts = self.proposer.propose(
                 self.slots, self.cur_tok, lengths_h, decoding, caps)
@@ -428,6 +466,7 @@ class ServeEngine(LifecycleMixin):
         toks[:, 0] = self.cur_tok[:, 0]
         toks[:, 1:] = draft
         vlen = np.where(decoding, lengths_h, self.max_seq).astype(np.int32)
+        store = self._state_store
         t0 = time.perf_counter()
         with tr.span("spec.verify", "spec", TID_ENGINE,
                      ({"rows": int(decoding.sum()),
@@ -435,10 +474,23 @@ class ServeEngine(LifecycleMixin):
                        "modeled_s": self._modeled_decode_s}
                       if tr.enabled else None)):
             self._count_verify(decoding, lengths_h, counts + 1)
-            logits, self.kv.cache = lm.verify_chunk(
-                self.params, self.cfg, self._dev(toks), self.kv.cache,
-                self._dev(vlen), block_tables=self._tables(),
-                dtype=self.act_dtype)
+            if store is None:
+                logits, self.kv.cache = lm.verify_chunk(
+                    self.params, self.cfg, self._dev(toks), self.kv.cache,
+                    self._dev(vlen), block_tables=self._tables(),
+                    dtype=self.act_dtype)
+            else:
+                # rings and states: per-row valids bound the writes (0
+                # parks a row), and the slots the verify will overwrite
+                # are copied first, on the device
+                valids = self._dev(np.where(decoding, counts + 1, 0)
+                                   .astype(np.int32))
+                lens = self._dev(vlen)
+                snap = store.snapshot(self.kv.cache, lens, chunk=k + 1)
+                logits, self.kv.cache, traj = lm.verify_chunk(
+                    self.params, self.cfg, self._dev(toks), self.kv.cache,
+                    lens, valids=valids, with_traj=True,
+                    dtype=self.act_dtype)
         self._c_dec_mod.value += self._modeled_decode_s
         self._c_dec_meas.value += time.perf_counter() - t0
         self.model_calls += 1
@@ -447,7 +499,15 @@ class ServeEngine(LifecycleMixin):
             n_acc, next_tok = samplers.spec_accept_batch(
                 logits, self._dev(draft), self._dev(counts),
                 *self._accept_args())
-            n_acc, next_tok = n_acc.tolist(), next_tok.tolist()
+        if store is not None:
+            # keep cur_tok and the accepted drafts of each decoding row:
+            # rejected ring writes go back, states come off the trajectory
+            with tr.span("spec.commit", "spec"):
+                commit = torch.where(self._dev(decoding), n_acc + 1, 0)
+                self.kv.cache = store.commit(
+                    snap, self.kv.cache, traj, lens, commit, valids,
+                    chunk=k + 1)
+        n_acc, next_tok = n_acc.tolist(), next_tok.tolist()
         now = time.monotonic()
         for b in range(B):
             req = self.slots[b]
@@ -495,7 +555,8 @@ class ServeEngine(LifecycleMixin):
         tr = self.tel.tracer
         lengths_h = self.kv.lengths.copy()
         caps = speculative.draft_caps(self.slots, lengths_h, decoding, k,
-                                      self.max_seq, adaptive=self.adaptive)
+                                      self.seq_ceiling,
+                                      adaptive=self.adaptive)
         with tr.span("spec.propose", "spec"):
             trees = self.proposer.propose_tree(
                 self.slots, self.cur_tok, lengths_h, decoding, caps,

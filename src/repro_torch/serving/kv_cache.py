@@ -1,15 +1,20 @@
 """KV-cache managers for the serving engine: contiguous slots and pages.
 
-Copies of the JAX package's managers (``repro/serving/kv_cache.py``) for
-pure global-attention stacks, behind one engine-facing seam (alloc /
-free / advance / lengths / has_room / rewind / evict_to_host / restore):
+Copies of the JAX package's managers (``repro/serving/kv_cache.py``),
+behind one engine-facing seam (alloc / free / advance / lengths /
+has_room / rewind / evict_to_host / restore):
 
-  * :class:`SlotCacheManager` — ``batch_slots`` contiguous regions of
-    ``max_seq`` positions, one per request (``kv_layout="stacked"``);
-    its ``rewind`` is mask-only.
+  * :class:`SlotCacheManager` — ``batch_slots`` rows, one per request
+    (``kv_layout="stacked"``): contiguous ``max_seq`` positions for each
+    global-attention layer, a ring for each sliding-window layer, a
+    carried state for each recurrent one.  Its ``rewind`` is mask-only;
+    a stack with rings or states also owns a :class:`StateStore`, the
+    seam that undoes what a speculative verify wrote into them.  On a
+    window-capped stack (``bounded=False``) a request may grow past
+    ``max_seq``.
   * :class:`PagedCacheManager` — a global page pool, per-request block
     tables, refcounted pages and copy-free prefix sharing
-    (``kv_layout="paged"``).
+    (``kv_layout="paged"``, global-attention stacks).
 
 Correctness model for pages: logical position ``p`` of a slot lives in
 page ``block_tables[slot, p // page_size]`` at offset ``p % page_size``;
@@ -54,19 +59,56 @@ def blob_nbytes(blob: Dict) -> int:
                    for layer in blob["kv"]["layers"] for t in layer.values()))
 
 
-class SlotCacheManager:
-    """The slot pool, per-slot lengths and the contiguous cache.
+class StateStore:
+    """The carried-state rewind seam, owned beside the slot pool.
 
-    ``cache`` holds ``batch_slots`` rows of ``max_seq`` positions per layer
-    (on ``device``); ``lengths`` is a host array the engine sends to the
-    device once per call.  Freeing is mask-only: a slot's stale content
-    stays below nothing, since its length restarts at 0."""
+    Rings and recurrent states have no length mask: a speculative verify
+    writes them for every draft position, accepted or not, so the
+    managers' mask-only ``rewind`` cannot undo a rejection.  The store
+    does: :meth:`snapshot` copies the ring slots a verify will overwrite
+    (the reference holds the whole pre-verify cache instead, which its
+    immutable arrays make free and this in-place cache would make a full
+    copy), and :meth:`commit` restores the rejected ones and selects each
+    recurrent state off the verify's trajectory
+    (:func:`repro_torch.models.lm.commit_verify`).  Only stacks with a
+    non-``attn`` layer own one."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+
+    def snapshot(self, cache: Dict, lengths: torch.Tensor, *,
+                 chunk: int) -> Dict:
+        return lm.verify_snapshot(self.cfg, cache, lengths, chunk=chunk)
+
+    def commit(self, snap: Dict, cache: Dict, traj, lengths: torch.Tensor,
+               counts: torch.Tensor, valids: torch.Tensor, *,
+               chunk: int) -> Dict:
+        """Keep ``counts`` of the ``valids`` chunk tokens a verify at base
+        ``lengths`` applied per row; returns the committed cache."""
+        return lm.commit_verify(self.cfg, snap, cache, traj, lengths,
+                                counts, valids, chunk=chunk)
+
+
+class SlotCacheManager:
+    """The slot pool, per-slot lengths and the stacked cache.
+
+    ``cache`` holds ``batch_slots`` rows per layer (on ``device``);
+    ``lengths`` is a host array the engine sends to the device once per
+    call.  Freeing is mask-only: a slot's stale K/V stays below nothing,
+    since its length restarts at 0, and a ring or recurrent state is
+    reset when its row next starts at position 0.  ``bounded=False``
+    (window-capped stacks) lifts the ``max_seq`` ceiling from the length
+    accounting: no layer ever holds more than ``min(len, W)`` positions."""
 
     def __init__(self, cfg: ModelConfig, batch_slots: int, max_seq: int, *,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None, bounded: bool = True):
         self.cfg = cfg
         self.B = batch_slots
         self.max_seq = max_seq
+        self.bounded = bounded
+        self.state: Optional[StateStore] = (
+            StateStore(cfg)
+            if any(k != "attn" for k in cfg.block_pattern) else None)
         self.cache = lm.init_cache(cfg, batch_slots, max_seq,
                                    layout="stacked", dtype=dtype,
                                    device=device)
@@ -140,7 +182,7 @@ class SlotCacheManager:
         (the verify writes before the engine commits)."""
         if slot not in self._used:
             raise ValueError(f"rewind of unallocated slot {slot}")
-        if not 0 <= new_len <= self.max_seq:
+        if new_len < 0 or (self.bounded and new_len > self.max_seq):
             raise ValueError(
                 f"rewind of slot {slot} to {new_len} outside the cache "
                 f"(max_seq={self.max_seq})")
@@ -151,6 +193,8 @@ class SlotCacheManager:
 
     # -- introspection --------------------------------------------------
     def has_room(self, slot: int, n: int = 1) -> bool:
+        if not self.bounded:
+            return True  # window-capped: rings wrap, states are O(1)
         return self.length_of(slot) + n <= self.max_seq
 
     def stats(self) -> Dict[str, int]:

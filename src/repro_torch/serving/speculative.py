@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import blocks, lm
 from repro_torch.models.layers import to_device
 from repro_torch.serving.telemetry import NULL_TRACER
 
@@ -483,8 +483,14 @@ class ModelDraft(DraftProposer):
         dtype=torch.bfloat16,
         device=None,
     ):
-        # the stacked cache rewinds by length only, which holds for
-        # global-attention stacks (raises NotImplementedError otherwise)
+        if not blocks.page_addressable(cfg):
+            # the draft cache rewinds by length alone (propose's frozen-row
+            # rewrites, commit's re-sync): rings and recurrent states
+            # mutate in place and have no such rewind here
+            raise ValueError(
+                "proposer='model' needs a pure global-attention draft "
+                f"stack (got {cfg.block_pattern}); use proposer='ngram' "
+                "for rotating-window/recurrent targets")
         lm.check_supported(cfg)
         self.cfg = cfg
         self.params = to_device(params, device)

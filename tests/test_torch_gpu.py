@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.serving import speculative
 
 ATTN_REL_TOL = 1e-2
 
@@ -1076,3 +1077,195 @@ def test_moe_engine_on_card_runs_every_kernel(h100, arch):
             assert n["paged_verify_tree"] == n["mha_decode"] == 0
         assert n["paged_mha_decode"] == (0 if layout == "stacked"
                                          else L * decodes)
+
+
+# ---------------------------------------------------------------------------
+# the hybrid stacks: recurrentgemma-9b's ring decode (16 query heads over
+# one KV head of 256 on a ring of 2,048) and linears, xlstm-350m's
+# linears, and the reduced hybrid engines
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (it runs nothing on import): the
+    engines' launch accounting lives there."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+def test_mha_decode_on_a_full_ring_on_card(h100, qdtype):
+    """``recurrentgemma-9b``'s ring decode: 16 query heads over one KV
+    head of 256, a bf16 ring of W = 2,048 slots, lengths W and W + 1 (a
+    full ring passes ``min(len, W) + 1``), past the ring (3,000) and
+    short rows.  Each vector within 1e-2 of its plain version's largest
+    magnitude; rows W, W + 1 and 3,000 on the same query and ring are
+    bit-identical (the kernel reads no further than the ring)."""
+    rng = np.random.default_rng(19)
+    W, B = 2048, 8
+    q, k, v, lengths = _mha_case(rng, h100, [W, W + 1, 3000, 1, 17, W - 1,
+                                             1000, W + 1], 1, 16, 256, W,
+                                 qdtype, "bfloat16")
+    for t in (q, k, v):
+        t[1:3] = t[0]  # rows 0-2: one query and ring at three lengths
+    ops.reset_launch_counts()
+    got = ops.mha_decode(q, k, v, lengths)
+    want = ref.mha_decode_ref(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= ATTN_REL_TOL
+    assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
+    assert ops.launch_counts()["mha_decode"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(4096, 8192), (4096, 4096), (4096, 256),
+                                 (4096, 12288), (12288, 4096), (1024, 3072),
+                                 (1024, 1024)])
+@pytest.mark.parametrize("M", [8, 32, 40])
+def test_mp_matmul_bitexact_at_hybrid_widths_on_card(h100, M, K, N):
+    """The W8A8 kernel at the hybrid stacks' quantized weight shapes:
+    recurrentgemma-9b's ``in_proj`` (4096 x 8192), ``out_proj``, q and
+    out (4096 x 4096), k and v (4096 x 256) and GeGLU MLP, xlstm-350m's
+    ``qkv`` (1024 x 3072), ``o_gate`` and ``out``; at a decode tick's, a
+    prefill chunk's and a chain verify's token counts, with bias, float32
+    out: bit-identical, twice."""
+    rng = np.random.default_rng(M + K + N + 2)
+    args = _mp_case(rng, M, K, N, True, h100)
+    got = ops.quant_matmul(*args, out_dtype=torch.float32)
+    again = ops.quant_matmul(*args, out_dtype=torch.float32)
+    want = ref.quant_matmul_ref(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+def _hybrid_w8a8(arch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.quantize import (calibrate,
+                                              quantize_model_params)
+
+    cfg = get_config(arch).reduced()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    calib = [np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 16))]
+    return cfg, quantize_model_params(params, cfg,
+                                      calibrate(params, cfg, calib))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
+def test_hybrid_decode_verify_commit_make_no_host_sync_on_card(h100, arch):
+    """The hybrid decode step (rows riding along), the verify's ring
+    snapshot, a chain verify with ``valids`` and its trajectory, and the
+    commit never wait for the card (``set_sync_debug_mode("error")``):
+    ring slots and trajectory entries are chosen on the device.  A prefill
+    chunk first fills the caches."""
+    from repro_torch.models import lm
+
+    cfg, qp = _hybrid_w8a8(arch, h100)
+    B, C = 4, 5
+    cache = lm.init_cache(cfg, B, 64, layout="stacked", device=h100)
+    toks = torch.arange(1, 1 + 40, device=h100) % cfg.vocab_size
+    tok = torch.ones((B, 1), dtype=torch.int64, device=h100)
+    lens = torch.tensor([16, 40, 0, 5], dtype=torch.int32, device=h100)
+    active = torch.tensor([True, True, False, True], device=h100)
+    vt = toks[:B * C].reshape(B, C)
+    valids = torch.tensor([5, 3, 0, 1], dtype=torch.int32, device=h100)
+    counts = torch.tensor([2, 3, 0, 1], dtype=torch.int32, device=h100)
+
+    def calls():
+        lm.prefill_into_slot(qp, cfg, toks[:16], cache, 0, slot=0, valid=16,
+                             dtype=torch.float32)
+        lm.decode_step(qp, cfg, tok, cache, lens, active=active,
+                       dtype=torch.float32)
+        snap = lm.verify_snapshot(cfg, cache, lens, chunk=C)
+        _, _, traj = lm.verify_chunk(qp, cfg, vt, cache, lens, valids=valids,
+                                     with_traj=True, dtype=torch.float32)
+        lm.commit_verify(cfg, snap, cache, traj, lens, counts, valids,
+                         chunk=C)
+
+    calls()  # build, load and set up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        calls()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for layer in cache["layers"]:
+        for t in layer.values():
+            assert bool(torch.isfinite(t.float()).all())
+
+
+class ForcedDrafts(speculative.DraftProposer):
+    """A chain proposer that drafts each request's plain greedy stream
+    with every third position made wrong, so verifies accept and reject
+    drafts whatever the weights (the CPU tests use it too)."""
+
+    def __init__(self, k, plain, vocab):
+        self.k, self.plain, self.vocab = k, plain, vocab
+
+    def propose(self, slots, cur_tok, lengths, active, caps):
+        draft = np.zeros((len(slots), self.k), np.int32)
+        counts = np.zeros(len(slots), np.int32)
+        for b, req in enumerate(slots):
+            if req is None or not active[b] or caps[b] <= 0:
+                continue
+            done = len(req.out)
+            toks = list(self.plain[req.rid][done:done + int(caps[b])])
+            for j in range(len(toks)):
+                if (done + j) % 3 == 2:
+                    toks[j] = (toks[j] + 1) % self.vocab
+            counts[b] = len(toks)
+            draft[b, :len(toks)] = toks
+        return draft, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "xlstm-350m"])
+def test_hybrid_engine_on_card_runs_every_kernel(h100, arch):
+    """A reduced hybrid config's W8A8 engine on the card, stacked plain
+    and with chain speculation (drafts forced from the plain run's
+    streams, so some are accepted and some rejected), a prompt longer
+    than ``max_seq``: every quantized linear goes through the MP kernel,
+    every sliding-window decode through the contiguous decode kernel
+    (none on xlstm), no paged kernel runs, and every request gets its
+    tokens."""
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.speculative import SpecConfig
+
+    cfg, qp = _hybrid_w8a8(arch, h100)
+    mp_per_call = _chip_smoke().mp_per_call
+    n_local = sum(cfg.block_kind(li) == "local_attn"
+                  for li in range(cfg.n_layers))
+    plain = None
+    for spec in (None, SpecConfig(k=3)):
+        eng = ServeEngine(cfg, qp, batch_slots=2, max_seq=64, eos_id=-1,
+                          act_dtype=torch.float32, chunk_size=16, spec=spec)
+        assert eng.kv_layout == "stacked" and eng.seq_ceiling is None
+        if spec is not None:
+            eng.proposer = ForcedDrafts(3, plain, cfg.vocab_size)
+        for n in (5, 30, 80):
+            eng.submit(([3, 4, 5] * n)[:n], max_new=6)
+        ops.reset_launch_counts()
+        done = eng.run()
+        s, n = eng.stats(), ops.launch_counts()
+        assert len(done) == 3 and all(len(r.out) == 6 for r in done)
+        assert n["mp_matmul"] == mp_per_call(cfg) * s["model_calls"]
+        verifies = s.get("spec_ticks", 0)
+        decodes = s["model_calls"] - s["prefill_calls"] - verifies
+        assert n["mha_decode"] == n_local * decodes
+        assert (n["paged_mha_decode"] == n["paged_verify"]
+                == n["paged_verify_tree"] == 0)
+        if spec is None:
+            plain = {r.rid: r.out for r in done}
+        else:
+            assert verifies > 0
+            assert 0 < s["spec_accepted"] < s["spec_proposed"]

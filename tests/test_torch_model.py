@@ -51,10 +51,22 @@ def test_config_copy_matches_reference(reduced):
 
 
 def test_unsupported_stacks_raise():
+    """A mixed stack (global and local attention) initialises and takes a
+    stacked cache, but its per-kind paged layout is not ported; an
+    unknown block kind, an encoder and an unported layout raise."""
     cfg = dataclasses.replace(get_config("gpt2-345m").reduced(),
-                              block_pattern=("attn", "local_attn"))
-    with pytest.raises(NotImplementedError, match="block kinds"):
-        lm.init(cfg, torch.Generator().manual_seed(0), max_seq=16)
+                              block_pattern=("attn", "local_attn"),
+                              window=8)
+    lm.init(cfg, torch.Generator().manual_seed(0), max_seq=16)
+    ring = lm.init_cache(cfg, 2, 16, layout="stacked")["layers"][1]["k"]
+    assert ring.shape[2] == 8  # min(window, max_seq)
+    with pytest.raises(NotImplementedError, match="per-kind paged layout"):
+        lm.init_cache(cfg, 4, PS, layout="paged")
+    for bad, match in ((dict(block_pattern=("attn", "conv")), "block kinds"),
+                       (dict(is_encoder_decoder=True), "encoder")):
+        with pytest.raises(NotImplementedError, match=match):
+            lm.init(dataclasses.replace(cfg, **bad),
+                    torch.Generator().manual_seed(0), max_seq=16)
     with pytest.raises(NotImplementedError, match="layout"):
         lm.init_cache(get_config("gpt2-345m").reduced(), 4, PS,
                       layout="layers")

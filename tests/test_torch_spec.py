@@ -701,8 +701,11 @@ def test_sampled_spec_requests_complete_with_accounting(setup, prompts):
 
 
 def test_model_draft_refuses_unported_stacks(setup):
+    """A draft model must be a global-attention stack: a recurrent one is
+    refused with the reference's ``ValueError``, as is a model proposer
+    without a draft and ``k = 0``."""
     cfg = dataclasses.replace(setup["cfg"], block_pattern=("rglru",))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="global-attention draft"):
         speculative.ModelDraft(cfg, setup["tparams"], 2, MAX_SEQ, 3)
     with pytest.raises(ValueError, match="draft_cfg"):
         speculative.make_proposer(speculative.SpecConfig(proposer="model"),
