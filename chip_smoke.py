@@ -74,6 +74,13 @@ failure exits non-zero and nothing is caught and continued:
    recurrent kind (RG-LRU with its GeGLU MLP, mLSTM, sLSTM) timed as a
    decode step of 8 rows and a prefill chunk of 32 tokens, beside the
    bytes it must move; one ``recurrent_blocks`` JSON line.
+   Then whisper-large-v3's shapes: ``mha_decode`` over the cross cache
+   (8 rows, 20 heads over 20 of 64, 1,500 keys each, float32 and bf16)
+   and the self cache (``max_seq`` 448, bf16), held and timed as above,
+   and ``mp_matmul`` at the encoder's token counts (1,500 and 12,000;
+   bit for bit also at 3,000 and a ragged 12,007) for 1,280 -> 1,280,
+   1,280 -> 5,120 and 5,120 -> 1,280, each timed beside its plain
+   version, ``torch._int_mm`` with the same epilogue and its bound.
 5. Serving: full-width ``gpt2-345m`` with random weights from a seeded
    generator, W8A8 SmoothQuant calibrated on seeded prompts, paged KV
    cache, chunk 32, 8 slots, ``max_seq`` 1024, 16 greedy requests with
@@ -111,6 +118,11 @@ failure exits non-zero and nothing is caught and continued:
    host and one by recompute, one queued and one seated request
    cancelled; pages drain to 0; streams held against an uninterrupted run
    under the near-tie rule.
+9b. Replay prefill: phase 5's engine with ``prefill_mode="replay"``
+   (every prompt token a decode step), 4 requests of 64 new tokens on
+   prompts of 16-128 tokens, and the same requests chunked; launch
+   counts checked (no ``paged_verify`` in the replay run), the replay
+   streams held to the chunked ones under the near-tie rule.
 10. Reduced-config agreement: the reduced config served by the engine on
     the card and on the CPU with the same W8A8 weights (batched slots,
     chunked prefill, a shared prefix), plainly, with chain speculation
@@ -121,7 +133,19 @@ failure exits non-zero and nothing is caught and continued:
     their range, and each one's margin of its own token over the other's
     is at most twice their largest logit difference, the most that
     difference can overturn.
-11. The RoPE dense family and the MoE decoder at full width, at a
+    Then the same, plain decode only, with replay prefill.
+11. Whisper at model level: full-width, full-depth ``whisper-large-v3``
+    (32 encoder and 32 decoder layers, d 1,280, vocab 51,866), W8A8
+    calibrated on 2 x (1,500 seeded frames + 64 tokens); 8 requests
+    with their own seeded frames, four ragged prompts of 4-32 tokens
+    replayed through ``lm.prefill`` and four of 24 through
+    ``lm.batch_prefill``, then 64 greedy ``decode_step(enc_lengths=)``
+    steps on the stacked cache (``max_seq`` 448).  Launch counts zeroed
+    before and read after must match the calls (``mp_matmul`` for every
+    linear, two ``mha_decode`` a layer a step); the stream held under the
+    near-tie rule against the same steps with the plain versions on the
+    card.  Encode, prefill and per-step times and the peak memory.
+    The RoPE dense family, the MoE decoder and pixtral at full width, at a
     quarter of their depth (``FAMILY_LAYERS``; ``FAMILY_RUNS``):
     ``llama3-8b`` (8 of 32 layers, d 4096, 32 heads over 8 of 128, vocab
     128,256, an untied head) paged plain, paged chain speculation
@@ -129,7 +153,12 @@ failure exits non-zero and nothing is caught and continued:
     d 3072, 16 heads of 256, vocab 256,000) paged and stacked plain, then
     ``olmoe-1b-7b`` (4 of 16 layers, d 2048, 16 heads of 128, 64 float32
     experts of d_ff 1024 and top 8 at exact capacity, vocab 50,304, an
-    untied head) paged plain, paged chain and stacked plain.
+    untied head) paged plain, paged chain and stacked plain, then
+    ``pixtral-12b`` (4 of 40 layers, d 5,120, 32 heads over 8 of 128,
+    vocab 131,072; calibrated with 256 seeded patch embeddings):
+    ``lm.batch_prefill`` of 256 patches and 32 tokens and 4 decode steps
+    held against the plain versions on the card, then the engine on
+    tokens, paged and stacked plain.
     Random weights from a seeded generator, W8A8 SmoothQuant calibrated
     on 2 x 128 seeded tokens, the engine settings of phase 5, 8 requests
     of 64 new tokens on prompts of 16-512 tokens that repeat short runs.
@@ -149,9 +178,11 @@ failure exits non-zero and nothing is caught and continued:
     prefill and decode, requests run past ``max_seq``: no ceiling); the
     MP kernel's, the ring decode's and the paged kernels' launches
     checked against the calls; the chain run held to the plain one.
-12. Reduced-config agreement (as phase 10) for ``llama3-8b``,
+12. Reduced-config agreement: whisper's model-level loop (the CPU
+    taught the card's stream), then (as phase 10) ``llama3-8b``,
     ``gemma-7b``, ``olmoe-1b-7b``, ``kimi-k2-1t-a32b``,
-    ``recurrentgemma-9b`` and ``xlstm-350m`` (the hybrid ones on the
+    ``recurrentgemma-9b``, ``xlstm-350m`` and ``pixtral-12b`` (the
+    hybrid ones on the
     stacked layout, plain and chain: they refuse the tree).  For a MoE
     stack the near-tie rule also takes a routing near-tie: at a parting,
     the routers' choices along the shared history are recorded on both
@@ -174,12 +205,14 @@ failure exits non-zero and nothing is caught and continued:
     launches slower.
 14. One ``kernels`` JSON line (six kernels, each with its launches on its
     own path and per run, the RoPE family's rows under ``wide_heads``
-    and ``family_widths``, the hybrid stacks' under ``hybrid``), the
+    and ``family_widths``, the hybrid stacks' under ``hybrid``,
+    whisper's under ``whisper``), the
     total time, the card's name and power limit, then the device JSON
     line last.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -200,7 +233,7 @@ from repro_torch.core import scheduler  # noqa: E402
 from repro_torch.core.mdk import MDK_REGISTRY  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import blocks, lm, moe  # noqa: E402
+from repro_torch.models import attention, blocks, lm, moe  # noqa: E402
 from repro_torch.models.layers import activation_fn, to_device  # noqa: E402
 from repro_torch.serving.admission import (  # noqa: E402
     FIFOAdmission, OvercommitAdmission)
@@ -249,14 +282,27 @@ WIDE_ARCHS = ("llama3-8b", "minitron-4b", "gemma-7b", "olmoe-1b-7b")
 #: the full-width serving phases: config -> runs (layout, variant), and
 #: the depth each config serves at (a quarter of its layers: the hybrid
 #: stacks' phases took the time)
-FAMILY_LAYERS = {"llama3-8b": 8, "gemma-7b": 7, "olmoe-1b-7b": 4}
+FAMILY_LAYERS = {"llama3-8b": 8, "gemma-7b": 7, "olmoe-1b-7b": 4,
+                 "pixtral-12b": 4}
 FAMILY_RUNS = {"llama3-8b": ("paged plain", "paged chain", "stacked plain"),
                "gemma-7b": ("paged plain", "stacked plain"),
                "olmoe-1b-7b": ("paged plain", "paged chain",
-                               "stacked plain")}
+                               "stacked plain"),
+               "pixtral-12b": ("paged plain", "stacked plain")}
 #: the reduced-config agreement phases after GPT-2's
 AGREE_ARCHS = ("llama3-8b", "gemma-7b", "olmoe-1b-7b", "kimi-k2-1t-a32b",
-               "recurrentgemma-9b", "xlstm-350m")
+               "recurrentgemma-9b", "xlstm-350m", "pixtral-12b")
+#: whisper-large-v3 at model level: requests, new tokens, the decoder's
+#: 448 positions; the ragged prompts (replayed through lm.prefill) and
+#: the uniform ones' length (lm.batch_prefill), the rest of the requests
+WHISPER_REQUESTS, WHISPER_NEW, WHISPER_MAX_SEQ = 8, 64, 448
+WHISPER_RAGGED = (4, 11, 19, 32)
+WHISPER_UNIFORM = 24
+#: mp_matmul timed at the encoder's token counts: one request's frames,
+#: eight requests'
+WHISPER_MP_M = (1500, 12000)
+#: replay prefill on phase 5's GPT-2: requests and their prompt lengths
+REPLAY_REQUESTS, REPLAY_PROMPT_LENS = 4, (16, 128)
 #: the hybrid stacks at full width, stacked plain and chain: config ->
 #: max_seq (recurrentgemma's ring is then its published 2,048-token
 #: window); six prompts of 16-512 tokens and two of 2,100-2,400, which
@@ -1650,8 +1696,11 @@ def family_serving_phase(dev, arch):
     t0 = time.perf_counter()
     params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
                      device=dev)
+    extras = ({"patches": rng.standard_normal(
+        (2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)}
+        if cfg.frontend_tokens else None)
     stats = calibrate(params, cfg, [rng.integers(1, cfg.vocab_size,
-                                                 (2, 128))])
+                                                 (2, 128))], extras=extras)
     qparams = quantize_model_params(params, cfg, stats)
     del params, stats
     torch.cuda.synchronize()
@@ -1672,6 +1721,9 @@ def family_serving_phase(dev, arch):
                                  *SPEC_PROMPT_LENS)
     L = cfg.n_layers
     streams, out = {}, {}
+    if cfg.frontend_tokens:
+        out[f"{arch} batch_prefill"] = pixtral_prefill_check(qparams, cfg,
+                                                             dev, rng)
     for run in FAMILY_RUNS[arch]:
         layout, variant = run.split()
         spec = SpecConfig(k=CHAIN_K) if variant == "chain" else None
@@ -1887,12 +1939,14 @@ def serving_phase(dev):
 
 def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
                  page=AGREE_PAGE, chunk=AGREE_CHUNK, rows=1, verify=0,
-                 layout="paged"):
+                 layout="paged", replay=False):
     """The model's next-token logits after ``prompt`` and then each token
     of ``forced`` fed back in turn (teacher forcing), through the prefill
     chunks and decode steps the engine runs, on ``dev``, on the paged or
     the stacked cache.  With ``verify`` the forced tokens go through
-    speculative verify calls of that width instead of decode steps.  The
+    speculative verify calls of that width instead of decode steps; with
+    ``replay`` the prompt too goes through decode steps, one token a
+    call, as the engine's replay prefill feeds it.  The
     request is row 0 of a batch of ``rows`` (the others parked), so every
     call has the engine's shapes: the float32 matrix products round
     differently at different row counts.  The cache after the prompt's
@@ -1900,9 +1954,11 @@ def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
     shapes (the near-tie rule asks both computations at each parting;
     their prefills are the same calls), which starts from a copy."""
     lengths = torch.full((rows,), max_seq, dtype=torch.int32)
+    if replay:  # no chunk at all: the whole context is decode steps
+        prompt, forced = [], list(prompt) + list(forced)
     key = (id(params), cfg, tuple(prompt), str(dev), max_seq, page, chunk,
            rows, layout, RouterProbe.active is None)
-    hit = _PREFILLED.get("key") == key
+    hit = not replay and _PREFILLED.get("key") == key
     if layout == "paged":
         n_pg = max_seq // page
         cache = lm.init_cache(cfg, 1 + n_pg, page, device=dev)
@@ -1931,7 +1987,7 @@ def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
         lg, cache = lm.prefill_into_slot(
             params, cfg, toks.to(dev), cache, off, valid=len(piece),
             dtype=torch.float32, **into)
-    if not hit and RouterProbe.active is None:
+    if not hit and not replay and RouterProbe.active is None:
         _PREFILLED.clear()
         _PREFILLED.update(key=key, logits=lg, cache={"layers": [
             {k: t.clone() for k, t in layer.items()}
@@ -2429,7 +2485,7 @@ def overcommit_phase(dev, qparams, cfg):
     return launches
 
 
-def agreement_phase(dev, arch="gpt2-345m"):
+def agreement_phase(dev, arch="gpt2-345m", prefill_mode="chunked"):
     """Free-running greedy streams part for good at the first near-tie
     that the two devices' roundings break differently (the plain attention
     rounds probabilities to bf16, the kernels keep them in float32).  So
@@ -2437,9 +2493,11 @@ def agreement_phase(dev, arch="gpt2-345m"):
     parting must be such a near-tie.  Plain decode, chain speculation and
     tree speculation with a draft model, on ``arch``'s reduced config; a
     hybrid stack (rings, recurrent states) serves on the stacked layout
-    and without the tree, which it refuses."""
-    phase(f"reduced-config agreement ({arch}, card vs CPU, same W8A8 "
-          "weights)")
+    and without the tree, which it refuses.  With ``prefill_mode=
+    "replay"`` only plain decode runs (replay takes no speculation), each
+    prompt fed one token a step."""
+    phase(f"reduced-config agreement ({arch}, {prefill_mode} prefill, card "
+          "vs CPU, same W8A8 weights)")
     cfg = get_config(arch).reduced()
     rng = np.random.default_rng(2)
     params = lm.init(cfg, torch.Generator().manual_seed(0),
@@ -2455,9 +2513,11 @@ def agreement_phase(dev, arch="gpt2-345m"):
     cpu_dev = torch.device("cpu")
     qdev = to_device(qparams, dev)
     layout = "paged" if blocks.page_addressable(cfg) else "stacked"
-    fns = (lambda p, h: logits_after(qdev, cfg, p, h, dev, layout=layout),
+    replay = prefill_mode == "replay"
+    fns = (lambda p, h: logits_after(qdev, cfg, p, h, dev, layout=layout,
+                                     replay=replay),
            lambda p, h: logits_after(qparams, cfg, p, h, cpu_dev,
-                                     layout=layout))
+                                     layout=layout, replay=replay))
     variants = {
         "plain": None,
         "chain": SpecConfig(k=CHAIN_K),
@@ -2467,6 +2527,8 @@ def agreement_phase(dev, arch="gpt2-345m"):
     }
     if layout == "stacked":
         del variants["tree"]
+    if replay:
+        variants = {"plain": None}
     agree = {}
     for name, spec in variants.items():
         outs = []  # [card, CPU]
@@ -2475,7 +2537,7 @@ def agreement_phase(dev, arch="gpt2-345m"):
                               max_seq=AGREE_MAX_SEQ, eos_id=-1,
                               act_dtype=torch.float32,
                               chunk_size=AGREE_CHUNK, page_size=AGREE_PAGE,
-                              spec=spec, device=d)
+                              prefill_mode=prefill_mode, spec=spec, device=d)
             for p in prompts:
                 eng.submit(p, max_new=16)
             outs.append({r.rid: r.out for r in eng.run()})
@@ -2485,10 +2547,493 @@ def agreement_phase(dev, arch="gpt2-345m"):
                       f"{s['acceptance_rate']:.3f} "
                       f"({s['spec_accepted']}/{s['spec_proposed']}), "
                       f"{s['spec_ticks']} verify calls")
-        agree[name] = hold_streams(f"reduced {arch} {name} card vs CPU",
+        agree[name] = hold_streams(f"reduced {arch} {name} ({prefill_mode})"
+                                   " card vs CPU",
                                    outs, prompts, fns, 16,
                                    moe_cfg=cfg if cfg.n_experts else None)
     return agree
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder (whisper), the patch frontend (pixtral) and replay
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block the model code calls the plain versions on card
+    tensors in place of the kernels (``ops.quant_matmul`` and
+    ``ops.mha_decode``, the two the model-level whisper and pixtral paths
+    reach): the yardstick the kernel runs are held against.  The
+    wrappers' launch counts do not move."""
+    saved = ops.quant_matmul, ops.mha_decode
+    ops.quant_matmul, ops.mha_decode = (ref.quant_matmul_ref,
+                                        ref.mha_decode_ref)
+    try:
+        yield
+    finally:
+        ops.quant_matmul, ops.mha_decode = saved
+
+
+def whisper_mp_calls(cfg, ragged_steps, n_new):
+    """``mp_matmul`` launches of :func:`whisper_run` on the kernels: two
+    encodes (q, k, v, out and the MLP's two a layer), two cross-cache
+    fills (``cross.k``, ``cross.v`` a decoder layer), ``ragged_steps``
+    replay and ``n_new`` decode steps (self q, k, v, out; cross q and out;
+    the MLP's two), and one full-sequence decoder forward for the batched
+    prefill (self 4, ``cross_kv``'s 2, the cross sub-block's q, k, v and
+    out, the MLP's 2).  The head is tied (no MP call)."""
+    L, Le = cfg.n_layers, cfg.n_encoder_layers
+    return (2 * 6 * Le + 2 * 2 * L + (ragged_steps + n_new) * 8 * L
+            + 12 * L)
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def whisper_run(params, cfg, frames, ragged, uniform, n_new, dev, *,
+                forced=None, max_seq=WHISPER_MAX_SEQ):
+    """Whisper at model level, as the reference runs it: the ``ragged``
+    prompts (rows ``0..R-1``, with ``frames[:R]``) replay through
+    ``lm.prefill`` and the ``uniform`` ones (equal lengths, with
+    ``frames[R:]``) through ``lm.batch_prefill``, each group on its own
+    stacked cache (bf16 self K/V, ``max_seq`` positions; float32 cross
+    K/V); the two caches join into one of all the rows, which then takes
+    ``n_new`` greedy ``decode_step(enc_lengths=)`` steps, float32
+    activations (a W8A8 engine's).  With ``forced`` (B, n_new) each step
+    is fed those tokens instead (teacher forcing).  Returns (the tokens
+    fed (B, n_new), the logits after the prefill and after each step on
+    the CPU (n_new + 1, B, V), {"prefill_s", "decode_s"})."""
+    dt = torch.float32
+    R = len(ragged)
+    parts = []
+    _sync(dev)
+    t0 = time.perf_counter()
+    if ragged:
+        plen = torch.tensor([len(p) for p in ragged], dtype=torch.int32)
+        toks = torch.zeros((R, int(plen.max())), dtype=torch.int64)
+        for b, p in enumerate(ragged):
+            toks[b, :len(p)] = torch.tensor(p)
+        c = lm.init_cache(cfg, R, max_seq, layout="stacked", device=dev)
+        parts.append(lm.prefill(params, cfg, toks.to(dev), plen.to(dev), c,
+                                frames=frames[:R], dtype=dt))
+    if uniform:
+        c = lm.init_cache(cfg, len(uniform), max_seq, layout="stacked",
+                          device=dev)
+        parts.append(lm.batch_prefill(
+            params, cfg, torch.tensor(uniform, device=dev), c,
+            frames=frames[R:], dtype=dt))
+    last = torch.cat([p[0] for p in parts])
+    lengths = torch.cat([p[2] for p in parts])
+    cache = {key: [{k: torch.cat([p[1][key][li][k] for p in parts])
+                    for k in ("k", "v")} for li in range(cfg.n_layers)]
+             for key in ("layers", "cross")}
+    del parts
+    _sync(dev)
+    t1 = time.perf_counter()
+    B = last.shape[0]
+    enc = torch.full((B,), cfg.encoder_seq, dtype=torch.int32, device=dev)
+    fed, logits = [], [last]
+    for i in range(n_new):
+        tok = (last.argmax(-1) if forced is None
+               else torch.as_tensor(forced[:, i], device=dev))
+        fed.append(tok)
+        last, cache = lm.decode_step(params, cfg, tok[:, None], cache,
+                                     lengths, enc_lengths=enc, dtype=dt)
+        lengths = lengths + 1
+        logits.append(last)
+    _sync(dev)
+    t2 = time.perf_counter()
+    return (torch.stack(fed, 1).cpu().numpy(),
+            torch.stack(logits).float().cpu(),
+            {"prefill_s": t1 - t0, "decode_s": t2 - t1})
+
+
+def hold_taught(what, tokens, la, lb):
+    """The near-tie rule for a stream ``tokens`` (B, n) computed with
+    logits ``la`` (n + 1, B, V; ``tokens[:, i]`` is the argmax of
+    ``la[i]``) against a second computation's logits ``lb`` taught the
+    same stream: each row must be the second's greedy stream up to where
+    they part, and at a parting the two computations' logits agree to
+    ``LOGIT_REL_TOL`` of their range and each one's margin of its own
+    token over the other's is at most twice their largest difference.
+    (Taught the shared history, the second computation's logits up to
+    the parting are those of its own free-running stream.)  Returns the
+    rows' agreement (tokens before the first parting, over all)."""
+    B, n = tokens.shape
+    check(la.shape == lb.shape == (n + 1,) + la.shape[1:] and bool(
+        torch.isfinite(la).all() and torch.isfinite(lb).all()),
+        f"{what}: logits of shape {tuple(la.shape)} / {tuple(lb.shape)} or "
+        "non-finite")
+    check(np.array_equal(la[:n].argmax(-1).numpy().T, tokens),
+          f"{what}: the stream is not its own logits' argmax")
+    mine = lb[:n].argmax(-1).numpy().T
+    same, parted = 0, 0
+    for b in range(B):
+        i = next((j for j in range(n) if mine[b, j] != tokens[b, j]), None)
+        same += n if i is None else i
+        if i is None:
+            continue
+        parted += 1
+        a, o = int(tokens[b, i]), int(mine[b, i])
+        x, y = la[i, b], lb[i, b]
+        err = (x - y).abs().max().item()
+        span = (y.max() - y.min()).item()
+        m_a, m_b = (x[a] - x[o]).item(), (y[o] - y[a]).item()
+        print(f"{what}: row {b} parts at token {i}: {a} vs {o}; logits max "
+              f"err {err:.3e} = {err / span:.3e} of their range (<= "
+              f"{LOGIT_REL_TOL}); margins {m_a:.3e}, {m_b:.3e} (<= 2 x err)")
+        check(err <= LOGIT_REL_TOL * span and max(m_a, m_b) <= 2 * err,
+              f"{what}: row {b} parts at token {i} beyond a near-tie")
+    err = (la[0] - lb[0]).abs().max().item()
+    span = (lb[0].max() - lb[0].min()).item()
+    check(err <= LOGIT_REL_TOL * span, f"{what}: prefill logits err {err}")
+    print(f"{what}: prefill logits max err {err:.3e} = {err / span:.3e} of "
+          f"their range; greedy agreement {same}/{B * n} = "
+          f"{same / (B * n):.3f}; {parted} of {B} rows part, each at a "
+          "near-tie")
+    return same / (B * n)
+
+
+def whisper_kernels_phase(dev, timer):
+    """The two kernels of whisper's path at its shapes.  ``mha_decode``
+    over the cross cache (8 rows, 20 query heads over 20 KV heads of 64,
+    1,500 keys: every row's length, 93 whole 16-key tiles and a ragged
+    one), on the float32 cross cache the model-level path fills and on a
+    bf16 one, and over the self cache (``max_seq`` 448, bf16, the lengths
+    of phase 11b's rows after their 64 new tokens); each held to its
+    plain version per output vector, two calls bit-identical, timed
+    beside its plain version, SDPA and its bound.  ``mp_matmul`` at every
+    (K, N) of a whisper layer (1,280 -> 1,280, 1,280 -> 5,120 and 5,120
+    -> 1,280) at the encoder's token counts (one request's 1,500 frames
+    and eight's 12,000), bit for bit with bias also at 3,000 and a ragged
+    12,007, and each timed beside its plain version, ``torch._int_mm``
+    with the same epilogue, and its bound; and a decoder layer's eight
+    calls of a decode step as ``mp_rows`` holds and times them (M 8 and
+    32).  Returns ({"mha_decode": rows, "mp_matmul": rows})."""
+    phase("kernels at whisper-large-v3's shapes (cross and self decode, "
+          "the encoder's linears)")
+    rng = np.random.default_rng(14)
+    cfg = get_config("whisper-large-v3")
+    H, Hkv, D, Se = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.encoder_seq
+    B = WHISPER_REQUESTS
+    self_lens = [n + WHISPER_NEW for n in WHISPER_RAGGED] + [
+        WHISPER_UNIFORM + WHISPER_NEW] * (B - len(WHISPER_RAGGED))
+    mha = []
+    for what, S, lens, kvd in (
+            ("cross", Se, [Se] * B, torch.float32),
+            ("cross", Se, [Se] * B, torch.bfloat16),
+            ("self", WHISPER_MAX_SEQ, self_lens, torch.bfloat16)):
+        q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
+            np.float32)).to(dev)
+        k, v = (torch.from_numpy(rng.standard_normal(
+            (B, Hkv, S, D)).astype(np.float32)).to(dev, kvd)
+            for _ in range(2))
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        call = partial(ops.mha_decode, q, k, v, lengths)
+        got, again = call(), call()
+        want = ref.mha_decode_ref(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, want)
+        kname = "float32" if kvd == torch.float32 else "bf16"
+        label = (f"whisper-large-v3 {what} (H {H} / Hkv {Hkv}, D {D}, "
+                 f"{kname} cache)")
+        check(rel <= ATTN_REL_TOL and torch.equal(got, again),
+              f"mha_decode {label}: rel err {rel}, or two calls differ")
+        tot = int(sum(lens))
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        t = timer.ms(call)
+        tp = timer.ms(partial(ref.mha_decode_ref, q, k, v, lengths))
+        qs, ks, vs = (x.to(torch.bfloat16) for x in (q[:, :, None], k, v))
+        tl = timer.ms(partial(F.scaled_dot_product_attention, qs, ks, vs,
+                              attn_mask=mask))
+        b, by = bound_ms(2 * tot * Hkv * D * k.element_size()
+                         + 2 * B * H * D * 4 + 4 * B, 4 * tot * H * D, "f32")
+        geo = ops._mha_geometry(B, H, Hkv, S, D, k.element_size())
+        shape = (f"B={B} S={S}, lengths {lens} ({tot} keys); "
+                 f"{geo.splits} splits of {geo.kps} keys")
+        row = {"model": label, "shape": shape, "max_abs_err": err,
+               "max_rel_err": rel, "ms": t, "plain_ms": tp,
+               "library_ms": tl, "bound_ms": b, "bound_by": by}
+        PROFILED.append((f"mha_decode {label}", row, "by_kernel", call,
+                         ("decode::", "verify::")))
+        mha.append(row)
+        print(f"mha_decode {label} {shape}: max abs err {err:.3e} (rel "
+              f"{rel:.3e} <= {ATTN_REL_TOL}), two calls bit-identical; "
+              f"kernel {t:.4f} ms, plain {tp:.4f} ms, SDPA {tl:.4f} ms, "
+              f"bound {b:.5f} ms ({by})")
+        del q, k, v
+    d, ff = cfg.d_model, cfg.d_ff
+    mp = []
+    for K, N in ((d, d), (d, ff), (ff, d)):
+        for M in (3000, WHISPER_MP_M[-1] + 7):
+            args = mp_inputs(rng, M, K, N, dev, bias=True)
+            got, again = ops.quant_matmul(*args), ops.quant_matmul(*args)
+            want = ref.quant_matmul_ref(*args)
+            check(torch.equal(got, want) and torch.equal(got, again),
+                  f"mp_matmul whisper M={M} K={K} N={N}: not bit-identical")
+        for M in WHISPER_MP_M:
+            x, w, xs, ws, bias = mp_inputs(rng, M, K, N, dev, bias=True)
+            got = ops.quant_matmul(x, w, xs, ws, bias,
+                                   out_dtype=torch.float32)
+            want = ref.quant_matmul_ref(x, w, xs, ws, bias,
+                                        out_dtype=torch.float32)
+            check(torch.equal(got, want),
+                  f"mp_matmul whisper M={M} K={K} N={N}: not bit-identical")
+            call = partial(ops.quant_matmul, x, w, xs, ws, bias,
+                           out_dtype=torch.float32)
+            t = timer.ms(call)
+            tp = timer.ms(partial(ref.quant_matmul_ref, x, w, xs, ws, bias,
+                                  out_dtype=torch.float32))
+            tl = timer.ms(partial(
+                lambda x, w, xs, ws, bias: (torch._int_mm(x, w).float()
+                                            * xs) * ws + bias,
+                x, w, xs, ws, bias))
+            b, by = bound_ms(M * K + K * N + 4 * (M + 2 * N) + 4 * M * N,
+                             2 * M * K * N, "int8")
+            geo = ops._mp_geometry(M, N, K)
+            row = {"model": "whisper-large-v3",
+                   "shape": f"M={M} K={K} N={N}, bias, float32 out "
+                            f"({geo.m_blocks} token blocks of {geo.bm}, "
+                            f"{geo.splits} K splits)",
+                   "ms": t, "plain_ms": tp, "library_ms": tl,
+                   "bound_ms": b, "bound_by": by}
+            PROFILED.append((f"mp_matmul whisper M={M} K={K} N={N}", row,
+                             "by_kernel", call, ("mp_matmul",)))
+            mp.append(row)
+            print(f"mp_matmul whisper M={M} K={K} N={N}: bit-identical (and "
+                  f"at 3000 and {WHISPER_MP_M[-1] + 7}, two calls equal); "
+                  f"kernel {t:.4f} ms, plain {tp:.4f} ms, _int_mm + epilogue "
+                  f"{tl:.4f} ms, bound {b:.5f} ms ({by})")
+            del x, w, got, want
+    # a decode step's layer: self q, k, v, out; cross q, out; the MLP
+    mp += mp_rows(timer, rng, "whisper-large-v3", "one decoder layer's "
+                  "step", [(d, d)] * 6 + [(d, ff), (ff, d)], dev)
+    return {"mha_decode": mha, "mp_matmul": mp}
+
+
+def whisper_phase(dev):
+    """Full-width, full-depth ``whisper-large-v3`` (32 encoder and 32
+    decoder layers, d 1,280, 20 heads of 64, vocab 51,866, tied), W8A8 at
+    model level (the reference's engine cannot serve it, ROADMAP C10):
+    seeded random weights calibrated on 2 x (1,500 seeded frames + 64
+    tokens); 8 requests, each with its own 1,500 seeded frames, four
+    with ragged decoder prompts of 4-32 tokens (``lm.prefill``, a replay
+    through decode steps) and four of 24 (``lm.batch_prefill``); 64
+    greedy tokens through ``decode_step(enc_lengths=)`` on the stacked
+    cache, ``max_seq`` 448.  The launch counts are zeroed just before
+    and read just after and must match the calls (two ``mha_decode`` a
+    layer a step, self and cross); the stream is held under the near-tie
+    rule against the same steps recomputed with the plain versions on
+    the card (taught the same stream).  Prints the encode, prefill and
+    per-token times and the peak memory.  Returns the launch counts."""
+    cfg = get_config("whisper-large-v3")
+    phase("whisper-large-v3 (full width and depth, W8A8, model-level "
+          "prefill and decode)")
+    rng = np.random.default_rng(20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     max_seq=WHISPER_MAX_SEQ, device=dev)
+    n_params = sum(t.numel() for t in _tensors(params))
+    calib_frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).to(dev)
+    stats = calibrate(params, cfg, [rng.integers(1, cfg.vocab_size,
+                                                 (2, 64))],
+                      extras={"frames": calib_frames})
+    qparams = quantize_model_params(params, cfg, stats)
+    del params, stats, calib_frames
+    torch.cuda.synchronize()
+    q_bytes = sum(t.numel() * t.element_size() for t in _tensors(qparams))
+    print(f"whisper-large-v3: {cfg.n_encoder_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}: {n_params / 1e9:.3f} B parameters drawn in "
+          f"float32 on the card, calibrated and quantized in "
+          f"{time.perf_counter() - t0:.2f} s; W8A8 model "
+          f"{q_bytes / 2**30:.2f} GiB; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    B = WHISPER_REQUESTS
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).to(dev)
+    ragged = [rng.integers(1, cfg.vocab_size, n).tolist()
+              for n in WHISPER_RAGGED]
+    uniform = rng.integers(1, cfg.vocab_size,
+                           (B - len(ragged), WHISPER_UNIFORM)).tolist()
+    # the encoder alone, and one of its layers and that layer's attention
+    # sub-block (its q, k, v and out products included), timed outside
+    # the counted path
+    lm.encode(qparams, cfg, frames[:1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc_out = lm.encode(qparams, cfg, frames)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    check(enc_out.shape == frames.shape and bool(
+        torch.isfinite(enc_out).all()), "whisper encode: shape or "
+        "non-finite output")
+    layer = qparams["encoder"]["layers"][0]
+    timer = Timer(dev)
+    t_layer = timer.ms(partial(blocks.block_apply_seq, layer, enc_out, cfg,
+                               "attn", causal=False), iters=5, warmup=1)
+    t_attn = timer.ms(partial(attention.full_attention, layer["attn"],
+                              enc_out, cfg, causal=False), iters=5, warmup=1)
+    del enc_out, timer
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    toks, la, times = whisper_run(qparams, cfg, frames, ragged, uniform,
+                                  WHISPER_NEW, dev)
+    n = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = max(WHISPER_RAGGED)
+    L = cfg.n_layers
+    print(f"whisper-large-v3: encode of {B} x {cfg.encoder_seq} frames "
+          f"{enc_s * 1e3:.1f} ms (one encoder layer {t_layer:.3f} ms, its "
+          f"attention sub-block {t_attn:.3f} ms, CUDA events); prefill "
+          f"(two encodes, cross fills, {steps} replay steps of "
+          f"{len(ragged)} rows, one batched prefill of {len(uniform)} x "
+          f"{WHISPER_UNIFORM}) "
+          f"{times['prefill_s'] * 1e3:.1f} ms; {WHISPER_NEW} decode steps "
+          f"of {B} rows {times['decode_s'] * 1e3:.1f} ms, "
+          f"{times['decode_s'] * 1e3 / WHISPER_NEW:.2f} ms a step; peak "
+          f"memory {peak / 2**30:.2f} GiB")
+    print(f"whisper-large-v3 launches: {json.dumps(n)}")
+    check(toks.shape == (B, WHISPER_NEW) and bool(
+        ((toks >= 0) & (toks < cfg.vocab_size)).all()),
+        "whisper: tokens of the wrong shape or outside the vocabulary")
+    check(n["mha_decode"] == 2 * L * (steps + WHISPER_NEW)
+          and n["mp_matmul"] == whisper_mp_calls(cfg, steps, WHISPER_NEW)
+          and n["paged_mha_decode"] == n["paged_verify"]
+          == n["paged_verify_tree"] == n["ln_res"] == 0,
+          f"whisper: launch counts {n} do not match the calls")
+    with plain_kernels():
+        _, lb, _ = whisper_run(qparams, cfg, frames, ragged, uniform,
+                               WHISPER_NEW, dev, forced=toks)
+    hold_taught("whisper-large-v3 kernels vs plain versions on the card",
+                toks, la, lb)
+    del qparams, frames, la, lb
+    torch.cuda.empty_cache()
+    return {"whisper-large-v3 model-level": n}
+
+
+def whisper_agreement_phase(dev):
+    """Reduced ``whisper-large-v3`` (2 + 2 layers, d 64) on the card and
+    on the CPU with the same W8A8 weights (calibrated with frames): the
+    model-level loop of phase 11b (two ragged prompts replayed, two
+    uniform ones batched, 16 greedy steps), the CPU taught the card's
+    stream and held under the near-tie rule."""
+    phase("reduced-config agreement (whisper-large-v3, model level, card "
+          "vs CPU, same W8A8 weights)")
+    cfg = get_config("whisper-large-v3").reduced()
+    rng = np.random.default_rng(21)
+    params = lm.init(cfg, torch.Generator().manual_seed(0),
+                     max_seq=AGREE_MAX_SEQ)
+    stats = calibrate(params, cfg, [rng.integers(1, cfg.vocab_size, (2, 32))],
+                      extras={"frames": rng.standard_normal(
+                          (2, cfg.encoder_seq, cfg.d_model)).astype(
+                              np.float32)})
+    qparams = quantize_model_params(params, cfg, stats)
+    frames = torch.from_numpy(rng.standard_normal(
+        (4, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    ragged = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (3, 11)]
+    uniform = rng.integers(1, cfg.vocab_size, (2, 7)).tolist()
+    cpu = torch.device("cpu")
+    toks, la, _ = whisper_run(to_device(qparams, dev), cfg, frames.to(dev),
+                              ragged, uniform, 16, dev,
+                              max_seq=AGREE_MAX_SEQ)
+    _, lb, _ = whisper_run(qparams, cfg, frames, ragged, uniform, 16, cpu,
+                           forced=toks, max_seq=AGREE_MAX_SEQ)
+    hold_taught("reduced whisper-large-v3 card vs CPU", toks, la, lb)
+
+
+def pixtral_prefill_check(qparams, cfg, dev, rng):
+    """``lm.batch_prefill`` of 2 requests of ``frontend_tokens`` (256)
+    seeded patch embeddings and 32 tokens on a stacked cache, then 4
+    greedy decode steps, on the kernels and with the plain versions on
+    the card (taught the same stream), held under the near-tie rule; the
+    lengths are 256 + 32.  Returns the kernels' launch counts."""
+    P, S, B, steps = cfg.frontend_tokens, 32, 2, 4
+    patches = torch.from_numpy(rng.standard_normal(
+        (B, P, cfg.d_model)).astype(np.float32)).to(dev)
+    tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, S))).to(dev)
+
+    def run(forced=None):
+        cache = lm.init_cache(cfg, B, 2 * (P + S), layout="stacked",
+                              device=dev)
+        last, cache, lengths = lm.batch_prefill(
+            qparams, cfg, tokens, cache, patches=patches,
+            dtype=torch.float32)
+        check(lengths.tolist() == [P + S] * B, f"pixtral batch_prefill "
+              f"lengths {lengths.tolist()}")
+        fed, logits = [], [last]
+        for i in range(steps):
+            tok = (last.argmax(-1) if forced is None
+                   else torch.as_tensor(forced[:, i], device=dev))
+            fed.append(tok)
+            last, cache = lm.decode_step(qparams, cfg, tok[:, None], cache,
+                                         lengths, dtype=torch.float32)
+            lengths = lengths + 1
+            logits.append(last)
+        return (torch.stack(fed, 1).cpu().numpy(),
+                torch.stack(logits).float().cpu())
+
+    ops.reset_launch_counts()
+    toks, la = run()
+    torch.cuda.synchronize()
+    n = ops.launch_counts()
+    check(n["mp_matmul"] == mp_per_call(cfg) * (1 + steps)
+          and n["mha_decode"] == cfg.n_layers * steps,
+          f"pixtral batch_prefill: launch counts {n} do not match the calls")
+    with plain_kernels():
+        _, lb = run(forced=toks)
+    hold_taught(f"{cfg.name} batch_prefill with {P} patches, kernels vs "
+                "plain versions on the card", toks, la, lb)
+    return n
+
+
+def replay_phase(dev, qparams, cfg):
+    """Replay prefill (``prefill_mode="replay"``: every prompt token a
+    decode step) on phase 5's full-width W8A8 GPT-2, paged, 4 requests of
+    64 new tokens on prompts of 16-128 tokens, beside the same requests
+    with chunked prefill.  Launch counts zeroed before each run and read
+    after: the replay run launches no ``paged_verify``, one
+    ``paged_mha_decode`` a layer a model call; the replay streams held to
+    the chunked run's under the near-tie rule, logits recomputed through
+    each run's calls (decode steps for every prompt token, or chunks) in
+    a batch of the engine's 8 rows.  Returns the replay run's launches."""
+    phase("replay prefill (full-width gpt2-345m, W8A8, paged)")
+    rng = np.random.default_rng(22)
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in np.linspace(*REPLAY_PROMPT_LENS,
+                                    REPLAY_REQUESTS).astype(int)]
+    streams, out = {}, {}
+    L = cfg.n_layers
+    for mode in ("chunked", "replay"):
+        eng = w8a8_engine(cfg, qparams, dev, prefill_mode=mode)
+        got, s, n, _ = engine_run(f"gpt2-345m {mode}", eng, prompts,
+                                  SPEC_NEW)
+        decodes = s["model_calls"] - s["prefill_calls"]
+        check(n["mp_matmul"] == 6 * L * s["model_calls"]
+              and n["paged_verify"] == L * s["prefill_calls"]
+              and n["paged_mha_decode"] == L * decodes > 0
+              and (mode == "chunked" or s["prefill_calls"] == 0
+                   and s["model_calls"] == s["ticks"]),
+              f"gpt2-345m {mode}: launch counts {n} do not match the calls")
+        streams[mode], out[f"gpt2-345m {mode}"] = got, n
+        del eng
+    shape = dict(max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK, rows=SLOTS)
+    hold_streams("gpt2-345m replay vs chunked on the card",
+                 (streams["replay"], streams["chunked"]), prompts,
+                 (lambda p, h: logits_after(qparams, cfg, p, h, dev,
+                                            replay=True, **shape),
+                  lambda p, h: logits_after(qparams, cfg, p, h, dev,
+                                            **shape)), SPEC_NEW)
+    return {"replay": out["gpt2-345m replay"]}
 
 
 def main() -> int:
@@ -2505,6 +3050,8 @@ def main() -> int:
     entries["mp_matmul"]["family_widths"] = family_mp_phase(dev, timer)
     for name, rows in hybrid_kernels_phase(dev, timer).items():
         entries[name]["hybrid"] = rows
+    for name, rows in whisper_kernels_phase(dev, timer).items():
+        entries[name]["whisper"] = rows
     moe_ffn_phase(dev, timer)
     recurrent_block_phase(dev, timer)
     del timer
@@ -2513,13 +3060,16 @@ def main() -> int:
     spec_launches, chain_run = spec_serving_phase(dev, qparams, cfg)
     stacked_launches = stacked_phase(dev, qparams, cfg, *chain_run)
     oc_launches = overcommit_phase(dev, qparams, cfg)
+    replay_launches = replay_phase(dev, qparams, cfg)
     del qparams
     agreement_phase(dev)
-    family_launches = {}
+    agreement_phase(dev, prefill_mode="replay")
+    family_launches = dict(whisper_phase(dev))
     for arch in FAMILY_RUNS:
         family_launches.update(family_serving_phase(dev, arch))
     for arch in HYBRID_MAX_SEQ:
         family_launches.update(hybrid_serving_phase(dev, arch))
+    whisper_agreement_phase(dev)
     for arch in AGREE_ARCHS:
         agreement_phase(dev, arch)
     by_kernel_phase(dev, entries)
@@ -2527,6 +3077,7 @@ def main() -> int:
     by_run = {"plain": launches,
               **{f"{run} spec": n for run, n in spec_launches.items()},
               **stacked_launches, "over-commit": oc_launches,
+              **replay_launches,
               "MDK program": {"ln_res": ln_launches}, **family_launches}
     # each kernel's count from the run of its own path: plain paged
     # serving for the first slice's three, the tree run for the tree

@@ -64,33 +64,52 @@ def _first_leaf(tree):
 
 def params_from_numpy(tree: Dict, device=None) -> Dict:
     """This package's params from a JAX ``lm.init`` (or quantized) pytree
-    given as numpy arrays."""
+    given as numpy arrays.  Whisper's ``encoder["layers"]``, stacked on a
+    leading axis (``layout="stacked"``) or a list (``"layers"``), becomes
+    a list of per-layer dicts."""
     out = {k: _map(v, lambda a: to_tensor(a, device))
-           for k, v in tree.items() if k not in ("periods", "rest")}
+           for k, v in tree.items()
+           if k not in ("periods", "rest", "encoder")}
     out["layers"] = [_map(layer, lambda a: to_tensor(a, device))
                      for layer in _unstack(tree["periods"], tree["rest"])]
+    if "encoder" in tree:
+        enc = dict(tree["encoder"])
+        if isinstance(enc["layers"], dict):  # stacked on a leading axis
+            enc["layers"] = _unstack((enc["layers"],), [])
+        out["encoder"] = _map(enc, lambda a: to_tensor(a, device))
     return out
 
 
 def cache_from_numpy(tree: Dict, device=None) -> Dict:
     """This package's cache from a JAX cache pytree (paged or stacked)
-    given as numpy arrays."""
-    return {"layers": [_map(layer, lambda a: to_tensor(a, device))
-                       for layer in _unstack(tree["periods"],
-                                             tree["rest"])]}
+    given as numpy arrays, whisper's static ``cross`` K/V included."""
+    def layers(sub):
+        return [_map(layer, lambda a: to_tensor(a, device))
+                for layer in _unstack(sub["periods"], sub["rest"])]
+
+    out = {"layers": layers(tree)}
+    if "cross" in tree:
+        out["cross"] = layers(tree["cross"])
+    return out
 
 
 def cache_to_numpy(cache: Dict, n_per: int, period: int = 1) -> Dict:
     """The JAX cache pytree layout (``periods`` stacked over the first
-    ``n_per * period`` layers, ``rest`` for the others) from this
-    package's paged or stacked cache, bf16 leaves as float32 numpy
-    arrays."""
+    ``n_per * period`` layers, ``rest`` for the others; the same for
+    whisper's ``cross``) from this package's paged or stacked cache, bf16
+    leaves as float32 numpy arrays."""
     def host(t: torch.Tensor) -> np.ndarray:
         return t.detach().float().cpu().numpy()
 
-    layers = [_map(c, host) for c in cache["layers"]]
-    periods = tuple(
-        {k: np.stack([layers[pi * period + i][k] for pi in range(n_per)])
-         for k in layers[i]}
-        for i in range(period)) if n_per else ()
-    return {"periods": periods, "rest": layers[n_per * period:]}
+    def stack(entries) -> Dict:
+        layers = [_map(c, host) for c in entries]
+        periods = tuple(
+            {k: np.stack([layers[pi * period + i][k] for pi in range(n_per)])
+             for k in layers[i]}
+            for i in range(period)) if n_per else ()
+        return {"periods": periods, "rest": layers[n_per * period:]}
+
+    out = stack(cache["layers"])
+    if "cross" in cache:
+        out["cross"] = stack(cache["cross"])
+    return out

@@ -4,8 +4,8 @@ tiny same-family config used by the CPU tests.
 
 The fields and ``reduced()`` mirror the JAX package's
 ``repro/configs/base.py`` exactly, so a test can hold one config against
-the other field by field.  Only the configurations this package can
-serve are registered (:func:`get_config` imports each module).
+the other field by field.  Every configuration of the JAX package is
+registered (:func:`get_config` imports each module).
 """
 from __future__ import annotations
 
@@ -109,7 +109,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def _ensure_loaded() -> None:
     from repro_torch.configs import (  # noqa: F401  (each registers)
         gemma_7b, gpt2_345m, kimi_k2, llama3_8b, minitron_4b, olmoe_1b_7b,
-        recurrentgemma_9b, tinyllama_1_1b, xlstm_350m)
+        pixtral_12b, recurrentgemma_9b, tinyllama_1_1b, whisper_large_v3,
+        xlstm_350m)
 
 
 def get_config(name: str) -> ModelConfig:

@@ -11,6 +11,8 @@ decode on one NVIDIA H100.
         --reduced --device cpu                                        # MoE
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-9b --reduced --device cpu           # hybrid
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch pixtral-12b \\
+        --reduced --device cpu --prefill-mode replay              # replay
     PYTHONPATH=src python -m repro_torch.launch.serve --profile out/  # trace
     PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram    # spec
     PYTHONPATH=src python -m repro_torch.launch.serve --spec model \
@@ -18,7 +20,10 @@ decode on one NVIDIA H100.
 
 A global-attention stack serves on the paged layout; a hybrid one
 (``recurrentgemma-9b``, ``xlstm-350m``: rings and recurrent states) on
-the stacked layout, with no request ceiling.  Draws random weights from
+the stacked layout, with no request ceiling.  ``pixtral-12b`` serves its
+decoder on tokens alone (the engine takes no patches, as the
+reference's); ``whisper-large-v3`` is refused (encoder-decoder: it runs
+at model level, see ``chip_smoke.py``).  Draws random weights from
 ``--seed``, calibrates SmoothQuant on synthetic
 prompts made with numpy from the same seed, serves ``--requests``
 requests of mixed prompt lengths greedily, and prints the engine's stats
@@ -73,6 +78,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--chunk-size", type=int, default=32)
+    ap.add_argument("--prefill-mode", default="auto",
+                    choices=("auto", "chunked", "replay"),
+                    help="auto == chunked for every decoder stack; replay "
+                         "feeds prompts one token a tick through decode "
+                         "(the A/B baseline)")
     ap.add_argument("--max-seq", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
@@ -89,6 +99,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name} is encoder-decoder: this launcher "
+                         "serves decoder stacks")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm.init(cfg, gen, max_seq=args.max_seq, device=dev)
     rng = np.random.default_rng(args.seed)
@@ -104,7 +117,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     eng = ServeEngine(cfg, params, batch_slots=args.slots,
                       max_seq=args.max_seq, eos_id=-1, quantized=True,
                       calibration_batches=calib, chunk_size=args.chunk_size,
-                      seed=args.seed, spec=spec, device=dev)
+                      prefill_mode=args.prefill_mode, seed=args.seed,
+                      spec=spec, device=dev)
     hi = max(2, args.max_seq - args.max_new - 1)
     prompts = synthetic_prompts(rng, args.requests, cfg.vocab_size,
                                 min(3, hi), hi)

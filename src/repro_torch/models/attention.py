@@ -12,8 +12,11 @@ decoding) decode goes through the contiguous decode kernel
 tree-masked, as in the reference.  A sliding-window layer keeps a ring
 of W slots (slot = position mod W): its decode goes through the same
 contiguous decode kernel over the ring, and its chunk attends in plain
-PyTorch over the pre-write ring and its own K/V.  Caches and page pools
-are updated **in place** (``index_put_``): the functions return them
+PyTorch over the pre-write ring and its own K/V.  Whisper's encoder
+attends unmasked through the full-sequence path, and its decoder's
+cross-attention attends the encoder output there and, at decode, the
+static cross cache through the contiguous decode kernel.  Caches and
+page pools are updated **in place** (``index_put_``): the functions return them
 only to keep the reference's call shape.
 
 Where the JAX reference relies on jnp's clamped gathers and dropped
@@ -25,7 +28,7 @@ dropped.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -64,27 +67,38 @@ def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor, name: str,
 
 
 def full_attention(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
-                   window: int = 0, name: str = "") -> torch.Tensor:
-    """Causal self-attention over a whole sequence (B, S, D) -> (B, S, D);
-    with ``window`` each query attends only its last ``window`` keys
-    (itself included)."""
+                   window: int = 0, causal: bool = True,
+                   cross_kv: Optional[Tuple[torch.Tensor,
+                                            torch.Tensor]] = None,
+                   name: str = ""):
+    """Self-attention over a whole sequence (B, S, D) -> ``(out (B, S, D),
+    (k, v))``, k and v (B, S, Hkv, hd) for a cache fill.  Causal unless
+    ``causal=False`` (the encoder); with ``window`` each query attends
+    only its last ``window`` keys (itself included).  ``cross_kv`` (k, v)
+    (B, Se, Hkv, hd) takes the place of the sequence's own K/V, unmasked
+    (the decoder's cross-attention): as in the reference, the sequence's
+    k and v are still projected, so calibration records them under
+    ``name + ".k"`` and ``".v"``."""
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     q, k, v = _project_qkv(p, cfg, x, name, positions)
+    if cross_kv is not None:
+        k, v = cross_kv
     group = cfg.n_heads // cfg.n_kv_heads
     qg = q.reshape(B, S, cfg.n_kv_heads, group, cfg.head_dim)
     scores = torch.einsum(
         "bqhgd,bkhd->bhgqk", qg.float(), k.float()) / (cfg.head_dim ** 0.5)
-    ar = torch.arange(S, device=x.device)
-    mask = ar[None, :] <= ar[:, None]
-    if window:
-        mask = mask & (ar[None, :] > ar[:, None] - window)
-    scores = torch.where(mask, scores, _NEG_INF)
+    if causal and cross_kv is None:
+        ar = torch.arange(S, device=x.device)
+        mask = ar[None, :] <= ar[:, None]
+        if window:
+            mask = mask & (ar[None, :] > ar[:, None] - window)
+        scores = torch.where(mask, scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
                        v.float())
     out = out.to(x.dtype).reshape(B, S, cfg.q_dim)
-    return linear(p["out"], out, name + ".out")
+    return linear(p["out"], out, name + ".out"), (k, v)
 
 
 def _write_rows(cache: torch.Tensor, new: torch.Tensor,
@@ -110,21 +124,33 @@ def decode_attention(
     v_cache: torch.Tensor,
     lengths: torch.Tensor,  # (B,) i32 tokens already cached
     *,
+    cross: bool = False,
     name: str = "",
 ):
     """One-token attention against the contiguous cache through the
     contiguous decode kernel (``ops.mha_decode``).  The new token (turned
     to position ``lengths[b]`` on a rotary stack) writes its K/V at that
     position first (a row at or past the cache end writes nothing), then
-    it attends ``lengths[b] + 1`` positions.  Returns ``(out (B, 1, D),
-    k_cache, v_cache)``."""
+    it attends ``lengths[b] + 1`` positions.  With ``cross=True`` the
+    cache is the static encoder K/V (whisper's cross-attention): nothing
+    is written, the token attends ``lengths[b]`` positions (the encoder
+    lengths), and only q is projected (the reference projects k and v
+    too and drops them).  Returns ``(out (B, 1, D), k_cache,
+    v_cache)``."""
     B = x.shape[0]
-    q, k, v = _project_qkv(p, cfg, x, name, lengths[:, None])
-    pos = lengths.long()
-    _write_rows(k_cache, k[:, 0], pos)
-    _write_rows(v_cache, v[:, 0], pos)
-    out = ops.mha_decode(q[:, 0].contiguous(), k_cache, v_cache,
-                         (lengths + 1).to(torch.int32))
+    if cross:
+        q = linear(p["q"], x, name + ".q").reshape(
+            B, 1, cfg.n_heads, cfg.head_dim)
+        if cfg.pos == "rope":
+            q = rope(q, lengths[:, None], cfg.rope_theta)
+        attn_len = lengths.to(torch.int32)
+    else:
+        q, k, v = _project_qkv(p, cfg, x, name, lengths[:, None])
+        pos = lengths.long()
+        _write_rows(k_cache, k[:, 0], pos)
+        _write_rows(v_cache, v[:, 0], pos)
+        attn_len = (lengths + 1).to(torch.int32)
+    out = ops.mha_decode(q[:, 0].contiguous(), k_cache, v_cache, attn_len)
     out = out.reshape(B, 1, cfg.q_dim)
     return linear(p["out"], out, name + ".out"), k_cache, v_cache
 

@@ -7,10 +7,13 @@ recurrent kinds ``rglru`` (``models/rglru.py``), ``mlstm`` and ``slstm``
 (``models/xlstm.py``).  The FFN after the mixer is a dense MLP, or with
 ``cfg.n_experts`` a top-k MoE (``models/moe.py``) whose serving calls use
 exact capacity, as the reference's do; its aux loss is dropped here.
-sLSTM blocks have no FFN.
+sLSTM blocks have no FFN.  Whisper's decoder layers carry a
+cross-attention sub-block between the mixer and the FFN
+(:func:`cross_kv`; its decode attends a static cross cache).
 
   * ``block_init``        — params for one layer
-  * ``block_apply_seq``   — full-sequence path (calibration forward)
+  * ``block_apply_seq``   — full-sequence path (calibration forward,
+    batched prefill, whisper's encoder)
   * ``block_apply_step``  — one decode token against the layer's cache
   * ``block_apply_chunk`` — a prefill or verify chunk against it
   * ``block_init_cache``  — the layer's cache: a page pool or contiguous
@@ -32,7 +35,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, moe, rglru, xlstm
-from repro_torch.models.layers import apply_norm, mlp, mlp_init, norm_init
+from repro_torch.models.layers import (apply_norm, linear, mlp, mlp_init,
+                                       norm_init)
 
 KINDS = ("attn", "local_attn", "rglru", "mlstm", "slstm")
 RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
@@ -86,8 +90,10 @@ def window_capped(cfg: ModelConfig) -> bool:
 # init
 
 
-def block_init(gen, cfg: ModelConfig, kind: str, *, dtype=torch.float32,
-               device=None) -> Dict:
+def block_init(gen, cfg: ModelConfig, kind: str, *, cross: bool = False,
+               dtype=torch.float32, device=None) -> Dict:
+    """One layer's params; ``cross`` adds whisper's decoder
+    cross-attention sub-block (``cross_ln``, ``cross_attn``)."""
     _check_kind(kind)
     kw = {"dtype": dtype, "device": device}
     p: Dict = {"ln1": norm_init(cfg.d_model, cfg.norm, **kw)}
@@ -99,6 +105,9 @@ def block_init(gen, cfg: ModelConfig, kind: str, *, dtype=torch.float32,
         p["mlstm"] = xlstm.mlstm_init(gen, cfg, **kw)
     else:
         p["slstm"] = xlstm.slstm_init(gen, cfg, **kw)
+    if cross:
+        p["cross_ln"] = norm_init(cfg.d_model, cfg.norm, **kw)
+        p["cross_attn"] = attention.attn_init(gen, cfg, **kw)
     if cfg.d_ff > 0 and kind != "slstm":
         p["ln2"] = norm_init(cfg.d_model, cfg.norm, **kw)
         if cfg.n_experts:
@@ -121,16 +130,44 @@ def _ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, name: str):
 
 
 def block_apply_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                    *, name: str = "") -> torch.Tensor:
+                    *, causal: bool = True,
+                    encoder_out: Optional[torch.Tensor] = None,
+                    name: str = ""):
+    """The full-sequence path (B, S, d) -> ``(x_out, state)``: state is
+    the prefill-to-decode handoff, (k, v) (B, S, Hkv, hd) for the
+    attention kinds and the final recurrent state otherwise.  With
+    ``encoder_out`` a layer that has a cross sub-block attends it after
+    the mixer (``causal=False`` is the encoder's unmasked attention)."""
     _check_kind(kind)
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind in ("attn", "local_attn"):
-        out = attention.full_attention(
+        out, state = attention.full_attention(
             p["attn"], h, cfg, window=cfg.window if kind == "local_attn"
-            else 0, name=name + ".attn")
+            else 0, causal=causal, name=name + ".attn")
     else:
-        out, _ = _SEQ[kind](p[kind], h, cfg, f"{name}.{kind}")
-    return _ffn(p, x + out, cfg, name)
+        out, state = _SEQ[kind](p[kind], h, cfg, f"{name}.{kind}")
+    x = x + out
+    if "cross_attn" in p and encoder_out is not None:
+        h = apply_norm(p["cross_ln"], x, cfg.norm)
+        out, _ = attention.full_attention(
+            p["cross_attn"], h, cfg, causal=False,
+            cross_kv=cross_kv(p["cross_attn"], encoder_out, cfg),
+            name=name + ".cross")
+        x = x + out
+    return _ffn(p, x, cfg, name), state
+
+
+def cross_kv(p_attn: Dict, encoder_out: torch.Tensor, cfg: ModelConfig):
+    """K and V (B, Se, Hkv, hd) of the encoder output through a cross
+    sub-block's k and v weights (linear names ``"cross.k"`` and
+    ``"cross.v"``, as in the reference); they also fill the static cross
+    cache at prefill."""
+    B, Se = encoder_out.shape[:2]
+    k = linear(p_attn["k"], encoder_out, "cross.k").reshape(
+        B, Se, cfg.n_kv_heads, cfg.head_dim)
+    v = linear(p_attn["v"], encoder_out, "cross.v").reshape(
+        B, Se, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +244,8 @@ def block_apply_step(p: Dict, x: torch.Tensor, cache: Dict,
                      lengths: torch.Tensor, cfg: ModelConfig, kind: str, *,
                      block_table: Optional[torch.Tensor] = None,
                      active: Optional[torch.Tensor] = None,
+                     cross_cache: Optional[Dict] = None,
+                     enc_lengths: Optional[torch.Tensor] = None,
                      name: str = ""):
     """One decode token (B, 1, d) -> (x_out, cache); the cache is written
     in place.  ``attn``: with ``block_table`` the cache is the page pool
@@ -214,7 +253,9 @@ def block_apply_step(p: Dict, x: torch.Tensor, cache: Dict,
     without, it is the contiguous per-slot cache, where a tag-along row's
     write at its length stays masked until its next real write replaces
     it.  Rings and recurrent states are written for ``active`` rows only
-    (every row when ``active`` is None)."""
+    (every row when ``active`` is None).  With ``cross_cache`` (the
+    layer's static encoder K/V) a cross sub-block attends its first
+    ``enc_lengths[b]`` positions after the mixer."""
     _check_kind(kind)
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == "attn":
@@ -235,7 +276,14 @@ def block_apply_step(p: Dict, x: torch.Tensor, cache: Dict,
         state = _entering_state(cfg, kind, cache, lengths == 0)
         out, new = _STEP[kind](p[kind], h, state, cfg, f"{name}.{kind}")
         _commit(cache, new, active)
-    return _ffn(p, x + out, cfg, name), cache
+    x = x + out
+    if "cross_attn" in p and cross_cache is not None:
+        h = apply_norm(p["cross_ln"], x, cfg.norm)
+        out, _, _ = attention.decode_attention(
+            p["cross_attn"], h, cfg, cross_cache["k"], cross_cache["v"],
+            enc_lengths, cross=True, name=name + ".cross")
+        x = x + out
+    return _ffn(p, x, cfg, name), cache
 
 
 def block_apply_chunk(p: Dict, x: torch.Tensor, cache: Dict,

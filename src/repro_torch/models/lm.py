@@ -1,18 +1,22 @@
-"""Decoder-only language model: init, full-sequence forward, and the
-serving steps (``decode_step``, ``prefill_into_slot``, the speculative
+"""Language models: init, full-sequence forward, and the serving steps
+(``decode_step``, ``prefill_into_slot``, the speculative
 ``verify_chunk``, ``compact_accepted_path`` and, for rings and recurrent
-states, ``verify_snapshot`` and ``commit_verify``).
+states, ``verify_snapshot`` and ``commit_verify``), plus whisper's
+encoder (``encode``) and the model-level prefills of the reference
+(``prefill``, a replay through ``decode_step``, and ``batch_prefill``,
+one forward whose states fill the cache).
 
 Parameters are ``{"embed": {"table"}, "layers": [block params...],
-"final_ln", "pos_embed"[, "lm_head"]}`` — one dict per layer, where the
-JAX package stacks layers on a ``periods`` axis for ``lax.scan``; the
-weight bridge (``repro_torch/bridge.py``) converts between the two.  The
-cache is ``{"layers": [...]}``, per attention layer ``{"k", "v"}``:
-either a page pool ``(P, Hkv, ps, hd)`` addressed through block tables
-(``layout="paged"``) or a contiguous ``(B, Hkv, max_seq, hd)`` per-slot
-cache (``layout="stacked"``, which the draft model uses too); a
-recurrent layer's entry is its state (``blocks.init_state``).  The serving
-steps update it in place and also return it;
+"final_ln", "pos_embed"[, "lm_head"][, "encoder"]}`` — one dict per
+layer, where the JAX package stacks layers on a ``periods`` axis for
+``lax.scan``; the weight bridge (``repro_torch/bridge.py``) converts
+between the two.  The cache is ``{"layers": [...]}``, per attention
+layer ``{"k", "v"}``: either a page pool ``(P, Hkv, ps, hd)`` addressed
+through block tables (``layout="paged"``) or a contiguous ``(B, Hkv,
+max_seq, hd)`` per-slot cache (``layout="stacked"``, which the draft
+model uses too); a recurrent layer's entry is its state
+(``blocks.init_state``).  The serving steps update it in place and also
+return it;
 :func:`gather_request_cache` / :func:`scatter_request_cache` copy one
 request's share of it to host memory and back (preemption to host).
 
@@ -25,8 +29,12 @@ sliding-window layer's cache is a ring of ``min(window, max_seq)`` slots
 and a recurrent layer's a carried state, both one row per slot, beside
 the other layers' K/V; pages hold global ``attn`` layers only, so a
 stack pages only when every layer is one (a mixed stack's per-kind paged
-layout is not ported).  Encoders and frontends raise
-``NotImplementedError`` (:func:`check_supported`).
+layout is not ported).  Whisper (``is_encoder_decoder``) adds an
+encoder over stub frame embeddings and a cross sub-block per decoder
+layer, whose decode attends a static ``cache["cross"]`` filled at
+prefill; Pixtral's stub patch embeddings go before the tokens in
+:func:`forward` and :func:`batch_prefill` (the serving engine, like the
+reference's, takes tokens only).
 
 Rings and states have no length mask, so a speculative verify that
 rejects drafts must undo them: :func:`verify_snapshot` copies the ring
@@ -48,16 +56,12 @@ from repro_torch.models.layers import (apply_norm, embed, embed_init,
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a stack this package cannot run."""
-    bad = []
+    """Raise ``NotImplementedError`` for a block kind this package does
+    not know; every registered config passes."""
     unknown = sorted(set(cfg.block_pattern) - set(blocks.KINDS))
     if unknown:
-        bad.append(f"block kinds {unknown}")
-    if cfg.is_encoder_decoder or cfg.frontend != "none":
-        bad.append("encoder/frontend")
-    if bad:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} not ported (decoder stacks of "
+            f"{cfg.name}: block kinds {unknown} not ported (stacks of "
             f"{', '.join(blocks.KINDS)} only)")
 
 
@@ -85,12 +89,16 @@ def _paged_gate(cfg: ModelConfig, what: str) -> None:
 def init(cfg: ModelConfig, gen: torch.Generator, *, max_seq: int = 0,
          dtype=torch.float32, device=None) -> Dict:
     """Random parameters drawn from ``gen`` (which must live on
-    ``device``), with the JAX package's init scales."""
+    ``device``), with the JAX package's init scales.  An encoder-decoder
+    adds ``"encoder": {"layers", "final_ln", "pos_embed"}`` and a cross
+    sub-block in every decoder layer."""
     check_supported(cfg)
     kw = {"dtype": dtype, "device": device}
+    cross = cfg.is_encoder_decoder
     params: Dict = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, **kw),
-        "layers": [blocks.block_init(gen, cfg, cfg.block_kind(li), **kw)
+        "layers": [blocks.block_init(gen, cfg, cfg.block_kind(li),
+                                     cross=cross, **kw)
                    for li in range(cfg.n_layers)],
         "final_ln": norm_init(cfg.d_model, cfg.norm, **kw),
     }
@@ -102,7 +110,28 @@ def init(cfg: ModelConfig, gen: torch.Generator, *, max_seq: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = linear_init(gen, cfg.d_model, cfg.vocab_size,
                                         **kw)
+    if cross:
+        params["encoder"] = {
+            "layers": [blocks.block_init(gen, cfg, "attn", **kw)
+                       for _ in range(cfg.n_encoder_layers)],
+            "final_ln": norm_init(cfg.d_model, cfg.norm, **kw),
+            "pos_embed": torch.randn((cfg.encoder_seq, cfg.d_model),
+                                     generator=gen, **kw) * 0.01,
+        }
     return params
+
+
+def encode(params: Dict, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder: ``frames`` (B, Se, d), the stub frontend's
+    embeddings, plus the encoder's positions, through its unmasked
+    attention layers and final norm -> (B, Se, d) in ``frames``' dtype."""
+    enc = params["encoder"]
+    Se = frames.shape[1]
+    x = frames + enc["pos_embed"][None, :Se].to(frames.dtype)
+    for layer_p in enc["layers"]:
+        x, _ = blocks.block_apply_seq(layer_p, x, cfg, "attn", causal=False)
+    return apply_norm(enc["final_ln"], x, cfg.norm)
 
 
 def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor):
@@ -112,18 +141,45 @@ def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor):
     return linear(params["lm_head"], x, "lm_head")
 
 
-def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            dtype=torch.bfloat16) -> torch.Tensor:
-    """Logits (B, S, V) of a full causal sequence (B, S)."""
+def _forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+             frames: Optional[torch.Tensor] = None,
+             patches: Optional[torch.Tensor] = None,
+             dtype=torch.bfloat16):
+    """``(logits (B, S_tot, V), states, encoder_out)``: ``states`` holds
+    every layer's prefill-to-decode handoff (:func:`blocks.
+    block_apply_seq`); ``encoder_out`` is None for a decoder-only stack.
+    ``patches`` (B, P, d) go before the token embeddings (S_tot = P + S)
+    and take positions 0..P-1; an encoder-decoder needs ``frames``."""
     check_supported(cfg)
-    S = tokens.shape[1]
     x = embed(params["embed"], tokens, dtype)
+    if patches is not None:
+        x = torch.cat([patches.to(dtype), x], dim=1)
+    S_tot = x.shape[1]
     if cfg.pos == "learned":
-        x = x + params["pos_embed"][None, :S].to(dtype)
+        x = x + params["pos_embed"][None, :S_tot].to(dtype)
+    encoder_out = None
+    if cfg.is_encoder_decoder:
+        if frames is None:
+            raise ValueError(f"{cfg.name} is encoder-decoder: pass frames")
+        encoder_out = encode(params, cfg, frames.to(dtype))
+    states = []
     for li, layer_p in enumerate(params["layers"]):
-        x = blocks.block_apply_seq(layer_p, x, cfg, cfg.block_kind(li),
-                                   name=f"l{li}")
-    return _logits(params, cfg, x)
+        x, st = blocks.block_apply_seq(layer_p, x, cfg, cfg.block_kind(li),
+                                       encoder_out=encoder_out,
+                                       name=f"l{li}")
+        states.append(st)
+    return _logits(params, cfg, x), states, encoder_out
+
+
+def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None,
+            dtype=torch.bfloat16) -> torch.Tensor:
+    """Logits (B, S_tot, V) of a full causal sequence (B, S): with
+    ``patches`` (B, P, d) the patch prefix comes first (S_tot = P + S);
+    an encoder-decoder attends the encoding of ``frames`` (B, Se, d)."""
+    return _forward(params, cfg, tokens, frames=frames, patches=patches,
+                    dtype=dtype)[0]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -143,16 +199,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     check_supported(cfg)
     if layout == "paged":
         _paged_gate(cfg, "init_cache")
-    return {"layers": [
+    cache = {"layers": [
         blocks.block_init_cache(cfg, cfg.block_kind(li), batch, max_seq,
                                 dtype=dtype, device=device)
         for li in range(cfg.n_layers)]}
+    if cfg.is_encoder_decoder:
+        shape = (batch, cfg.n_kv_heads, cfg.encoder_seq, cfg.head_dim)
+        cache["cross"] = [
+            {k: torch.zeros(shape, dtype=dtype, device=device)
+             for k in ("k", "v")} for _ in range(cfg.n_layers)]
+    return cache
 
 
 def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: Dict, lengths: torch.Tensor, *,
                 block_table: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,
+                enc_lengths: Optional[torch.Tensor] = None,
                 dtype=torch.bfloat16):
     """One auto-regressive step for every row: ``token`` (B, 1) enters at
     position ``lengths[b]``.  With ``block_table`` (B, n_pg) the cache is
@@ -160,7 +223,9 @@ def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
     writes parked on the null page; without, it is the stacked cache,
     row ``b`` being slot ``b``, where rows outside ``active`` leave their
     rings and recurrent states untouched (their K/V writes stay masked).
-    Returns ``(logits (B, V), cache)``."""
+    An encoder-decoder's layers also attend the first ``enc_lengths[b]``
+    positions of the cache's static ``"cross"`` K/V.  Returns
+    ``(logits (B, V), cache)``."""
     x = embed(params["embed"], token, dtype)  # (B, 1, d)
     if cfg.pos == "learned":
         # idle rows may sit at the table end: clamp explicitly (the
@@ -168,14 +233,20 @@ def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
         P = params["pos_embed"].shape[0]
         pos = lengths.long().clamp(max=P - 1)
         x = x + params["pos_embed"].to(dtype)[pos][:, None]
+    cross = cache.get("cross")
+    if cross is not None and enc_lengths is None:
+        raise ValueError(f"{cfg.name} is encoder-decoder: pass enc_lengths")
     layers = []
     for li, layer_p in enumerate(params["layers"]):
         x, c = blocks.block_apply_step(
             layer_p, x, cache["layers"][li], lengths, cfg,
             cfg.block_kind(li), block_table=block_table, active=active,
-            name=f"l{li}")
+            cross_cache=None if cross is None else cross[li],
+            enc_lengths=enc_lengths, name=f"l{li}")
         layers.append(c)
-    return _logits(params, cfg, x)[:, 0], {"layers": layers}
+    out = dict(cache)
+    out["layers"] = layers
+    return _logits(params, cfg, x)[:, 0], out
 
 
 def prefill_into_slot(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -223,6 +294,92 @@ def prefill_into_slot(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             name=f"l{li}")
     logits = _logits(params, cfg, x[:, valid - 1:valid])
     return logits[0, 0].float(), cache
+
+
+def _fill_cross_cache(params: Dict, cfg: ModelConfig, cache: Dict,
+                      enc_out: torch.Tensor) -> Dict:
+    """Write every decoder layer's static cross K/V, ``cross_kv`` of the
+    encoder output laid out (B, Hkv, Se, hd), into ``cache["cross"]``.
+    The entries are new contiguous tensors in the projections' dtype, as
+    the reference's are (it keeps no cache dtype there)."""
+    cache["cross"] = [
+        {k: t.transpose(1, 2).contiguous() for k, t in zip(
+            ("k", "v"), blocks.cross_kv(p["cross_attn"], enc_out, cfg))}
+        for p in params["layers"]]
+    return cache
+
+
+def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+            prompt_lengths: torch.Tensor, cache: Dict, *,
+            frames: Optional[torch.Tensor] = None, dtype=torch.bfloat16):
+    """Sequential prefill on the stacked cache: the right-padded prompts
+    ``tokens`` (B, S) of ``prompt_lengths`` (B,) tokens replay through
+    :func:`decode_step` one position a call, from position 0 (an
+    encoder-decoder first encodes ``frames`` and fills the cross cache).
+    Every row writes at every step; a row past its prompt keeps its
+    length, so its later writes stay masked.  Returns ``(last_logits (B,
+    V) f32 at each row's last prompt token, cache, lengths)``."""
+    B, S = tokens.shape
+    dev = tokens.device
+    enc_lengths = None
+    if cfg.is_encoder_decoder:
+        enc_out = encode(params, cfg, frames.to(dtype))
+        cache = _fill_cross_cache(params, cfg, cache, enc_out)
+        enc_lengths = torch.full((B,), enc_out.shape[1], dtype=torch.int32,
+                                 device=dev)
+    plen = prompt_lengths.to(dev).long()
+    lengths = torch.zeros((B,), dtype=torch.int32, device=dev)
+    last = torch.zeros((B, cfg.vocab_size), dtype=torch.float32, device=dev)
+    for t in range(S):
+        logits, cache = decode_step(params, cfg, tokens[:, t:t + 1], cache,
+                                    lengths, enc_lengths=enc_lengths,
+                                    dtype=dtype)
+        lengths = lengths + (t < plen).to(torch.int32)
+        last = torch.where((t == plen - 1)[:, None], logits.float(), last)
+    return last, cache, lengths
+
+
+def batch_prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  cache: Dict, *, frames: Optional[torch.Tensor] = None,
+                  patches: Optional[torch.Tensor] = None,
+                  dtype=torch.bfloat16):
+    """Parallel prefill on the stacked cache: one full-sequence forward of
+    the uniform prompts ``tokens`` (B, S) (after ``patches`` (B, P, d),
+    if given) whose every layer's state is written into rows ``0..B-1``
+    of the cache, in place: K/V at positions ``0..S_tot-1`` and zeros
+    above, a ring's last W positions at their slots, a recurrent layer's
+    final state; an encoder-decoder also fills its cross cache.  Returns
+    ``(last_logits (B, V) f32, cache, lengths)``, every length S_tot."""
+    B, S = tokens.shape
+    logits, states, enc_out = _forward(params, cfg, tokens, frames=frames,
+                                       patches=patches, dtype=dtype)
+    S_tot = logits.shape[1]
+    for li, (state, entry) in enumerate(zip(states, cache["layers"])):
+        kind = cfg.block_kind(li)
+        if kind not in ("attn", "local_attn"):
+            for k, t in entry.items():
+                t.copy_(state[k].to(t.dtype))
+            continue
+        W = entry["k"].shape[2]
+        for k, t in zip(("k", "v"), state):
+            t = t.transpose(1, 2)  # (B, Hkv, S_tot, hd)
+            dst = entry[k]
+            if dst.shape[0] != B or (kind == "attn" and S_tot > W):
+                raise ValueError(
+                    f"batch_prefill: {B} rows of {S_tot} positions do not "
+                    f"fit a cache of {tuple(dst.shape)}")
+            dst.zero_()
+            if kind == "local_attn" and S_tot >= W:
+                slots = torch.arange(S_tot - W, S_tot,
+                                     device=dst.device) % W
+                dst[:, :, slots] = t[:, :, S_tot - W:].to(dst.dtype)
+            else:
+                dst[:, :, :S_tot] = t.to(dst.dtype)
+    if cfg.is_encoder_decoder:
+        cache = _fill_cross_cache(params, cfg, cache, enc_out)
+    lengths = torch.full((B,), S_tot, dtype=torch.int32,
+                         device=tokens.device)
+    return logits[:, -1].float(), cache, lengths
 
 
 def gather_request_cache(cfg: ModelConfig, cache: Dict, slot: int, *,

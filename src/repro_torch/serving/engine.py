@@ -69,10 +69,16 @@ reference.  The engine runs on ``device`` (default
 The stacks served are decoders of every block kind of the reference
 with a dense or a MoE FFN (``models/moe.py``: the router and the expert
 banks stay in floating point under W8A8, as in the reference, and run as
-batched products in the activation stream's dtype).  Not ported (they
-raise ``NotImplementedError``): replay prefill, ring tensor parallelism
-(``mesh=``) and a mixed stack's per-kind paged layout; encoders and
-frontends raise in :func:`repro_torch.models.lm.check_supported`.
+batched products in the activation stream's dtype).  Not ported (it
+raises ``NotImplementedError``): ring tensor parallelism (``mesh=``);
+a mixed stack's per-kind paged layout raises in
+:func:`repro_torch.models.lm.init_cache`.  ``prefill_mode="replay"``
+(the reference's A/B debug mode and its serving bench's baseline)
+replays each prompt one token a tick through the decode step, on either
+layout.  An encoder-decoder (whisper) is refused with ``ValueError``:
+the reference's engine cannot serve it either (its replay step passes
+no encoder lengths), and it runs at model level
+(``lm.prefill``/``lm.batch_prefill``, ``lm.decode_step(enc_lengths=)``).
 """
 from __future__ import annotations
 
@@ -134,7 +140,7 @@ class ServeEngine(LifecycleMixin):
         calibration_batches=None,
         seed: int = 0,
         chunk_size: int = 32,
-        prefill_mode: str = "auto",  # auto | chunked
+        prefill_mode: str = "auto",  # auto | chunked | replay
         kv_layout: str = "auto",  # auto | paged | stacked
         page_size: int = 16,
         n_pages: Optional[int] = None,
@@ -146,16 +152,28 @@ class ServeEngine(LifecycleMixin):
         telemetry: Optional[Telemetry] = None,
         device=None,
     ):
-        for what, bad in (("mesh=", mesh is not None),
-                          (f"prefill_mode={prefill_mode!r}",
-                           prefill_mode not in ("auto", "chunked"))):
-            if bad:
-                raise NotImplementedError(
-                    f"ServeEngine({what}) is not ported: this engine "
-                    "serves with chunked prefill on one device")
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServeEngine(mesh=) is not ported: this engine serves on "
+                "one device")
+        if prefill_mode not in ("auto", "chunked", "replay"):
+            raise ValueError(f"prefill_mode={prefill_mode!r} must be "
+                             "'auto', 'chunked' or 'replay'")
         if kv_layout not in ("auto", "paged", "stacked"):
             raise ValueError(f"kv_layout={kv_layout!r} must be 'auto', "
                              "'paged' or 'stacked'")
+        if cfg.is_encoder_decoder:
+            # the reference refuses chunked with this ValueError and, in
+            # auto or replay, fails at the first tick (its replay step
+            # passes no encoder lengths); whisper serves at model level
+            raise ValueError(
+                f"{cfg.name} is encoder-decoder: the engine serves decoder "
+                "stacks; run it through lm.prefill / lm.batch_prefill and "
+                "lm.decode_step(enc_lengths=)")
+        if prefill_mode == "replay" and spec is not None:
+            raise ValueError("speculative decoding needs chunked prefill "
+                             "(prefill_mode='replay' replays the prompt "
+                             "through plain decode steps)")
         lm.check_supported(cfg)
         self.tel = telemetry or Telemetry()
         self.device = resolve_device(device)
@@ -175,7 +193,9 @@ class ServeEngine(LifecycleMixin):
         self.act_dtype = act_dtype or (torch.float32 if quantized
                                        else torch.bfloat16)
         self.params = params
-        self.prefill_mode = "chunked"
+        # every decoder stack chunks; replay is the A/B debug mode
+        self.prefill_mode = "replay" if prefill_mode == "replay" \
+            else "chunked"
         self.admission = admission or FIFOAdmission(
             cfg, chunk_size=self.chunk_size)
         if self.admission.chunk_size > self.chunk_size:
@@ -220,8 +240,10 @@ class ServeEngine(LifecycleMixin):
                                        bounded=self.seq_ceiling is not None)
         # rings and recurrent states: the verify's rewind seam
         self._state_store = getattr(self.kv, "state", None)
-        # prefix sharing links pages: the paged layout only
-        self._share = self.paged and prefix_sharing
+        # prefix sharing links pages: the paged layout with chunked
+        # prefill only (replay teacher-forces every prompt token)
+        self._share = (self.paged and prefix_sharing
+                       and self.prefill_mode == "chunked")
         self.cur_tok = np.zeros((batch_slots, 1), np.int64)
         self._temp = np.zeros((batch_slots,), np.float32)
         self._topk = np.zeros((batch_slots,), np.int64)
@@ -315,7 +337,10 @@ class ServeEngine(LifecycleMixin):
     @torch.no_grad()
     def tick(self) -> None:
         """One engine tick: prefill chunks within the budget, then one
-        batched decode step over every decoding slot."""
+        batched decode step over every decoding slot (with
+        ``prefill_mode="replay"``: :meth:`_tick_replay`)."""
+        if self.prefill_mode == "replay":
+            return self._tick_replay()
         t_tick = time.perf_counter()
         tr = self.tel.tracer
         with tr.span("tick", "engine"):
@@ -412,6 +437,57 @@ class ServeEngine(LifecycleMixin):
         for b, req in enumerate(self.slots):
             if req is not None and req.state == DECODE and decoding[b]:
                 self._emit(req, int(sampled[b]), now)
+
+    def _tick_replay(self) -> None:
+        """The reference's replay tick: one batched decode step over every
+        seated slot, prefilling or decoding.  A prefilling row feeds its
+        next context token (teacher forcing) and its prompt's last step
+        emits its first token; rows past their prompt decode.  One model
+        call per prompt token, none through the chunk path."""
+        t_tick = time.perf_counter()
+        tr = self.tel.tracer
+        with tr.span("tick", "engine"):
+            with tr.span("admit"):
+                self._admit()
+            occupied = self._ensure_room([s is not None for s in self.slots])
+            if not occupied.any():
+                return
+            t0 = time.perf_counter()
+            where = ({"block_table": self._dev(self.kv.block_tables)}
+                     if self.paged else {})
+            with tr.span("decode.step", "stage", TID_ENGINE,
+                         ({"rows": int(occupied.sum()), "replay": True}
+                          if tr.enabled else None)):
+                logits, self.kv.cache = lm.decode_step(
+                    self.params, self.cfg, self._dev(self.cur_tok),
+                    self.kv.cache, self._dev(self.kv.lengths),
+                    active=self._dev(occupied), dtype=self.act_dtype,
+                    **where)
+            self._c_dec_mod.value += self._modeled_decode_s
+            self._c_dec_meas.value += time.perf_counter() - t0
+            self.model_calls += 1
+            sampled = self._sample(logits, slice(None))
+            lengths_h = self.kv.lengths.copy()
+            # every slot that was occupied when the step ran advances (a
+            # slot freed this tick is reset at its next alloc)
+            self.kv.advance_mask(occupied)
+            now = time.monotonic()
+            for b, req in enumerate(self.slots):
+                if req is None or not occupied[b]:
+                    continue
+                if req.state == DECODE:
+                    self._emit(req, int(sampled[b]), now)
+                    continue
+                ctx = req.context
+                pos = int(lengths_h[b]) + 1  # cached after this step
+                if pos < len(ctx):
+                    req.filled = pos
+                    self.cur_tok[b, 0] = ctx[pos]
+                else:
+                    req.filled = len(ctx)
+                    self._finish_prefill(req, lambda b=b: int(sampled[b]))
+        self.ticks += 1
+        self._h_tick.record(time.perf_counter() - t_tick)
 
     def _count_verify(self, mask: np.ndarray, lengths: np.ndarray,
                       written: np.ndarray) -> None:

@@ -329,6 +329,7 @@ class LifecycleMixin:
         # a prefix-sharing hit starts prefill past the shared pages
         req.filled = shared_tokens
         self._seat_common(req, slot)
+        self.cur_tok[slot, 0] = req.context[0]  # replay's first token
         tr = self.tel.tracer
         if tr.enabled:
             tr.instant("req.admitted", "request", TID_REQUEST,

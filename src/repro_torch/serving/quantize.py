@@ -5,6 +5,12 @@ calibration context records per-linear activation absmax;
 ``quantize_model_params`` rewrites every matrix-processing linear group
 ``{"w": (K, N)}`` into the Fused-MP form ``{"w_q", "w_scale", "smooth"}``.
 Norms and the (tied) embedding stay in floating point, as in the paper.
+Whisper's encoder layers and its decoders' cross sub-blocks are walked
+like any other group.  As in the reference, statistics are looked up by
+the group's last two path keys: the encoder's attention shares the
+decoder's ``attn.*`` statistics, and a cross sub-block's ``cross_attn.*``
+groups find none (their products were recorded as ``cross.*``), so they
+quantize without smoothing.
 """
 from __future__ import annotations
 
@@ -18,14 +24,19 @@ from repro_torch.models import lm
 
 
 @torch.no_grad()
-def calibrate(params, cfg: ModelConfig, sample_batches) -> Dict[str,
-                                                                torch.Tensor]:
+def calibrate(params, cfg: ModelConfig, sample_batches, *,
+              extras: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """Run forwards (bf16 activations, as the reference does); returns
-    {linear-name: per-channel activation absmax} on the CPU."""
+    {linear-name: per-channel activation absmax} on the CPU.  ``extras``
+    are passed to every forward (whisper's ``frames``, pixtral's
+    ``patches``)."""
     dev = params["embed"]["table"].device
+    kw = {k: torch.as_tensor(v, device=dev)
+          for k, v in (extras or {}).items()}
     with quant.calibration() as stats:
         for tokens in sample_batches:
-            lm.forward(params, cfg, torch.as_tensor(tokens, device=dev))
+            lm.forward(params, cfg, torch.as_tensor(tokens, device=dev),
+                       **kw)
     return {k: v.cpu() for k, v in stats.items()}
 
 

@@ -420,10 +420,13 @@ def test_w8a8_spec_streams_equal_plain(family, arch, variant):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_check_supported_refuses_other_stacks(arch):
-    """Encoders and frontends are refused; a hybrid stack of the family's
-    widths is accepted and serves stacked, while the paged layout refuses
-    it with the reference's ``ValueError`` (no global-attention layer to
-    page)."""
+    """Every block kind, an encoder and a frontend pass
+    ``check_supported``.  A hybrid stack of the family's widths serves
+    stacked, while the paged layout refuses it with the reference's
+    ``ValueError`` (no global-attention layer to page); an encoder-decoder
+    is refused by the engine with ``ValueError`` (it runs at model
+    level); a patch frontend's decoder serves on tokens, as in the
+    reference."""
     cfg = get_config(arch).reduced()
     lm.check_supported(dataclasses.replace(cfg, family="moe", n_experts=8,
                                            experts_per_token=2))
@@ -431,23 +434,25 @@ def test_check_supported_refuses_other_stacks(arch):
             (dict(family="hybrid", block_pattern=("rglru", "rglru",
                                                   "local_attn"),
                   window=32, lru_width=64), "global-attention"),
-            (dict(is_encoder_decoder=True, n_encoder_layers=2), "encoder"),
-            (dict(frontend="vision_patches", frontend_tokens=8),
-             "frontend")):
+            (dict(is_encoder_decoder=True, n_encoder_layers=2),
+             "encoder-decoder"),
+            (dict(frontend="vision_patches", frontend_tokens=8), None)):
         other = dataclasses.replace(cfg, **bad)
+        lm.check_supported(other)
+        params = lm.init(other, torch.Generator().manual_seed(0))
         if bad.get("family") == "hybrid":
-            lm.check_supported(other)
-            params = lm.init(other, torch.Generator().manual_seed(0))
             eng = ServeEngine(other, params, max_seq=64, device="cpu")
             assert eng.kv_layout == "stacked" and eng.seq_ceiling is None
             with pytest.raises(ValueError, match=match):
                 ServeEngine(other, params, max_seq=64, kv_layout="paged",
                             device="cpu")
-            continue
-        with pytest.raises(NotImplementedError, match=match):
-            lm.check_supported(other)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ServeEngine(other, {}, device="cpu")
+        elif match is not None:
+            assert "encoder" in params
+            with pytest.raises(ValueError, match=match):
+                ServeEngine(other, params, max_seq=64, device="cpu")
+        else:
+            eng = ServeEngine(other, params, max_seq=64, device="cpu")
+            assert eng.kv_layout == "paged"
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -138,8 +138,18 @@ def test_engine_without_card_raises(setup, monkeypatch):
                                       block_pattern=("rglru",)))},
     {"prefill_mode": "replay"}, {"mesh": object()},
 ])
-def test_unported_engine_options_raise(setup, kw):
-    _, cfg, _, tparams, _, _ = setup
+def test_unported_engine_options_raise(setup, kw, fp_pair):
+    """Options the port refuses raise; replay prefill, refused before its
+    port, now serves the chunked engine's float32 streams."""
+    _, cfg, _, tparams, prompts, _ = setup
+    if kw.get("prefill_mode") == "replay":
+        eng = ServeEngine(cfg, tparams, batch_slots=SLOTS, max_seq=MAX_SEQ,
+                          eos_id=-1, page_size=PAGE, chunk_size=CHUNK,
+                          act_dtype=torch.float32, device="cpu", **kw)
+        assert eng.prefill_mode == "replay"
+        assert _serve(eng, prompts) == fp_pair[3]
+        assert eng.stats()["prefill_calls"] == 0
+        return
     exc, match = ((ValueError, "global-attention draft") if "spec" in kw
                   else (NotImplementedError, "not ported"))
     with pytest.raises(exc, match=match):

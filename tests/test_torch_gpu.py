@@ -1269,3 +1269,122 @@ def test_hybrid_engine_on_card_runs_every_kernel(h100, arch):
         else:
             assert verifies > 0
             assert 0 < s["spec_accepted"] < s["spec_proposed"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kvdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,lengths", [
+    (1500, [1500] * 6 + [1499, 17]),  # whisper's cross cache
+    (448, [68, 75, 83, 96, 88, 88, 1, 448])])  # its self cache
+def test_mha_decode_at_whisper_shapes_on_card(h100, qdtype, kvdtype, S,
+                                              lengths):
+    """``whisper-large-v3``'s decode attention: 8 rows of 20 query heads
+    over 20 KV heads of 64, over the 1,500-key cross cache (93 whole
+    16-key tiles and a ragged one; every served row's length is 1,500)
+    and the 448-position self cache.  Each output vector within 1e-2 of
+    its plain version's largest magnitude, two calls bit-identical, one
+    launch counted per call."""
+    rng = np.random.default_rng(S + len(qdtype) + len(kvdtype))
+    q, k, v, lens = _mha_case(rng, h100, lengths, 20, 1, 64, S, qdtype,
+                              kvdtype)
+    ops.reset_launch_counts()
+    got = ops.mha_decode(q, k, v, lens)
+    again = ops.mha_decode(q, k, v, lens)
+    want = ref.mha_decode_ref(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= ATTN_REL_TOL
+    assert torch.equal(got, again)
+    assert ops.launch_counts()["mha_decode"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N", [(1280, 1280), (1280, 5120), (5120, 1280)])
+@pytest.mark.parametrize("M", [8, 1500, 3000, 12007])
+def test_mp_matmul_bitexact_at_whisper_shapes_on_card(h100, M, K, N):
+    """The W8A8 kernel at whisper's weight shapes and the encoder's token
+    counts: one request's 1,500 frames (24 blocks of 64 tokens, the last
+    ragged), two requests', eight and a ragged 7, and a decode step's 8
+    rows; with bias, float32 out: bit-identical, twice."""
+    rng = np.random.default_rng(M + K + N + 3)
+    args = _mp_case(rng, M, K, N, True, h100)
+    got = ops.quant_matmul(*args, out_dtype=torch.float32)
+    again = ops.quant_matmul(*args, out_dtype=torch.float32)
+    want = ref.quant_matmul_ref(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_whisper_model_level_on_card_runs_the_kernels(h100):
+    """Reduced ``whisper-large-v3`` W8A8 at model level on the card
+    (``chip_smoke.whisper_run``: ragged prompts through ``lm.prefill``,
+    uniform ones through ``lm.batch_prefill``, then greedy
+    ``decode_step(enc_lengths=)``): every quantized linear through the MP
+    kernel, two contiguous decodes a layer a step (self and cross), no
+    paged kernel; the stream held to the CPU's (taught the same stream)
+    under the near-tie rule."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.layers import to_device
+    from repro_torch.serving.quantize import (calibrate,
+                                              quantize_model_params)
+
+    cs = _chip_smoke()
+    cfg = get_config("whisper-large-v3").reduced()
+    rng = np.random.default_rng(23)
+    params = lm.init(cfg, torch.Generator().manual_seed(0), max_seq=64)
+    frames = rng.standard_normal((4, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)
+    qp = quantize_model_params(params, cfg, calibrate(
+        params, cfg, [rng.integers(1, cfg.vocab_size, (2, 16))],
+        extras={"frames": frames[:2]}))
+    ragged = [[5, 6, 7], [8, 9, 10, 11, 12, 13, 14]]
+    uniform = [[3, 4, 5, 6, 7], [9, 8, 7, 6, 5]]
+    ops.reset_launch_counts()
+    toks, la, _ = cs.whisper_run(to_device(qp, h100), cfg,
+                                 torch.from_numpy(frames).to(h100), ragged,
+                                 uniform, 8, h100, max_seq=64)
+    n = ops.launch_counts()
+    assert n["mp_matmul"] == cs.whisper_mp_calls(cfg, 7, 8)
+    assert n["mha_decode"] == 2 * cfg.n_layers * (7 + 8)
+    assert n["paged_mha_decode"] == n["paged_verify"] == 0
+    _, lb, _ = cs.whisper_run(qp, cfg, torch.from_numpy(frames), ragged,
+                              uniform, 8, torch.device("cpu"), forced=toks,
+                              max_seq=64)
+    assert cs.hold_taught("reduced whisper card vs CPU", toks, la, lb) > 0
+
+
+@pytest.mark.gpu
+def test_replay_engine_on_card_runs_only_decode_kernels(h100):
+    """Reduced GPT-2's W8A8 engine with replay prefill on the card, paged
+    and stacked: every prompt token is a decode step, so the runs launch
+    the MP kernel and the paged (or contiguous) decode kernel at every
+    model call and no verify; each request gets its tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.quantize import (calibrate,
+                                              quantize_model_params)
+
+    cfg = get_config("gpt2-345m").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(0), max_seq=64)
+    qp = quantize_model_params(params, cfg, calibrate(
+        params, cfg, [np.random.default_rng(0).integers(1, 512, (2, 16))]))
+    L = cfg.n_layers
+    for layout, kernel in (("paged", "paged_mha_decode"),
+                           ("stacked", "mha_decode")):
+        eng = ServeEngine(cfg, qp, batch_slots=2, max_seq=64, eos_id=-1,
+                          act_dtype=torch.float32, chunk_size=16,
+                          kv_layout=layout, prefill_mode="replay")
+        for p in ([3, 4, 5], list(range(1, 40))):
+            eng.submit(p, max_new=6)
+        ops.reset_launch_counts()
+        done = eng.run()
+        s, n = eng.stats(), ops.launch_counts()
+        assert len(done) == 2 and all(len(r.out) == 6 for r in done)
+        assert s["prefill_calls"] == 0 and s["model_calls"] == s["ticks"]
+        assert n["mp_matmul"] == 6 * L * s["model_calls"]
+        assert n[kernel] == L * s["model_calls"]
+        assert n["paged_verify"] == n["paged_verify_tree"] == 0

@@ -53,7 +53,9 @@ def test_config_copy_matches_reference(reduced):
 def test_unsupported_stacks_raise():
     """A mixed stack (global and local attention) initialises and takes a
     stacked cache, but its per-kind paged layout is not ported; an
-    unknown block kind, an encoder and an unported layout raise."""
+    unknown block kind and an unported layout raise.  An encoder-decoder,
+    refused before its port, initialises with an encoder and cross
+    sub-blocks, and its stacked cache holds a cross K/V per layer."""
     cfg = dataclasses.replace(get_config("gpt2-345m").reduced(),
                               block_pattern=("attn", "local_attn"),
                               window=8)
@@ -62,11 +64,18 @@ def test_unsupported_stacks_raise():
     assert ring.shape[2] == 8  # min(window, max_seq)
     with pytest.raises(NotImplementedError, match="per-kind paged layout"):
         lm.init_cache(cfg, 4, PS, layout="paged")
-    for bad, match in ((dict(block_pattern=("attn", "conv")), "block kinds"),
-                       (dict(is_encoder_decoder=True), "encoder")):
-        with pytest.raises(NotImplementedError, match=match):
-            lm.init(dataclasses.replace(cfg, **bad),
-                    torch.Generator().manual_seed(0), max_seq=16)
+    with pytest.raises(NotImplementedError, match="block kinds"):
+        lm.init(dataclasses.replace(cfg, block_pattern=("attn", "conv")),
+                torch.Generator().manual_seed(0), max_seq=16)
+    enc = dataclasses.replace(get_config("gpt2-345m").reduced(),
+                              is_encoder_decoder=True, n_encoder_layers=2,
+                              encoder_seq=12)
+    params = lm.init(enc, torch.Generator().manual_seed(0), max_seq=16)
+    assert len(params["encoder"]["layers"]) == 2
+    assert all("cross_attn" in lp for lp in params["layers"])
+    cache = lm.init_cache(enc, 2, 16, layout="stacked")
+    assert [e["k"].shape for e in cache["cross"]] == \
+        [(2, enc.n_kv_heads, 12, enc.head_dim)] * enc.n_layers
     with pytest.raises(NotImplementedError, match="layout"):
         lm.init_cache(get_config("gpt2-345m").reduced(), 4, PS,
                       layout="layers")
