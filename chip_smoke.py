@@ -81,6 +81,10 @@ failure exits non-zero and nothing is caught and continued:
    bit for bit also at 3,000 and a ragged 12,007) for 1,280 -> 1,280,
    1,280 -> 5,120 and 5,120 -> 1,280, each timed beside its plain
    version, ``torch._int_mm`` with the same epilogue and its bound.
+   Then the mixed stack's ``attn`` layers: ``paged_mha_decode`` (8
+   rows) and ``paged_verify`` (a prefill chunk of 32, a chain verify of
+   8 x 5) at 16 query heads over one KV head of 256 in a table of 4,096
+   positions, held and timed as above.
 5. Serving: full-width ``gpt2-345m`` with random weights from a seeded
    generator, W8A8 SmoothQuant calibrated on seeded prompts, paged KV
    cache, chunk 32, 8 slots, ``max_seq`` 1024, 16 greedy requests with
@@ -128,11 +132,16 @@ failure exits non-zero and nothing is caught and continued:
     chunked prefill, a shared prefix), plainly, with chain speculation
     and with tree speculation.  The free-running greedy agreement of the
     served streams is printed.  Each pair of streams must be equal up to
-    where it parts, and every parting must be a near-tie: fed the shared
-    history, the two computations' logits agree to ``LOGIT_REL_TOL`` of
-    their range, and each one's margin of its own token over the other's
-    is at most twice their largest logit difference, the most that
-    difference can overturn.
+    where it parts, and every parting must be a near-tie: each
+    computation's logits are recomputed along the calls that served its
+    stream (``ScheduleProbe`` records every prefill chunk, decode step and
+    verify call of each request while the engine runs; ``logits_after``
+    replays them with their tokens, widths and valid counts), each must
+    prefer its own token (a negative margin means the recomputation is
+    not what served the stream, and fails), the two agree to
+    ``LOGIT_REL_TOL`` of their range, and each one's margin of its own
+    token over the other's is at most twice their largest logit
+    difference, the most that difference can overturn.
     Then the same, plain decode only, with replay prefill.
 11. Whisper at model level: full-width, full-depth ``whisper-large-v3``
     (32 encoder and 32 decoder layers, d 1,280, vocab 51,866), W8A8
@@ -167,17 +176,26 @@ failure exits non-zero and nothing is caught and continued:
     run's under the near-tie rule (for olmoe with phase 12's routing
     near-ties), logits recomputed in the batch shapes of each run; each
     model is freed before the next, and the peak memory printed.  Then
-    the hybrid stacks at full width and full depth
-    (``HYBRID_MAX_SEQ``): ``recurrentgemma-9b`` (38 layers: 26 RG-LRU of
-    width 4,096 and 12 local attention of 16 heads over one KV head of
-    256 on a ring of 2,048 slots, GeGLU 12,288, vocab 256,000, tied;
-    ``max_seq`` 2,048) and ``xlstm-350m`` (24 layers: 18 mLSTM of 4 heads
-    of 256 and 6 sLSTM, d 1024, vocab 50,304; ``max_seq`` 1,024), each
-    stacked plain and stacked chain, 8 requests of 64 new tokens on six
-    prompts of 16-512 tokens and two of 2,100-2,400 (rings wrap in
-    prefill and decode, requests run past ``max_seq``: no ceiling); the
-    MP kernel's, the ring decode's and the paged kernels' launches
-    checked against the calls; the chain run held to the plain one.
+    the hybrid stacks at full width, two pattern periods deep
+    (``HYBRID_LAYERS``, ``HYBRID_MAX_SEQ``): ``recurrentgemma-9b`` (6 of
+    its 38 layers: 4 RG-LRU of width 4,096 and 2 local attention of 16
+    heads over one KV head of 256 on a ring of 2,048 slots, GeGLU 12,288,
+    vocab 256,000, tied; ``max_seq`` 2,048) and ``xlstm-350m`` (8 of its
+    24 layers: 6 mLSTM of 4 heads of 256 and 2 sLSTM, d 1024, vocab
+    50,304; ``max_seq`` 1,024), each stacked plain and stacked chain, 8
+    requests of 64 new tokens on six prompts of 16-512 tokens and two of
+    2,100-2,400 (rings wrap in prefill and decode, requests run past
+    ``max_seq``: no ceiling); the MP kernel's, the ring decode's and the
+    paged kernels' launches checked against the calls; the chain run held
+    to the plain one.  Then the mixed stack: the reference test's pattern
+    (global attention, local attention, RG-LRU) at ``recurrentgemma-9b``'s
+    widths, 6 layers, ``max_seq`` 4,096, on the per-kind paged layout (the
+    ``attn`` layers on pages, the rings and states one row per slot) and
+    on the stacked one, plain and chain, the same 8 requests; a
+    prefix-sharing pair whose streams must equal the unshared run's, and
+    an over-commit run that preempts to host and restores; launches
+    checked against the calls and the pairs held under the near-tie
+    rule.
 12. Reduced-config agreement: whisper's model-level loop (the CPU
     taught the card's stream), then (as phase 10) ``llama3-8b``,
     ``gemma-7b``, ``olmoe-1b-7b``, ``kimi-k2-1t-a32b``,
@@ -206,7 +224,7 @@ failure exits non-zero and nothing is caught and continued:
 14. One ``kernels`` JSON line (six kernels, each with its launches on its
     own path and per run, the RoPE family's rows under ``wide_heads``
     and ``family_widths``, the hybrid stacks' under ``hybrid``,
-    whisper's under ``whisper``), the
+    whisper's under ``whisper``, the mixed stack's under ``mixed``), the
     total time, the card's name and power limit, then the device JSON
     line last.
 """
@@ -306,8 +324,11 @@ REPLAY_REQUESTS, REPLAY_PROMPT_LENS = 4, (16, 128)
 #: the hybrid stacks at full width, stacked plain and chain: config ->
 #: max_seq (recurrentgemma's ring is then its published 2,048-token
 #: window); six prompts of 16-512 tokens and two of 2,100-2,400, which
-#: wrap the rings in prefill and decode and run past max_seq
+#: wrap the rings in prefill and decode and run past max_seq; the depth
+#: each serves at (two pattern periods: the near-tie rule's replay of
+#: every parting along its calls took the time)
 HYBRID_MAX_SEQ = {"recurrentgemma-9b": 2048, "xlstm-350m": 1024}
+HYBRID_LAYERS = {"recurrentgemma-9b": 6, "xlstm-350m": 8}
 HYBRID_LONG = (2100, 2400)
 #: the recurrent blocks timed alone: (config, kind), at a decode tick's
 #: rows and a prefill chunk's tokens
@@ -318,6 +339,15 @@ MOE_TIMED_T = (SLOTS, CHUNK)
 #: the over-commit phase's page pool (pages of 16, the null page included):
 #: every prompt fits, the requests' reservations together do not
 OVERCOMMIT_PAGES = 97
+#: the mixed stack: the reference test's per-kind pattern at
+#: recurrentgemma-9b's widths, two periods deep, served with max_seq 4,096
+#: (the attn layers' pages hold the long prompts whole); its decode rows'
+#: lengths at the timed decode, and the pages of its over-commit pool (the
+#: longest prompt fits, with room for two of the short ones)
+MIXED_PATTERN, MIXED_LAYERS, MIXED_MAX_SEQ = (
+    ("attn", "local_attn", "rglru"), 6, 4096)
+MIXED_TIMED_LENGTHS = (80, 179, 278, 377, 476, 576, 2164, 2464)
+MIXED_OVERCOMMIT_PAGES = 1 + 160 + 48
 
 
 #: the timed calls profiled by CUDA function after the serving phases
@@ -340,6 +370,7 @@ T_START = time.perf_counter()
 
 
 def phase(name: str) -> None:
+    _PREFILLED.clear()
     print(f"== {name} [{time.perf_counter() - T_START:.1f} s]", flush=True)
 
 
@@ -415,10 +446,10 @@ def mp_inputs(rng, M, K, N, dev, bias=False):
     return [t if t is None else t.to(dev) for t in (x, w, xs, ws, b)]
 
 
-def pool_inputs(rng, B, H, D, dev, q_shape):
-    """A page pool of B rows x MAX_SEQ positions (page 0 null), a random
-    block table and a query of ``q_shape``."""
-    n_pg = MAX_SEQ // PAGE
+def pool_inputs(rng, B, H, D, dev, q_shape, max_seq=MAX_SEQ):
+    """A page pool of B rows x ``max_seq`` positions (page 0 null), a
+    random block table and a query of ``q_shape``."""
+    n_pg = max_seq // PAGE
     P = 1 + B * n_pg
     k = torch.from_numpy(rng.standard_normal((P, H, PAGE, D)).astype(
         np.float32)).to(torch.bfloat16)
@@ -1130,6 +1161,119 @@ def ln_res_phase(dev, timer, rng):
     return entry
 
 
+def attn_row(rows, timer, kernel, label, shape, call, plain, lib, nbytes,
+             ops_, keys, empty_zero=None):
+    """Hold one attention call to its plain version per output vector
+    (``ATTN_REL_TOL``), a second call bit-identical and, with
+    ``empty_zero``, empty decode rows zero; then time it beside its plain
+    version, SDPA (``lib``) and its bound, append the row to
+    ``rows[kernel]`` and queue the call for the profiler phase."""
+    got, again, want = call(), call(), plain()
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    what = f"{kernel} {label} {shape}"
+    check(rel <= ATTN_REL_TOL, f"{what}: rel err {rel}")
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(torch.equal(got, again), f"{what}: two calls differ")
+    if empty_zero is not None:
+        check(bool((empty_zero() == 0).all()),
+              f"{what}: empty rows not zero")
+    t, tp, tl = timer.ms(call), timer.ms(plain), timer.ms(lib)
+    b, by = bound_ms(nbytes, ops_, "bf16" if kernel != "mha_decode"
+                     else "f32")
+    r = {"model": label, "shape": shape, "max_abs_err": err,
+         "max_rel_err": rel, "ms": t, "plain_ms": tp, "library_ms": tl,
+         "bound_ms": b, "bound_by": by}
+    rows.setdefault(kernel, []).append(r)
+    PROFILED.append((f"{kernel} {label} {shape}", r, "by_kernel", call,
+                     keys))
+    print(f"{what}: max abs err {err:.3e} (rel {rel:.3e} <= "
+          f"{ATTN_REL_TOL}), two calls bit-identical; kernel {t:.4f} ms, "
+          f"plain {tp:.4f} ms, SDPA {tl:.4f} ms, bound {b:.5f} ms ({by})")
+
+
+def paged_rows(dev, timer, rng, rows, label, H, Hkv, D, max_seq,
+               lengths_np, verifies):
+    """``paged_mha_decode`` on ``len(lengths_np)`` rows of those lengths
+    and ``paged_verify`` at each ``(kernel, B, C, bases)`` of
+    ``verifies`` (``bases`` None: sorted random ones), over pages of
+    ``PAGE`` positions in a table of ``max_seq``, through
+    :func:`attn_row`; a lower-triangular mask must give the causal
+    kernel's output bit for bit."""
+    gqa = H != Hkv
+    n_pg = max_seq // PAGE
+    B = len(lengths_np)
+    q, kp, vp, bt = pool_inputs(rng, B, Hkv, D, dev, (B, H, D), max_seq)
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    bt = live_table(bt, lengths_np)
+    kv, vv = (ref.paged_gather_ref(t, bt).float() for t in (kp, vp))
+    mask = (torch.arange(max_seq, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    tot = int(lengths_np.sum())
+    pages = int(sum(-(-int(n) // PAGE) for n in lengths_np))
+    g = ops._decode_geometry(B, H, Hkv, PAGE, D, n_pg)
+    attn_row(rows, timer, "paged_mha_decode", label,
+             f"B={B} {tot} keys ({g.h_chunks} head chunks of {g.hg}, "
+             f"{g.splits} splits of {g.pps} pages)",
+             partial(ops.paged_mha_decode, q, kp, vp, lengths, bt),
+             partial(ref.paged_mha_decode_ref, q, kp, vp, lengths, bt),
+             partial(F.scaled_dot_product_attention, q[:, :, None], kv, vv,
+                     attn_mask=mask, enable_gqa=gqa),
+             2 * tot * Hkv * D * 2 + 2 * B * H * D * 4 + 4 * B + 4 * pages,
+             4 * tot * H * D, ("decode::", "verify::combine"),
+             empty_zero=partial(ops.paged_mha_decode, q, kp, vp,
+                                torch.zeros_like(lengths), bt))
+    for kernel, B, C, base_np in verifies:
+        q, kp, vp, bt = pool_inputs(rng, B, Hkv, D, dev, (B, C, H, D),
+                                    max_seq)
+        if base_np is None:
+            base_np = np.sort(rng.integers(16, max_seq - C, B))
+        base_np = np.asarray(base_np, np.int32)
+        base = torch.from_numpy(base_np).to(dev)
+        bt = live_table(bt, base_np + C)
+        anc, pairs = None, int(
+            sum(b * C + C * (C + 1) // 2 for b in base_np))
+        if kernel == "paged_verify_tree":
+            anc_np = tree_arrays(token_trees(rng, B, TREE_K, TREE_BRANCH),
+                                 TREE_K, C)[3]
+            anc = torch.from_numpy(anc_np.astype(np.int32)).to(dev)
+            pairs = int(sum(int(b) * C for b in base_np) + anc_np.sum())
+        rel_pos = torch.arange(max_seq, device=dev)[None] - base[:, None]
+        if anc is None:
+            mask = (rel_pos[:, None, :] <= torch.arange(
+                C, device=dev)[None, :, None])[:, None]
+        else:
+            bits = torch.gather(anc.bool(), 2, rel_pos.clamp(0, C - 1)[
+                :, None, :].expand(B, C, max_seq))
+            mask = ((rel_pos < 0)[:, None, :]
+                    | (((rel_pos >= 0) & (rel_pos < C))[:, None, :]
+                       & bits))[:, None]
+        kv, vv = (ref.paged_gather_ref(t, bt).float() for t in (kp, vp))
+        qh = q.transpose(1, 2)
+        keys = int((base_np + C).sum())
+        pages = int(sum(-(-int(b + C) // PAGE) for b in base_np))
+        nbytes = (2 * keys * Hkv * D * 2 + 2 * B * C * H * D * 4 + 4 * B
+                  + 4 * pages + (0 if anc is None else 4 * B * C * C))
+        g = ops._verify_geometry(B, C, H, Hkv, PAGE, D, n_pg)
+        attn_row(rows, timer, kernel, label,
+                 f"B={B} C={C} ({B * Hkv * g.q_tiles * g.splits * g.parts} "
+                 f"blocks: {g.nq} queries a tile, {g.splits} splits)",
+                 partial(ops.paged_verify, q, kp, vp, base, bt, anc=anc),
+                 partial(ref.paged_verify_ref, q, kp, vp, base, bt,
+                         anc=anc),
+                 partial(F.scaled_dot_product_attention, qh, kv, vv,
+                         attn_mask=mask, enable_gqa=gqa),
+                 nbytes, 4 * pairs * H * D, ("verify::",))
+        if anc is None:
+            tril = torch.tril(torch.ones((B, C, C), dtype=torch.int32,
+                                         device=dev))
+            check(torch.equal(ops.paged_verify(q, kp, vp, base, bt,
+                                               anc=tril),
+                              ops.paged_verify(q, kp, vp, base, bt)),
+                  f"paged_verify {label} B={B} C={C}: a lower-"
+                  "triangular mask differs from the causal kernel")
+
+
 def wide_heads_phase(dev, timer):
     """The three attention kernels at the RoPE family's and olmoe's heads:
     D 128 with groups 4 (``llama3-8b``: 32 heads over 8), 3
@@ -1140,116 +1284,28 @@ def wide_heads_phase(dev, timer):
     call is held to its plain version per output vector, a second call
     must be bit-identical and an empty decode row zero; then each is
     timed at its serving shape beside its plain version, SDPA and its
-    bound.  Returns {kernel: [row, ...]}."""
+    bound (:func:`attn_row`).  Returns {kernel: [row, ...]}."""
     phase("kernel vs plain at the RoPE family's and olmoe's heads (D 128 "
           "groups 1, 3 and 4, D 256)")
     rng = np.random.default_rng(6)
     rows = {k: [] for k in ("paged_mha_decode", "paged_verify",
                             "paged_verify_tree", "mha_decode")}
-    n_pg = MAX_SEQ // PAGE
-
-    def row(kernel, label, shape, call, plain, lib, nbytes, ops_, keys,
-            empty_zero=None, skip_last=False):
-        got, again, want = call(), call(), plain()
-        torch.cuda.synchronize()
-        sl = slice(None, -1) if skip_last else slice(None)
-        err, rel = rel_err(got[sl], want[sl])
-        what = f"{kernel} {label} {shape}"
-        check(rel <= ATTN_REL_TOL, f"{what}: rel err {rel}")
-        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
-        check(torch.equal(got, again), f"{what}: two calls differ")
-        if empty_zero is not None:
-            check(bool((empty_zero() == 0).all()),
-                  f"{what}: empty rows not zero")
-        t, tp, tl = timer.ms(call), timer.ms(plain), timer.ms(lib)
-        b, by = bound_ms(nbytes, ops_, "bf16" if kernel != "mha_decode"
-                         else "f32")
-        r = {"model": label, "shape": shape, "max_abs_err": err,
-             "max_rel_err": rel, "ms": t, "plain_ms": tp, "library_ms": tl,
-             "bound_ms": b, "bound_by": by}
-        rows[kernel].append(r)
-        PROFILED.append((f"{kernel} {label} {shape}", r, "by_kernel", call,
-                         keys))
-        print(f"{what}: max abs err {err:.3e} (rel {rel:.3e} <= "
-              f"{ATTN_REL_TOL}), two calls bit-identical; kernel {t:.4f} ms, "
-              f"plain {tp:.4f} ms, SDPA {tl:.4f} ms, bound {b:.5f} ms ({by})")
-
+    lengths_np = np.array(MHA_TIMED_LENGTHS, np.int32)
+    tot = int(lengths_np.sum())
     for arch in WIDE_ARCHS:
         cfg = get_config(arch)
         H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         label = f"{arch} (H {H} / Hkv {Hkv}, D {D})"
         gqa = H != Hkv
-
-        # decode over pages: B = slots, the rows spread over the cache
-        q, kp, vp, bt = pool_inputs(rng, SLOTS, Hkv, D, dev, (SLOTS, H, D))
-        lengths_np = np.array(MHA_TIMED_LENGTHS, np.int32)
-        lengths = torch.from_numpy(lengths_np).to(dev)
-        bt = live_table(bt, lengths_np)
-        kv, vv = (ref.paged_gather_ref(t, bt).float() for t in (kp, vp))
-        mask = (torch.arange(MAX_SEQ, device=dev)[None, :]
-                < lengths[:, None])[:, None, None, :]
-        tot = int(lengths_np.sum())
-        pages = int(sum(-(-int(n) // PAGE) for n in lengths_np))
-        row("paged_mha_decode", label, f"B={SLOTS} {tot} keys",
-            partial(ops.paged_mha_decode, q, kp, vp, lengths, bt),
-            partial(ref.paged_mha_decode_ref, q, kp, vp, lengths, bt),
-            partial(F.scaled_dot_product_attention, q[:, :, None], kv, vv,
-                    attn_mask=mask, enable_gqa=gqa),
-            2 * tot * Hkv * D * 2 + 2 * SLOTS * H * D * 4 + 4 * SLOTS
-            + 4 * pages, 4 * tot * H * D, ("decode::", "verify::combine"),
-            empty_zero=partial(ops.paged_mha_decode, q, kp, vp,
-                               torch.zeros_like(lengths), bt))
-
+        # decode over pages: B = slots, the rows spread over the cache;
         # verify: a prefill chunk (B 1, C 32 at base 480), a chain verify
         # (B 8, C 5) and a tree verify (B 8, C 9, branch 3)
-        for kernel, B, C in (("paged_verify", 1, CHUNK),
-                             ("paged_verify", SLOTS, CHAIN_K + 1),
-                             ("paged_verify_tree", SLOTS, TREE_K + 1)):
-            q, kp, vp, bt = pool_inputs(rng, B, Hkv, D, dev, (B, C, H, D))
-            base_np = (np.array([480], np.int32) if B == 1 else np.sort(
-                rng.integers(16, MAX_SEQ - C, B)).astype(np.int32))
-            base = torch.from_numpy(base_np).to(dev)
-            bt = live_table(bt, base_np + C)
-            anc, pairs = None, int(
-                sum(b * C + C * (C + 1) // 2 for b in base_np))
-            if kernel == "paged_verify_tree":
-                anc_np = tree_arrays(token_trees(rng, B, TREE_K,
-                                                 TREE_BRANCH), TREE_K, C)[3]
-                anc = torch.from_numpy(anc_np.astype(np.int32)).to(dev)
-                pairs = int(sum(int(b) * C for b in base_np) + anc_np.sum())
-            rel_pos = torch.arange(MAX_SEQ, device=dev)[None] - base[:, None]
-            if anc is None:
-                mask = (rel_pos[:, None, :] <= torch.arange(
-                    C, device=dev)[None, :, None])[:, None]
-            else:
-                bits = torch.gather(anc.bool(), 2, rel_pos.clamp(0, C - 1)[
-                    :, None, :].expand(B, C, MAX_SEQ))
-                mask = ((rel_pos < 0)[:, None, :]
-                        | (((rel_pos >= 0) & (rel_pos < C))[:, None, :]
-                           & bits))[:, None]
-            kv, vv = (ref.paged_gather_ref(t, bt).float() for t in (kp, vp))
-            qh = q.transpose(1, 2)
-            keys = int((base_np + C).sum())
-            pages = int(sum(-(-int(b + C) // PAGE) for b in base_np))
-            nbytes = (2 * keys * Hkv * D * 2 + 2 * B * C * H * D * 4 + 4 * B
-                      + 4 * pages + (0 if anc is None else 4 * B * C * C))
-            g = ops._verify_geometry(B, C, H, Hkv, PAGE, D, n_pg)
-            row(kernel, label,
-                f"B={B} C={C} ({B * Hkv * g.q_tiles * g.splits * g.parts} "
-                f"blocks)",
-                partial(ops.paged_verify, q, kp, vp, base, bt, anc=anc),
-                partial(ref.paged_verify_ref, q, kp, vp, base, bt, anc=anc),
-                partial(F.scaled_dot_product_attention, qh, kv, vv,
-                        attn_mask=mask, enable_gqa=gqa),
-                nbytes, 4 * pairs * H * D, ("verify::",))
-            if anc is None:
-                tril = torch.tril(torch.ones((B, C, C), dtype=torch.int32,
-                                             device=dev))
-                check(torch.equal(ops.paged_verify(q, kp, vp, base, bt,
-                                                   anc=tril),
-                                  ops.paged_verify(q, kp, vp, base, bt)),
-                      f"paged_verify {label} B={B} C={C}: a lower-"
-                      "triangular mask differs from the causal kernel")
+        paged_rows(dev, timer, rng, rows, label, H, Hkv, D, MAX_SEQ,
+                   lengths_np, (("paged_verify", 1, CHUNK, [480]),
+                                ("paged_verify", SLOTS, CHAIN_K + 1, None),
+                                ("paged_verify_tree", SLOTS, TREE_K + 1,
+                                 None)))
+        lengths = torch.from_numpy(lengths_np).to(dev)
 
         # the contiguous decode at the draft's and stacked target's shape:
         # float32 and bf16 caches
@@ -1265,17 +1321,18 @@ def wide_heads_phase(dev, timer):
             k, v = k32.to(kvd), v32.to(kvd)
             qs = q[:, :, None].to(kvd)
             w = ops._decode_warps(D, k.element_size())
-            row("mha_decode", label,
-                f"B={SLOTS} S={S} {str(kvd).split('.')[-1]} cache, {tot} "
-                f"keys, {w} warps a block",
-                partial(ops.mha_decode, q, k, v, lengths),
-                partial(ref.mha_decode_ref, q, k, v, lengths),
-                partial(F.scaled_dot_product_attention, qs, k, v,
-                        attn_mask=mask, enable_gqa=gqa),
-                2 * tot * Hkv * D * k.element_size() + 2 * SLOTS * H * D * 4
-                + 4 * SLOTS, 4 * tot * H * D, ("decode::", "verify::"),
-                empty_zero=partial(ops.mha_decode, q, k, v,
-                                   torch.zeros_like(lengths)))
+            attn_row(rows, timer, "mha_decode", label,
+                     f"B={SLOTS} S={S} {str(kvd).split('.')[-1]} cache, "
+                     f"{tot} keys, {w} warps a block",
+                     partial(ops.mha_decode, q, k, v, lengths),
+                     partial(ref.mha_decode_ref, q, k, v, lengths),
+                     partial(F.scaled_dot_product_attention, qs, k, v,
+                             attn_mask=mask, enable_gqa=gqa),
+                     2 * tot * Hkv * D * k.element_size()
+                     + 2 * SLOTS * H * D * 4 + 4 * SLOTS, 4 * tot * H * D,
+                     ("decode::", "verify::"),
+                     empty_zero=partial(ops.mha_decode, q, k, v,
+                                        torch.zeros_like(lengths)))
         del k32, v32
     return rows
 
@@ -1580,7 +1637,8 @@ def recurrent_block_phase(dev, timer):
 
 
 def hybrid_serving_phase(dev, arch):
-    """Full-width W8A8 serving of a hybrid stack (``HYBRID_MAX_SEQ``):
+    """Full-width W8A8 serving of a hybrid stack at ``HYBRID_LAYERS`` of
+    its layers (``HYBRID_MAX_SEQ``):
     random weights from a seeded generator, SmoothQuant calibrated on 2 x
     128 seeded tokens, 8 slots, chunk 32, 8 requests of 64 new tokens:
     six prompts of 16-512 tokens that repeat short runs and two of
@@ -1592,10 +1650,10 @@ def hybrid_serving_phase(dev, arch):
     paged kernel.  The chain run's streams held to the plain run's under
     the near-tie rule, logits recomputed in each run's batch shapes.  The
     model is freed at the end.  Returns each run's launch counts."""
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), n_layers=HYBRID_LAYERS[arch])
     max_seq = HYBRID_MAX_SEQ[arch]
-    phase(f"serving (full-width {arch}, W8A8, stacked plain and chain, "
-          f"max_seq {max_seq})")
+    phase(f"serving (full-width {arch} at {cfg.n_layers} layers, W8A8, "
+          f"stacked plain and chain, max_seq {max_seq})")
     rng = np.random.default_rng(7)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1628,7 +1686,7 @@ def hybrid_serving_phase(dev, arch):
     check(max(map(len, prompts)) > max_seq and (
         n_local == 0 or max(map(len, prompts)) > cfg.window),
         f"{arch}: no prompt runs past the cache or the window")
-    streams, out = {}, {}
+    streams, out, sched = {}, {}, {}
     for run in ("stacked plain", "stacked chain"):
         spec = SpecConfig(k=CHAIN_K) if run.endswith("chain") else None
         eng = ServeEngine(cfg, qparams, batch_slots=SLOTS, max_seq=max_seq,
@@ -1636,7 +1694,8 @@ def hybrid_serving_phase(dev, arch):
                           chunk_size=CHUNK, seed=0, device=dev, spec=spec)
         check(eng.kv_layout == "stacked" and eng.seq_ceiling is None,
               f"{arch}: not on the stacked layout without a ceiling")
-        got, s, n, _ = engine_run(f"{arch} {run}", eng, prompts, SPEC_NEW)
+        got, s, n, _, sched[run] = engine_run(f"{arch} {run}", eng, prompts,
+                                              SPEC_NEW)
         check(len(got) == len(prompts) and all(
             0 <= t < cfg.vocab_size for o in got.values() for t in o),
             f"{arch} {run}: a request was not served, or a token lies "
@@ -1661,14 +1720,223 @@ def hybrid_serving_phase(dev, arch):
     shape = dict(max_seq=max_seq, chunk=CHUNK, rows=SLOTS, layout="stacked")
     hold_streams(f"{arch} stacked chain vs stacked plain on the card",
                  (streams["stacked chain"], streams["stacked plain"]),
-                 prompts,
-                 (lambda p, h: logits_after(qparams, cfg, p, h, dev,
-                                            verify=CHAIN_K + 1, **shape),
-                  lambda p, h: logits_after(qparams, cfg, p, h, dev,
-                                            **shape)), SPEC_NEW)
+                 prompts, tuple(served_logits(qparams, cfg, sched[run], dev,
+                                              **shape)
+                                for run in ("stacked chain",
+                                            "stacked plain")), SPEC_NEW)
     del qparams
     torch.cuda.empty_cache()
     print(f"{arch}: freed; memory allocated now "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return out
+
+
+def mixed_config():
+    """The mixed stack served by :func:`mixed_serving_phase`."""
+    return dataclasses.replace(
+        get_config("recurrentgemma-9b"), name="recurrentgemma-9b-mixed",
+        block_pattern=MIXED_PATTERN, n_layers=MIXED_LAYERS)
+
+
+def mixed_kernels_phase(dev, timer):
+    """The paged attention kernels at the mixed stack's ``attn`` layers:
+    16 query heads over one KV head of 256 (group 16: the decode takes two
+    head chunks of 8, the verify one query a 16-row tile, C tiles along
+    the chunk), in a table of ``MIXED_MAX_SEQ`` positions: the decode of
+    8 rows at ``MIXED_TIMED_LENGTHS``, a prefill chunk (B 1, C 32 at base
+    2,048) and a chain verify (B 8, C 5), each held and timed as
+    :func:`attn_row` does.  Returns {kernel: [row, ...]}."""
+    cfg = mixed_config()
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    phase(f"kernel vs plain at the mixed stack's attn layers (H {H} / Hkv "
+          f"{Hkv}, D {D}, max_seq {MIXED_MAX_SEQ})")
+    rng = np.random.default_rng(16)
+    rows = {}
+    paged_rows(dev, timer, rng, rows, f"mixed (H {H} / Hkv {Hkv}, D {D})",
+               H, Hkv, D, MIXED_MAX_SEQ,
+               np.array(MIXED_TIMED_LENGTHS, np.int32),
+               (("paged_verify", 1, CHUNK, [2048]),
+                ("paged_verify", SLOTS, CHAIN_K + 1, None)))
+    return rows
+
+
+def mixed_serving_phase(dev):
+    """Full-width W8A8 serving of the mixed stack (:func:`mixed_config`:
+    two periods of global attention, local attention and RG-LRU at
+    ``recurrentgemma-9b``'s widths; 6 of its 38 layers), on the per-kind
+    paged layout (the ``attn`` layers' K/V on pages, the rings and states
+    one row per slot) and on the stacked one.  Random weights from a
+    seeded generator, SmoothQuant calibrated on 2 x 128 seeded tokens, 8
+    slots, chunk 32, pages of 16, ``max_seq`` ``MIXED_MAX_SEQ``; 8
+    requests of 64 new tokens, six prompts of 16-512 tokens that repeat
+    short runs and two of 2,100-2,400 (the ring wraps; the ``attn``
+    layers span up to 155 pages).  Runs: paged plain (the auto layout),
+    paged chain (n-gram, k ``CHAIN_K``), stacked plain, stacked chain,
+    each with its launch counts zeroed before and read after and checked
+    against its calls; paged against stacked and chain against plain
+    under the near-tie rule along each run's own calls.  Then a prefix
+    pair on the paged layout (two prompts sharing a two-page head: the
+    pages linked, the prompt prefilled whole) whose streams must equal
+    the unshared run's, and an over-commit run on
+    ``MIXED_OVERCOMMIT_PAGES`` pages that preempts at least one request
+    to host and restores it, held to the paged plain run.  The model is
+    freed at the end.  Returns each run's launch counts."""
+    cfg = mixed_config()
+    phase(f"serving (full-width mixed stack {'/'.join(MIXED_PATTERN)} at "
+          f"recurrentgemma-9b's widths, {cfg.n_layers} layers, W8A8, paged "
+          "and stacked)")
+    rng = np.random.default_rng(9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    stats = calibrate(params, cfg, [rng.integers(1, cfg.vocab_size,
+                                                 (2, 128))])
+    qparams = quantize_model_params(params, cfg, stats)
+    del params, stats
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    kinds = [cfg.block_kind(li) for li in range(cfg.n_layers)]
+    n_attn, n_local = kinds.count("attn"), kinds.count("local_attn")
+    print(f"mixed stack: {cfg.n_layers} layers ({', '.join(kinds)}), d "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} KV head "
+          f"of {cfg.head_dim}, window {cfg.window}, lru width "
+          f"{cfg.lru_width}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+          f"calibrated and quantized in {time.perf_counter() - t0:.2f} s; "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    prompts = repetitive_prompts(rng, SPEC_REQUESTS - 2, cfg.vocab_size,
+                                 *SPEC_PROMPT_LENS)
+    prompts += repetitive_prompts(rng, 2, cfg.vocab_size, *HYBRID_LONG)
+    check(max(map(len, prompts)) > cfg.window,
+          "mixed: no prompt wraps the ring")
+    shape = dict(max_seq=MIXED_MAX_SEQ, page=PAGE, chunk=CHUNK, rows=SLOTS)
+
+    def engine(layout, **kw):
+        return ServeEngine(cfg, qparams, batch_slots=SLOTS,
+                           max_seq=MIXED_MAX_SEQ, eos_id=-1,
+                           act_dtype=torch.float32, chunk_size=CHUNK,
+                           page_size=PAGE, seed=0, device=dev,
+                           kv_layout=layout, **kw)
+
+    streams, out, fns = {}, {}, {}
+    for run in ("paged plain", "paged chain", "stacked plain",
+                "stacked chain"):
+        layout, variant = run.split()
+        spec = SpecConfig(k=CHAIN_K) if variant == "chain" else None
+        eng = engine("auto" if run == "paged plain" else layout, spec=spec)
+        check(eng.kv_layout == layout and eng.seq_ceiling == MIXED_MAX_SEQ,
+              f"mixed {run}: layout {eng.kv_layout}, ceiling "
+              f"{eng.seq_ceiling}")
+        got, s, n, _, sched = engine_run(f"mixed {run}", eng, prompts,
+                                         SPEC_NEW)
+        check(len(got) == len(prompts) and all(
+            0 <= t < cfg.vocab_size for o in got.values() for t in o),
+            f"mixed {run}: a request was not served, or a token lies "
+            "outside the vocabulary")
+        verifies = s.get("spec_ticks", 0)
+        decodes = s["model_calls"] - s["prefill_calls"] - verifies
+        if spec is not None:
+            print(f"mixed {run}: acceptance {s['acceptance_rate']:.3f} "
+                  f"({s['spec_accepted']}/{s['spec_proposed']}), "
+                  f"{verifies} verify calls")
+        print(f"mixed {run} stats:", json.dumps(s, sort_keys=True))
+        if layout == "paged":
+            ok = (n["paged_verify"] == n_attn * (s["prefill_calls"]
+                                                 + verifies)
+                  and n["paged_mha_decode"] == n_attn * decodes > 0
+                  and n["mha_decode"] == n_local * decodes
+                  and s["pages_in_use"] == 0)
+        else:
+            ok = (n["mha_decode"] == (n_attn + n_local) * decodes > 0
+                  and n["paged_mha_decode"] == n["paged_verify"] == 0
+                  and s["slots_in_use"] == 0)
+        check(ok and n["paged_verify_tree"] == 0
+              and n["mp_matmul"] == mp_per_call(cfg) * s["model_calls"]
+              and (spec is None or verifies > 0),
+              f"mixed {run}: launch counts {n} do not match the calls")
+        streams[run], out[f"mixed {run}"] = got, n
+        fns[run] = served_logits(qparams, cfg, sched, dev, layout=layout,
+                                 **shape)
+        del eng
+        torch.cuda.empty_cache()
+    for a, b in (("stacked plain", "paged plain"),
+                 ("paged chain", "paged plain"),
+                 ("stacked chain", "paged chain")):
+        hold_streams(f"mixed {a} vs {b} on the card",
+                     (streams[a], streams[b]), prompts, (fns[a], fns[b]),
+                     SPEC_NEW)
+
+    # prefix sharing: the pages linked, the slot-resident state prefilled
+    # again from position 0, the streams the unshared run's
+    head = rng.integers(1, cfg.vocab_size, 2 * PAGE).tolist()
+    pair = [head + rng.integers(1, cfg.vocab_size, n).tolist()
+            for n in (5, 9)]
+    shared = {}
+    for sharing in (True, False):
+        eng = engine("paged", prefix_sharing=sharing)
+        got, s, n, _, _ = engine_run(
+            f"mixed prefix pair, sharing {sharing}", eng, pair, SPEC_NEW)
+        shared[sharing] = (got, s)
+        if sharing:
+            out["mixed prefix pair"] = n
+        del eng
+    (got, s), (want, ws) = shared[True], shared[False]
+    print(f"mixed prefix pair: prefix_hit_pages {s['prefix_hit_pages']}, "
+          f"pages allocated {s['pages_allocated_total']} (unshared "
+          f"{ws['pages_allocated_total']}), prefill calls "
+          f"{s['prefill_calls']} ({ws['prefill_calls']}); streams equal: "
+          f"{got == want}")
+    check(s["prefix_hit_pages"] == 2 and s["pages_allocated_total"]
+          < ws["pages_allocated_total"]
+          and s["prefill_calls"] == ws["prefill_calls"] and got == want,
+          "mixed prefix pair: pages not linked, or the streams differ from "
+          "the unshared run's")
+
+    # over-commit: a pool that holds the longest prompt but not every
+    # request's growth; one decoding request is preempted to host if the
+    # pool has not forced it by then
+    eng = engine("paged", n_pages=MIXED_OVERCOMMIT_PAGES,
+                 admission=OvercommitAdmission(cfg, chunk_size=CHUNK))
+    check(max(-(-len(p) // PAGE) for p in prompts)
+          < MIXED_OVERCOMMIT_PAGES - 1 < sum(-(-(len(p) + SPEC_NEW) // PAGE)
+                                             for p in prompts),
+          "mixed over-commit: the pool does not hold the longest prompt, or "
+          "holds every request")
+
+    def drive(e):
+        for _ in range(2000):
+            if e.preempt_host or not (
+                    e.queue or any(r is not None for r in e.slots)):
+                return
+            e.tick()
+            dec = [r for r in e.slots if r is not None and r.state == DECODE
+                   and len(r.out) >= 4]
+            if dec and not e.preempt_host:
+                e._preempt(dec[-1], "host")
+
+    got, s, n, _, sched = engine_run("mixed over-commit", eng, prompts,
+                                     SPEC_NEW, drive=drive)
+    print(f"mixed over-commit: preemptions {s['preemptions']} (host "
+          f"{s['preempt_host']}, recompute {s['preempt_recompute']}), "
+          f"restores {s['restores']}, evicted {s['evicted_bytes_total']:,.0f}"
+          f" B, pages in use peak {s['pages_in_use_peak']}, now "
+          f"{s['pages_in_use']}")
+    check(s["preempt_host"] >= 1 and s["restores"] >= 1
+          and s["pages_in_use"] == 0 and sorted(got) == list(
+              range(len(prompts))),
+          "mixed over-commit: no host preemption and restore, pages left, "
+          "or a request not served")
+    out["mixed over-commit"] = n
+    hold_streams("mixed over-commit vs paged plain on the card",
+                 (got, streams["paged plain"]), prompts,
+                 (served_logits(qparams, cfg, sched, dev, **shape),
+                  fns["paged plain"]), SPEC_NEW)
+    del eng, qparams, fns
+    _PREFILLED.clear()
+    torch.cuda.empty_cache()
+    print(f"mixed stack: freed; memory allocated now "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     return out
 
@@ -1720,7 +1988,7 @@ def family_serving_phase(dev, arch):
     prompts = repetitive_prompts(rng, SPEC_REQUESTS, cfg.vocab_size,
                                  *SPEC_PROMPT_LENS)
     L = cfg.n_layers
-    streams, out = {}, {}
+    streams, out, sched = {}, {}, {}
     if cfg.frontend_tokens:
         out[f"{arch} batch_prefill"] = pixtral_prefill_check(qparams, cfg,
                                                              dev, rng)
@@ -1728,7 +1996,8 @@ def family_serving_phase(dev, arch):
         layout, variant = run.split()
         spec = SpecConfig(k=CHAIN_K) if variant == "chain" else None
         eng = w8a8_engine(cfg, qparams, dev, kv_layout=layout, spec=spec)
-        got, s, n, _ = engine_run(f"{arch} {run}", eng, prompts, SPEC_NEW)
+        got, s, n, _, sched[run] = engine_run(f"{arch} {run}", eng, prompts,
+                                              SPEC_NEW)
         check(len(got) == len(prompts), f"{arch} {run}: a request was not "
               "served")
         check(all(0 <= t < cfg.vocab_size for o in got.values() for t in o),
@@ -1755,12 +2024,10 @@ def family_serving_phase(dev, arch):
         del eng
         torch.cuda.empty_cache()
     shape = dict(max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK, rows=SLOTS)
-    fb = (lambda p, h: logits_after(qparams, cfg, p, h, dev, **shape))
+    fb = served_logits(qparams, cfg, sched["paged plain"], dev, **shape)
     for run in FAMILY_RUNS[arch][1:]:
-        layout, variant = run.split()
-        width = {"verify": CHAIN_K + 1} if variant == "chain" else {}
-        fa = (lambda p, h, w=width, lay=layout: logits_after(
-            qparams, cfg, p, h, dev, layout=lay, **w, **shape))
+        fa = served_logits(qparams, cfg, sched[run], dev,
+                           layout=run.split()[0], **shape)
         hold_streams(f"{arch} {run} vs paged plain on the card",
                      (streams[run], streams["paged plain"]), prompts,
                      (fa, fb), SPEC_NEW,
@@ -1937,89 +2204,267 @@ def serving_phase(dev):
     return launches, eng.params, cfg
 
 
-def logits_after(params, cfg, prompt, forced, dev, *, max_seq=AGREE_MAX_SEQ,
-                 page=AGREE_PAGE, chunk=AGREE_CHUNK, rows=1, verify=0,
-                 layout="paged", replay=False):
-    """The model's next-token logits after ``prompt`` and then each token
-    of ``forced`` fed back in turn (teacher forcing), through the prefill
-    chunks and decode steps the engine runs, on ``dev``, on the paged or
-    the stacked cache.  With ``verify`` the forced tokens go through
-    speculative verify calls of that width instead of decode steps; with
-    ``replay`` the prompt too goes through decode steps, one token a
-    call, as the engine's replay prefill feeds it.  The
-    request is row 0 of a batch of ``rows`` (the others parked), so every
-    call has the engine's shapes: the float32 matrix products round
-    differently at different row counts.  The cache after the prompt's
-    prefill is kept for the next call with the same model, prompt and
-    shapes (the near-tie rule asks both computations at each parting;
-    their prefills are the same calls), which starts from a copy."""
+class ScheduleProbe:
+    """While entered, records the model calls ``eng`` makes for each
+    request, by request id, in order: each prefill chunk (its offset,
+    tokens and valid count), decode step (the position and the token fed)
+    and verify call (its base, the row's tokens, its width, its valid
+    count where the engine passed one, a tree's mask and depths, and the
+    accepted path a compaction moved), and how many tokens of the stream
+    each call emitted.  ``lm``'s serving entry points and the engine's
+    ``_emit`` are patched for the run, as :class:`RouterProbe` patches the
+    router; calls with other params (a draft model's) pass through
+    unrecorded.  The port's modules get no hook: :func:`logits_after`
+    replays these calls to recompute what the served stream sampled
+    from."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.calls = {}
+
+    @staticmethod
+    def _host(t):
+        # a copy: on the CPU the engine's tensors share its numpy buffers
+        return None if t is None else t.to("cpu", copy=True)
+
+    def _add(self, slot, **call):
+        call["emitted"] = 0
+        self.calls.setdefault(self.eng.slots[slot].rid, []).append(call)
+
+    def __enter__(self):
+        eng = self.eng
+        self._saved = saved = (lm.prefill_into_slot, lm.decode_step,
+                               lm.verify_chunk, lm.compact_accepted_path)
+        prefill, step, verify, compact = saved
+
+        def prefill_(params, cfg, tokens, cache, offset, **kw):
+            if params is eng.params:
+                self._add(kw["slot"], kind="prefill", pos=int(offset),
+                          tokens=self._host(tokens),
+                          valid=int(kw["valid"]))
+            return prefill(params, cfg, tokens, cache, offset, **kw)
+
+        def step_(params, cfg, token, cache, lengths, **kw):
+            if params is eng.params:
+                tok, lens = self._host(token), self._host(lengths)
+                for b in torch.nonzero(kw["active"].cpu()).flatten().tolist():
+                    self._add(b, kind="step", pos=int(lens[b]),
+                              tokens=tok[b])
+            return step(params, cfg, token, cache, lengths, **kw)
+
+        def verify_(params, cfg, tokens, cache, lengths, **kw):
+            if params is eng.params:
+                toks, lens = self._host(tokens), self._host(lengths)
+                valids = self._host(kw.get("valids"))
+                anc = self._host(kw.get("anc"))
+                depths = self._host(kw.get("depths"))
+                for b, req in enumerate(eng.slots):
+                    # a parked row: no valid token, or past the cache
+                    if req is None or (int(lens[b]) >= eng.max_seq
+                                       if valids is None else
+                                       int(valids[b]) == 0):
+                        continue
+                    self._add(b, kind="verify", pos=int(lens[b]),
+                              tokens=toks[b],
+                              valid=None if valids is None
+                              else int(valids[b]),
+                              anc=None if anc is None else anc[b],
+                              depths=None if depths is None else depths[b])
+            return verify(params, cfg, tokens, cache, lengths, **kw)
+
+        def compact_(cfg, cache, src, dst, **kw):
+            if cache is eng.kv.cache:
+                for b, req in enumerate(eng.slots):
+                    if req is not None and req.rid in self.calls:
+                        self.calls[req.rid][-1]["path"] = self._host(src[b])
+            return compact(cfg, cache, src, dst, **kw)
+
+        emit = eng._emit
+
+        def emit_(req, tok, now):
+            self.calls[req.rid][-1]["emitted"] += 1
+            return emit(req, tok, now)
+
+        (lm.prefill_into_slot, lm.decode_step, lm.verify_chunk,
+         lm.compact_accepted_path) = prefill_, step_, verify_, compact_
+        eng._emit = emit_
+        return self
+
+    def __exit__(self, *exc):
+        (lm.prefill_into_slot, lm.decode_step, lm.verify_chunk,
+         lm.compact_accepted_path) = self._saved
+        del self.eng._emit
+        self.eng = None
+
+
+def _route_at(n, pos0):
+    if RouterProbe.active is not None:
+        RouterProbe.active.at(n, pos0)
+
+
+def logits_after(params, cfg, calls, prompt, history, dev, *,
+                 max_seq=AGREE_MAX_SEQ, page=AGREE_PAGE, chunk=AGREE_CHUNK,
+                 rows=1, layout="paged"):
+    """The logits a served stream sampled its token ``len(history)`` from,
+    recomputed on ``dev`` along the request's own call schedule ``calls``
+    (:class:`ScheduleProbe`): every prefill chunk, decode step and verify
+    call up to the one that emitted that token, replayed with the tokens,
+    widths and valid counts the engine gave it, a verify's accepted
+    prefix committed as the engine commits it (the ring and state rewind,
+    an accepted tree path compacted), on the paged or the stacked cache.
+    The request is row 0 of a batch of ``rows`` (the others parked), so
+    every call has the engine's shapes: the float32 matrix products round
+    differently at different row counts.  The tokens fed must be
+    ``prompt + history`` (the shared history of the two streams held), or
+    the probe is at fault.  A schedule that starts past position 0 (a
+    shared prefix) is prefilled below it in chunks of ``chunk`` from 0.
+    The cache after the schedule's leading prefill chunks is kept for
+    later calls with the same model, chunks and shapes (the near-tie rule
+    asks both computations at each parting, whose prefills are often the
+    same calls), which start from a copy."""
+    full = list(prompt) + list(history)
+    n = len(history)
+    paged = layout == "paged"
+    f32 = torch.float32
     lengths = torch.full((rows,), max_seq, dtype=torch.int32)
-    if replay:  # no chunk at all: the whole context is decode steps
-        prompt, forced = [], list(prompt) + list(forced)
-    key = (id(params), cfg, tuple(prompt), str(dev), max_seq, page, chunk,
-           rows, layout, RouterProbe.active is None)
-    hit = not replay and _PREFILLED.get("key") == key
-    if layout == "paged":
+    active = torch.zeros(rows, dtype=torch.bool, device=dev)
+    active[0] = True
+    if paged:
         n_pg = max_seq // page
-        cache = lm.init_cache(cfg, 1 + n_pg, page, device=dev)
         bt = torch.arange(1, 1 + n_pg, dtype=torch.int32, device=dev)
         bts = torch.zeros((rows, n_pg), dtype=torch.int32, device=dev)
         bts[0] = bt
-        active = torch.zeros(rows, dtype=torch.bool, device=dev)
-        active[0] = True
-        into = {"block_table": bt}
-        step = {"block_table": bts, "active": active}
-        ver = {"block_tables": bts}
+        into, step, ver = ({"block_table": bt}, {"block_table": bts},
+                           {"block_tables": bts})
     else:
-        cache = (None if hit else lm.init_cache(
-            cfg, rows, max_seq, layout="stacked", device=dev))
-        into, step, ver = {"slot": 0}, {}, {}
+        into, step, ver = {}, {}, {}
+    # the call that emitted the token, and which of its emitted tokens
+    done = 0
+    for last, call in enumerate(calls):
+        if done + call["emitted"] > n:
+            break
+        done += call["emitted"]
+    else:
+        raise SmokeFailure(f"no recorded call emitted token {n}")
+    q = n - done
+    lead = next((j for j, c in enumerate(calls) if c["kind"] != "prefill"),
+                len(calls))
+    lead = min(lead, last + 1)
+    below = calls[0]["pos"] if calls[0]["kind"] == "prefill" else 0
+    key = (id(params), cfg, str(dev), max_seq, page, chunk, rows, layout,
+           tuple(full[:below]), tuple(
+               (c["pos"], c["valid"], tuple(c["tokens"].tolist()))
+               for c in calls[:lead]))
+    hit = lead > 0 and RouterProbe.active is None and key in _PREFILLED
     if hit:
-        lg = _PREFILLED["logits"]
+        out, kept = _PREFILLED[key]
         cache = {"layers": [{k: t.clone() for k, t in layer.items()}
-                            for layer in _PREFILLED["cache"]["layers"]]}
-    for off in range(0, 0 if hit else len(prompt), chunk):
-        piece = prompt[off:off + chunk]
-        toks = torch.zeros(chunk, dtype=torch.int64)
-        toks[:len(piece)] = torch.tensor(piece)
-        if RouterProbe.active is not None:
-            RouterProbe.active.at(len(piece), off)
-        lg, cache = lm.prefill_into_slot(
-            params, cfg, toks.to(dev), cache, off, valid=len(piece),
-            dtype=torch.float32, **into)
-    if not hit and not replay and RouterProbe.active is None:
-        _PREFILLED.clear()
-        _PREFILLED.update(key=key, logits=lg, cache={"layers": [
-            {k: t.clone() for k, t in layer.items()}
-            for layer in cache["layers"]]})
-    if verify:
-        for off in range(0, len(forced), verify):
-            piece = forced[off:off + verify]
-            toks = torch.zeros((rows, verify), dtype=torch.int64)
-            toks[0, :len(piece)] = torch.tensor(piece)
-            lengths[0] = len(prompt) + off
-            if RouterProbe.active is not None:
-                RouterProbe.active.at(len(piece), len(prompt) + off)
-            lgs, cache = lm.verify_chunk(
-                params, cfg, toks.to(dev), cache, lengths.to(dev),
-                dtype=torch.float32, **ver)
-            lg = lgs[0, len(piece) - 1]
-        return lg.float().cpu()
-    for i, t in enumerate(forced):
-        toks = torch.zeros((rows, 1), dtype=torch.int64)
-        toks[0, 0] = t
-        lengths[0] = len(prompt) + i
-        if RouterProbe.active is not None:
-            RouterProbe.active.at(1, len(prompt) + i)
-        lg, cache = lm.decode_step(
-            params, cfg, toks.to(dev), cache, lengths.to(dev),
-            dtype=torch.float32, **step)
-        lg = lg[0]
-    return lg.float().cpu()
+                            for layer in kept["layers"]]}
+    else:
+        cache = (lm.init_cache(cfg, 1 + n_pg, page, slots=rows,
+                               slot_seq=max_seq, device=dev) if paged
+                 else lm.init_cache(cfg, rows, max_seq, layout="stacked",
+                                    device=dev))
+        for off in range(0, below, chunk):
+            piece = full[off:min(off + chunk, below)]
+            toks = torch.zeros(chunk, dtype=torch.int64)
+            toks[:len(piece)] = torch.tensor(piece)
+            _route_at(len(piece), off)
+            lm.prefill_into_slot(params, cfg, toks.to(dev), cache, off,
+                                 slot=0, valid=len(piece), dtype=f32, **into)
+    for j in range(lead if hit else 0, last + 1):
+        c = calls[j]
+        pos, toks = c["pos"], c["tokens"]
+        # the tokens this call fed that the stream kept
+        fed = c["valid"] if c["kind"] == "prefill" else (
+            q + 1 if j == last else max(c["emitted"], 1))
+        if c["kind"] != "verify" or c["anc"] is None:
+            check(toks.reshape(-1)[:fed].tolist() == full[pos:pos + fed],
+                  f"logits_after: call {j} ({c['kind']} at {pos}) fed "
+                  "tokens other than the history")
+        _route_at(fed, pos)
+        if c["kind"] == "prefill":
+            out, cache = lm.prefill_into_slot(
+                params, cfg, toks.to(dev), cache, pos, slot=0,
+                valid=c["valid"], dtype=f32, **into)
+        elif c["kind"] == "step":
+            tok = torch.zeros((rows, 1), dtype=torch.int64)
+            tok[0, 0] = toks
+            lengths[0] = pos
+            lg, cache = lm.decode_step(params, cfg, tok.to(dev), cache,
+                                       lengths.to(dev), active=active,
+                                       dtype=f32, **step)
+            out = lg[0]
+        else:
+            out, cache = _replay_verify(params, cfg, c, cache, lengths, dev,
+                                        q if j == last else None, ver,
+                                        max_seq, rows)
+        if j == lead - 1 and RouterProbe.active is None:
+            while len(_PREFILLED) >= PREFILLED_KEPT:
+                del _PREFILLED[next(iter(_PREFILLED))]
+            _PREFILLED[key] = (out, {"layers": [
+                {k: t.clone() for k, t in layer.items()}
+                for layer in cache["layers"]]})
+    return out.float().cpu()
 
 
-#: the last prefill of ``logits_after``: {"key", "logits", "cache"}
+def _replay_verify(params, cfg, c, cache, lengths, dev, q, ver, max_seq,
+                   rows):
+    """One recorded verify call of :func:`logits_after` on row 0: the
+    row's tokens at base ``c["pos"]``; a chain with a valid count (rings or
+    states) snapshots the ring slots first and commits the tokens the
+    call emitted; a tree compacts the accepted path as the engine did.
+    Returns (the logits of the ``q``-th token the call emitted, or None
+    without ``q``; the cache)."""
+    C = c["tokens"].shape[0]
+    toks = torch.zeros((rows, C), dtype=torch.int64)
+    toks[0] = c["tokens"]
+    lengths[0] = c["pos"]
+    lens = lengths.to(dev)
+    f32 = torch.float32
+    if c["anc"] is not None:
+        anc = torch.tril(torch.ones((rows, C, C), dtype=torch.int32))
+        depths = torch.arange(C).repeat(rows, 1)
+        anc[0], depths[0] = c["anc"], c["depths"]
+        lgs, cache = lm.verify_chunk(params, cfg, toks.to(dev), cache, lens,
+                                     anc=anc.to(dev), depths=depths.to(dev),
+                                     dtype=f32, **ver)
+        path = c.get("path")
+        nodes = (list(range(C)) if path is None else
+                 [0] + (path[path < max_seq] - c["pos"]).tolist())
+        if path is not None:
+            src = torch.full((rows, path.shape[0]), max_seq,
+                             dtype=torch.int64)
+            src[0] = path
+            dst = torch.full_like(src, max_seq)
+            m = int((path < max_seq).sum())
+            dst[0, :m] = c["pos"] + 1 + torch.arange(m)
+            bts = ver.get("block_tables")
+            cache = lm.compact_accepted_path(
+                cfg, cache, src, dst,
+                block_tables=None if bts is None else bts.cpu())
+        return (None if q is None else lgs[0, nodes[q]]), cache
+    if c["valid"] is None:
+        lgs, cache = lm.verify_chunk(params, cfg, toks.to(dev), cache, lens,
+                                     dtype=f32, **ver)
+        return (None if q is None else lgs[0, q]), cache
+    valids = torch.zeros(rows, dtype=torch.int32)
+    valids[0] = c["valid"]
+    counts = torch.zeros(rows, dtype=torch.int32)
+    counts[0] = max(c["emitted"], 1)
+    snap = lm.verify_snapshot(cfg, cache, lens, chunk=C)
+    lgs, cache, traj = lm.verify_chunk(
+        params, cfg, toks.to(dev), cache, lens, valids=valids.to(dev),
+        with_traj=True, dtype=f32, **ver)
+    cache = lm.commit_verify(cfg, snap, cache, traj, lens, counts.to(dev),
+                             valids.to(dev), chunk=C)
+    return (None if q is None else lgs[0, q]), cache
+
+
+#: the latest prefills of ``logits_after`` (key -> (logits, cache)), at
+#: most ``PREFILLED_KEPT``, emptied at every phase's start
 _PREFILLED = {}
+PREFILLED_KEPT = 8
 
 
 class RouterProbe:
@@ -2105,12 +2550,16 @@ def routing_split(ra, rb, k):
 def hold_streams(what, streams, prompts, logits_fns, n_new, moe_cfg=None):
     """Two computations' served streams (``streams = (a, b)``, rid ->
     tokens; ``prompts`` indexed by rid) must be equal up to where a pair
-    parts, and each parting must
-    be a near-tie: fed the shared history, the two computations' logits
-    (``logits_fns = (fa, fb)``, each ``(prompt, history) -> logits``)
-    agree to ``LOGIT_REL_TOL`` of their range, and each one's margin of
-    its own token over the other's is at most twice their largest logit
-    difference.  For a MoE stack (``moe_cfg``) the logits may instead
+    parts, and each parting must be a near-tie.  Each computation's
+    logits at the parting (``logits_fns = (fa, fb)``, each ``(rid,
+    prompt, history) -> logits``) are recomputed along the calls that
+    served its stream (:func:`served_logits`), so each must prefer its
+    own token: a negative margin (a side's logit for its own token less
+    its logit for the other side's) means the recomputation is not the
+    computation that served the stream, and fails.  Then the two agree
+    to ``LOGIT_REL_TOL`` of their range, and each margin is at most twice
+    their largest logit difference.  For a MoE stack (``moe_cfg``) the
+    logits may instead
     differ by more where the two computations' routers chose different
     experts along the shared history, if the first such choice was a
     routing near-tie (:func:`routing_split`: there the two sides' router
@@ -2138,12 +2587,13 @@ def hold_streams(what, streams, prompts, logits_fns, n_new, moe_cfg=None):
         parted += 1
         routing_tie = False
         if moe_cfg is None:
-            la, lb = fa(prompts[rid], b[:i]), fb(prompts[rid], b[:i])
+            la = fa(rid, prompts[rid], b[:i])
+            lb = fb(rid, prompts[rid], b[:i])
         else:
             with RouterProbe(moe_cfg) as ra:
-                la = fa(prompts[rid], b[:i])
+                la = fa(rid, prompts[rid], b[:i])
             with RouterProbe(moe_cfg) as rb:
-                lb = fb(prompts[rid], b[:i])
+                lb = fb(rid, prompts[rid], b[:i])
             n_diff, n_all, first = routing_split(
                 ra, rb, moe_cfg.experts_per_token)
             if first is None:
@@ -2169,11 +2619,11 @@ def hold_streams(what, streams, prompts, logits_fns, n_new, moe_cfg=None):
         print(f"{what}: request {rid} parts at token {i}: {a[i]} vs {b[i]};"
               f" logits max err {err:.3e} = {err / span:.3e} of their range "
               f"(<= {LOGIT_REL_TOL}{tie}); margins {m_a:.3e}, {m_b:.3e} "
-              "(<= 2 x err)")
+              "(>= 0, <= 2 x err)")
         ok = err <= LOGIT_REL_TOL * span
         if not ok and routing_tie:
             with RouterProbe(moe_cfg, pin=rb.rec) as rp:
-                lp = fa(prompts[rid], b[:i])
+                lp = fa(rid, prompts[rid], b[:i])
             err_p = (lp - lb).abs().max().item()
             ok = err_p <= LOGIT_REL_TOL * span
             print(f"{what}: request {rid}: with the first's routers pinned "
@@ -2181,6 +2631,11 @@ def hold_streams(what, streams, prompts, logits_fns, n_new, moe_cfg=None):
                   f"choices moved) the logits max err is {err_p:.3e} = "
                   f"{err_p / span:.3e} of their range (<= {LOGIT_REL_TOL})")
         check(ok, f"{what}: request {rid} logits err {err}")
+        check(m_a >= 0 and m_b >= 0,
+              f"{what}: request {rid} parts at token {i} ({a[i]} vs {b[i]})"
+              f" with margins {m_a}, {m_b}: a recomputation prefers the "
+              "other side's token, so it is not the computation that "
+              "served the stream")
         check(max(m_a, m_b) <= 2 * err,
               f"{what}: request {rid} parts at token {i} with margins "
               f"{m_a}, {m_b} beyond twice the logit difference {err}")
@@ -2205,17 +2660,20 @@ def repetitive_prompts(rng, n, vocab, lo, hi):
 def engine_run(label, eng, prompts, max_new, *, drive=None):
     """Submit ``prompts``, zero the launch counters and the peak-memory
     mark, then run the engine to the end (``drive(eng)`` ticks it first,
-    for runs that preempt or cancel on the way).  Prints tokens/s, TTFT
-    and TPOT; returns (rid -> tokens, stats, launches, peak bytes)."""
+    for runs that preempt or cancel on the way) under a
+    :class:`ScheduleProbe`.  Prints tokens/s, TTFT and TPOT; returns
+    (rid -> tokens, stats, launches, peak bytes, rid -> the calls that
+    served it)."""
     for p in prompts:
         eng.submit(p, max_new=max_new)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    if drive is not None:
-        drive(eng)
-    done = eng.run()
+    with ScheduleProbe(eng) as probe:
+        if drive is not None:
+            drive(eng)
+        done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -2232,7 +2690,16 @@ def engine_run(label, eng, prompts, max_new, *, drive=None):
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"{label} launches: {json.dumps(launches)}")
     return ({r.rid: r.out for r in done}, s, launches,
-            torch.cuda.max_memory_allocated())
+            torch.cuda.max_memory_allocated(), probe.calls)
+
+
+def served_logits(params, cfg, schedule, dev, **shape):
+    """``(rid, prompt, history) -> logits``: :func:`logits_after` along
+    request ``rid``'s calls in ``schedule`` (an :func:`engine_run`'s), on
+    ``dev``, at the engine's ``shape`` (``max_seq``, ``page``, ``chunk``,
+    ``rows``, ``layout``)."""
+    return lambda rid, p, h: logits_after(params, cfg, schedule[rid], p, h,
+                                          dev, **shape)
 
 
 def w8a8_engine(cfg, qparams, dev, **kw):
@@ -2266,15 +2733,17 @@ def spec_serving_phase(dev, qparams, cfg):
     }
     L = cfg.n_layers
     out, kept = {}, {}
+    shape = dict(max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK, rows=SLOTS)
     for name, (spec, prompts) in runs.items():
-        streams = []
+        streams, fns = [], []
         for sp in (spec, None):
             label = f"{name} spec" if sp is not None else f"{name} plain"
-            got, s, launches, _ = engine_run(
+            got, s, launches, _, sched = engine_run(
                 label, w8a8_engine(cfg, qparams, dev, spec=sp), prompts,
                 max_new)
             check(len(got) == n_req, f"{label}: a request was not served")
             streams.append(got)
+            fns.append(served_logits(qparams, cfg, sched, dev, **shape))
             if sp is None:
                 continue
             print(f"{label}: acceptance {s['acceptance_rate']:.3f} "
@@ -2300,18 +2769,14 @@ def spec_serving_phase(dev, qparams, cfg):
                   f"spec {name}: launch counts {launches} do not match "
                   "the calls")
             out[name] = launches
-        shape = dict(max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK, rows=SLOTS)
-        fa = (lambda p, h: logits_after(qparams, cfg, p, h, dev,
-                                        verify=spec.k + 1, **shape))
-        fb = (lambda p, h: logits_after(qparams, cfg, p, h, dev, **shape))
         hold_streams(f"{name} spec vs plain on the card", streams, prompts,
-                     (fa, fb), max_new)
-        kept[name] = (prompts, streams)
+                     fns, max_new)
+        kept[name] = (prompts, streams, fns)
     del draft
     return out, kept["chain"]
 
 
-def stacked_phase(dev, qparams, cfg, prompts, paged_streams):
+def stacked_phase(dev, qparams, cfg, prompts, paged_streams, paged_fns):
     """Full-width W8A8 serving on the stacked layout (one contiguous
     ``max_seq`` region per slot; decode through the contiguous decode
     kernel, chunks in plain PyTorch), plainly and with chain speculation
@@ -2323,15 +2788,16 @@ def stacked_phase(dev, qparams, cfg, prompts, paged_streams):
     L, max_new = cfg.n_layers, SPEC_NEW
     shape = dict(max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK, rows=SLOTS)
     out = {}
-    for name, spec, paged in (("plain", None, paged_streams[1]),
-                              ("chain", SpecConfig(k=CHAIN_K),
-                               paged_streams[0])):
+    for name, spec, paged, fb in (
+            ("plain", None, paged_streams[1], paged_fns[1]),
+            ("chain", SpecConfig(k=CHAIN_K), paged_streams[0],
+             paged_fns[0])):
         eng = w8a8_engine(cfg, qparams, dev, kv_layout="stacked", spec=spec)
         check(eng.kv_layout == "stacked", "stacked: wrong layout")
         cache_bytes = sum(t.numel() * t.element_size()
                           for c in eng.kv.cache["layers"] for t in c.values())
-        got, s, launches, peak = engine_run(f"stacked {name}", eng, prompts,
-                                            max_new)
+        got, s, launches, peak, sched = engine_run(
+            f"stacked {name}", eng, prompts, max_new)
         check(len(got) == len(prompts), f"stacked {name}: a request was "
               "not served")
         decodes = s["model_calls"] - s["prefill_calls"] - s.get(
@@ -2355,11 +2821,8 @@ def stacked_phase(dev, qparams, cfg, prompts, paged_streams):
                   f"({s['spec_accepted']}/{s['spec_proposed']}), "
                   f"{s['spec_ticks']} verify calls")
         print(f"stacked {name} stats:", json.dumps(s, sort_keys=True))
-        width = {} if spec is None else {"verify": spec.k + 1}
-        fa = (lambda p, h, w=width: logits_after(
-            qparams, cfg, p, h, dev, layout="stacked", **w, **shape))
-        fb = (lambda p, h, w=width: logits_after(qparams, cfg, p, h, dev,
-                                                 **w, **shape))
+        fa = served_logits(qparams, cfg, sched, dev, layout="stacked",
+                           **shape)
         hold_streams(f"stacked {name} vs paged {name} on the card",
                      (got, paged), prompts, (fa, fb), max_new)
         out[f"stacked {name}"] = launches
@@ -2384,7 +2847,8 @@ def overcommit_phase(dev, qparams, cfg):
     n_req, max_new = SPEC_REQUESTS, SPEC_NEW
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
                for n in np.linspace(*SPEC_PROMPT_LENS, n_req)]
-    want, ws, _, _ = engine_run("uninterrupted (reservation, full pool)",
+    want, ws, _, _, want_sched = engine_run(
+        "uninterrupted (reservation, full pool)",
                                 w8a8_engine(cfg, qparams, dev), prompts,
                                 max_new)
     reserve = FIFOAdmission(cfg, chunk_size=CHUNK)
@@ -2434,8 +2898,8 @@ def overcommit_phase(dev, qparams, cfg):
                 return
             last = tick
 
-    got, s, launches, _ = engine_run("over-commit", eng, prompts, max_new,
-                                     drive=drive)
+    got, s, launches, _, sched = engine_run("over-commit", eng, prompts,
+                                            max_new, drive=drive)
     modes = [m for _, _, m in log]
     print(f"over-commit: preemptions {s['preemptions']} (host "
           f"{s['preempt_host']}, recompute {s['preempt_recompute']}), "
@@ -2456,24 +2920,15 @@ def overcommit_phase(dev, qparams, cfg):
     check(launches["mp_matmul"] > 0 and launches["paged_verify"] > 0
           and launches["paged_mha_decode"] > 0,
           "over-commit: a kernel of the paged path was never launched")
-    # the computation each surviving request took: recompute resumes
-    # prefill prompt + out[:m-1] and decode from there
-    resumed = {tuple(prompts[rid]): n for rid, n, m in log
-               if m == PREEMPTED_RECOMPUTE and n > 0}
+    # the computation each surviving request took, recompute resumes and
+    # host restores included, is the one its calls recorded
     host = sorted({rid for rid, _, m in log if m == PREEMPTED_HOST}
                   - set(cancelled))
     shape = dict(max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK, rows=SLOTS)
-
-    def fa(p, h):
-        n = resumed.get(tuple(p))
-        if n is None or len(h) < n:
-            return logits_after(qparams, cfg, p, h, dev, **shape)
-        return logits_after(qparams, cfg, p + h[:n - 1], h[n - 1:], dev,
-                            **shape)
-
-    fb = (lambda p, h: logits_after(qparams, cfg, p, h, dev, **shape))
     hold_streams("over-commit vs uninterrupted on the card",
-                 (got, {rid: want[rid] for rid in got}), prompts, (fa, fb),
+                 (got, {rid: want[rid] for rid in got}), prompts,
+                 (served_logits(qparams, cfg, sched, dev, **shape),
+                  served_logits(qparams, cfg, want_sched, dev, **shape)),
                  max_new)
     parted = [rid for rid in host if got[rid] != want[rid]]
     print(f"over-commit: host-restored requests {host} equal the "
@@ -2514,10 +2969,7 @@ def agreement_phase(dev, arch="gpt2-345m", prefill_mode="chunked"):
     qdev = to_device(qparams, dev)
     layout = "paged" if blocks.page_addressable(cfg) else "stacked"
     replay = prefill_mode == "replay"
-    fns = (lambda p, h: logits_after(qdev, cfg, p, h, dev, layout=layout,
-                                     replay=replay),
-           lambda p, h: logits_after(qparams, cfg, p, h, cpu_dev,
-                                     layout=layout, replay=replay))
+    shape = dict(rows=4, layout=layout)
     variants = {
         "plain": None,
         "chain": SpecConfig(k=CHAIN_K),
@@ -2531,8 +2983,8 @@ def agreement_phase(dev, arch="gpt2-345m", prefill_mode="chunked"):
         variants = {"plain": None}
     agree = {}
     for name, spec in variants.items():
-        outs = []  # [card, CPU]
-        for d in (dev, cpu_dev):
+        outs, fns = [], []  # [card, CPU]
+        for d, qp in ((dev, qdev), (cpu_dev, qparams)):
             eng = ServeEngine(cfg, qparams, batch_slots=4,
                               max_seq=AGREE_MAX_SEQ, eos_id=-1,
                               act_dtype=torch.float32,
@@ -2540,7 +2992,9 @@ def agreement_phase(dev, arch="gpt2-345m", prefill_mode="chunked"):
                               prefill_mode=prefill_mode, spec=spec, device=d)
             for p in prompts:
                 eng.submit(p, max_new=16)
-            outs.append({r.rid: r.out for r in eng.run()})
+            with ScheduleProbe(eng) as probe:
+                outs.append({r.rid: r.out for r in eng.run()})
+            fns.append(served_logits(qp, cfg, probe.calls, d, **shape))
             if spec is not None:
                 s = eng.stats()
                 print(f"reduced {arch} {name} on {d.type}: acceptance "
@@ -2655,7 +3109,8 @@ def hold_taught(what, tokens, la, lb):
     logits ``la`` (n + 1, B, V; ``tokens[:, i]`` is the argmax of
     ``la[i]``) against a second computation's logits ``lb`` taught the
     same stream: each row must be the second's greedy stream up to where
-    they part, and at a parting the two computations' logits agree to
+    they part, and at a parting each computation prefers its own token
+    (both margins at least 0), the two computations' logits agree to
     ``LOGIT_REL_TOL`` of their range and each one's margin of its own
     token over the other's is at most twice their largest difference.
     (Taught the shared history, the second computation's logits up to
@@ -2683,7 +3138,11 @@ def hold_taught(what, tokens, la, lb):
         m_a, m_b = (x[a] - x[o]).item(), (y[o] - y[a]).item()
         print(f"{what}: row {b} parts at token {i}: {a} vs {o}; logits max "
               f"err {err:.3e} = {err / span:.3e} of their range (<= "
-              f"{LOGIT_REL_TOL}); margins {m_a:.3e}, {m_b:.3e} (<= 2 x err)")
+              f"{LOGIT_REL_TOL}); margins {m_a:.3e}, {m_b:.3e} (>= 0, <= 2 "
+              "x err)")
+        check(m_a >= 0 and m_b >= 0,
+              f"{what}: row {b} parts at token {i} with margins {m_a}, "
+              f"{m_b}: a side's logits prefer the other side's token")
         check(err <= LOGIT_REL_TOL * span and max(m_a, m_b) <= 2 * err,
               f"{what}: row {b} parts at token {i} beyond a near-tie")
     err = (la[0] - lb[0]).abs().max().item()
@@ -3011,12 +3470,12 @@ def replay_phase(dev, qparams, cfg):
     prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
                for n in np.linspace(*REPLAY_PROMPT_LENS,
                                     REPLAY_REQUESTS).astype(int)]
-    streams, out = {}, {}
+    streams, out, sched = {}, {}, {}
     L = cfg.n_layers
     for mode in ("chunked", "replay"):
         eng = w8a8_engine(cfg, qparams, dev, prefill_mode=mode)
-        got, s, n, _ = engine_run(f"gpt2-345m {mode}", eng, prompts,
-                                  SPEC_NEW)
+        got, s, n, _, sched[mode] = engine_run(f"gpt2-345m {mode}", eng,
+                                               prompts, SPEC_NEW)
         decodes = s["model_calls"] - s["prefill_calls"]
         check(n["mp_matmul"] == 6 * L * s["model_calls"]
               and n["paged_verify"] == L * s["prefill_calls"]
@@ -3029,10 +3488,8 @@ def replay_phase(dev, qparams, cfg):
     shape = dict(max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK, rows=SLOTS)
     hold_streams("gpt2-345m replay vs chunked on the card",
                  (streams["replay"], streams["chunked"]), prompts,
-                 (lambda p, h: logits_after(qparams, cfg, p, h, dev,
-                                            replay=True, **shape),
-                  lambda p, h: logits_after(qparams, cfg, p, h, dev,
-                                            **shape)), SPEC_NEW)
+                 tuple(served_logits(qparams, cfg, sched[mode], dev, **shape)
+                       for mode in ("replay", "chunked")), SPEC_NEW)
     return {"replay": out["gpt2-345m replay"]}
 
 
@@ -3052,6 +3509,8 @@ def main() -> int:
         entries[name]["hybrid"] = rows
     for name, rows in whisper_kernels_phase(dev, timer).items():
         entries[name]["whisper"] = rows
+    for name, rows in mixed_kernels_phase(dev, timer).items():
+        entries[name]["mixed"] = rows
     moe_ffn_phase(dev, timer)
     recurrent_block_phase(dev, timer)
     del timer
@@ -3069,6 +3528,7 @@ def main() -> int:
         family_launches.update(family_serving_phase(dev, arch))
     for arch in HYBRID_MAX_SEQ:
         family_launches.update(hybrid_serving_phase(dev, arch))
+    family_launches.update(mixed_serving_phase(dev))
     whisper_agreement_phase(dev)
     for arch in AGREE_ARCHS:
         agreement_phase(dev, arch)

@@ -10,8 +10,11 @@ package keeps one dict per layer (``{"layers": [...]}``), so layer
 layers follow.  The same holds for the cache pytrees of both layouts,
 whose leaves are page pools ``(P, Hkv, ps, D)`` (paged) or per-slot
 caches ``(B, Hkv, S, D)`` (stacked; Hkv < H under GQA), with a leading
-``n_per`` axis under ``periods``.  Leaves may be fp (``w``/``b``) or quantized
-(``w_q``/``w_scale``/``smooth``/``bias``) alike.
+``n_per`` axis under ``periods``; a mixed stack's paged cache holds both
+kinds, pools for its ``attn`` layers and per-slot rings and states for
+the others, each carried layer by layer.  Leaves may be fp
+(``w``/``b``) or quantized (``w_q``/``w_scale``/``smooth``/``bias``)
+alike.
 
 A caller turns a JAX pytree into numpy first (``jax.device_get``).  bf16
 numpy arrays (``ml_dtypes``) are read by their bit pattern;

@@ -18,13 +18,14 @@ decode on one NVIDIA H100.
     PYTHONPATH=src python -m repro_torch.launch.serve --spec model \
         --spec-k 8 --tree-branch 3                                    # tree
 
-A global-attention stack serves on the paged layout; a hybrid one
-(``recurrentgemma-9b``, ``xlstm-350m``: rings and recurrent states) on
-the stacked layout, with no request ceiling.  ``pixtral-12b`` serves its
-decoder on tokens alone (the engine takes no patches, as the
-reference's); ``whisper-large-v3`` is refused (encoder-decoder: it runs
-at model level, see ``chip_smoke.py``).  Draws random weights from
-``--seed``, calibrates SmoothQuant on synthetic
+A stack with a global-attention layer serves on the paged layout (a
+mixed one keeps its rings and recurrent states slot-resident beside the
+pages); an attention-free hybrid one (``recurrentgemma-9b``,
+``xlstm-350m``) on the stacked layout, with no request ceiling.
+``pixtral-12b`` serves its decoder on tokens alone (the engine takes no
+patches, as the reference's); ``whisper-large-v3`` is refused
+(encoder-decoder: it runs at model level, see ``chip_smoke.py``).  Draws
+random weights from ``--seed``, calibrates SmoothQuant on synthetic
 prompts made with numpy from the same seed, serves ``--requests``
 requests of mixed prompt lengths greedily, and prints the engine's stats
 and the kernels' launch counts.  The counterpart of the JAX package's

@@ -15,8 +15,11 @@ layer ``{"k", "v"}``: either a page pool ``(P, Hkv, ps, hd)`` addressed
 through block tables (``layout="paged"``) or a contiguous ``(B, Hkv,
 max_seq, hd)`` per-slot cache (``layout="stacked"``, which the draft
 model uses too); a recurrent layer's entry is its state
-(``blocks.init_state``).  The serving steps update it in place and also
-return it;
+(``blocks.init_state``).  The paged layout is per kind: only global
+``attn`` layers take the page pool, while a mixed stack's rings and
+recurrent states stay slot-resident, one row per slot as on the stacked
+layout (``init_cache(layout="paged", slots=, slot_seq=)``).  The serving
+steps update it in place and also return it;
 :func:`gather_request_cache` / :func:`scatter_request_cache` copy one
 request's share of it to host memory and back (preemption to host).
 
@@ -28,9 +31,9 @@ decoders, OLMoE and Kimi K2), and the hybrid stacks' ``local_attn``,
 sliding-window layer's cache is a ring of ``min(window, max_seq)`` slots
 and a recurrent layer's a carried state, both one row per slot, beside
 the other layers' K/V; pages hold global ``attn`` layers only, so a
-stack pages only when every layer is one (a mixed stack's per-kind paged
-layout is not ported).  Whisper (``is_encoder_decoder``) adds an
-encoder over stub frame embeddings and a cross sub-block per decoder
+mixed stack pages its ``attn`` layers and keeps the rest slot-resident,
+and an attention-free stack does not page.  Whisper
+(``is_encoder_decoder``) adds an encoder over stub frame embeddings and a cross sub-block per decoder
 layer, whose decode attends a static ``cache["cross"]`` filled at
 prefill; Pixtral's stub patch embeddings go before the tokens in
 :func:`forward` and :func:`batch_prefill` (the serving engine, like the
@@ -66,24 +69,25 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def _paged_gate(cfg: ModelConfig, what: str) -> None:
-    """Refuse the paged layout for a stack that is not all global
-    ``attn``: with no such layer at all, ``ValueError`` naming every
-    layer, as the reference; a mixed stack needs the per-kind paged
-    layout, which is not ported."""
-    if blocks.page_addressable(cfg):
+    """Refuse the paged layout for a stack with no global-attention layer
+    (nothing to page), naming every layer, with the reference's
+    ``ValueError``.  A mixed stack pages its ``attn`` layers and keeps
+    its rings and recurrent states slot-resident."""
+    if blocks.paged_capable(cfg):
         return
-    if not blocks.paged_capable(cfg):
-        bad = ", ".join(
-            f"layer {i} ({cfg.block_kind(i)})" for i in range(cfg.n_layers)
-            if cfg.block_kind(i) != "attn")
-        raise ValueError(
-            f"{what} requires at least one global-attention layer for the "
-            f"paged layout, but every layer of this stack is non-pageable "
-            f"({bad}) — serve it with the stacked layout")
-    raise NotImplementedError(
-        f"{what}: the per-kind paged layout of a mixed stack "
-        f"({sorted(set(cfg.block_pattern))}: rings and states beside the "
-        "page pool) is not ported — serve it with the stacked layout")
+    bad = ", ".join(
+        f"layer {i} ({cfg.block_kind(i)})" for i in range(cfg.n_layers)
+        if cfg.block_kind(i) != "attn")
+    raise ValueError(
+        f"{what} requires at least one global-attention layer for the "
+        f"paged layout, but every layer of this stack is non-pageable "
+        f"({bad}) — serve it with the stacked layout")
+
+
+def _slot_resident(cfg: ModelConfig, li: int, paged: bool) -> bool:
+    """True when layer ``li``'s cache entry has one row per slot: every
+    entry of a stacked cache, the rings and states of a paged one."""
+    return not paged or cfg.block_kind(li) != "attn"
 
 
 def init(cfg: ModelConfig, gen: torch.Generator, *, max_seq: int = 0,
@@ -184,25 +188,40 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                layout: str = "paged", dtype=torch.bfloat16,
-               device=None) -> Dict:
-    """The cache.  ``layout="paged"`` (global-attention stacks): per layer
-    a pool of ``batch`` pages of ``max_seq`` (= page size) tokens, page 0
-    being the null page.  ``layout="stacked"``: per layer ``batch`` rows,
-    contiguous ``max_seq`` positions for an ``attn`` layer, a ring of
-    ``min(window, max_seq)`` slots for ``local_attn``, a carried state
-    for a recurrent kind.  (The reference's argument order; its default
-    layout is "stacked", this package's engine default is "paged".)"""
+               device=None, *, slots: Optional[int] = None,
+               slot_seq: Optional[int] = None) -> Dict:
+    """The cache.  ``layout="paged"`` (stacks with a global-attention
+    layer): per ``attn`` layer a pool of ``batch`` pages of ``max_seq``
+    (= page size) tokens, page 0 being the null page; a mixed stack's
+    rings and recurrent states stay slot-resident, ``slots`` rows of
+    ``slot_seq`` positions each (``ValueError`` without them).
+    ``layout="stacked"``: per layer ``batch`` rows, contiguous
+    ``max_seq`` positions for an ``attn`` layer, a ring of ``min(window,
+    max_seq)`` slots for ``local_attn``, a carried state for a recurrent
+    kind.  (The reference's argument order; its default layout is
+    "stacked", this package's engine default is "paged".)"""
     if layout not in ("paged", "stacked"):
         raise NotImplementedError(
             f"cache layout {layout!r} is not ported: only 'paged' and "
             "'stacked' are")
     check_supported(cfg)
-    if layout == "paged":
+    paged = layout == "paged"
+    if paged:
         _paged_gate(cfg, "init_cache")
-    cache = {"layers": [
-        blocks.block_init_cache(cfg, cfg.block_kind(li), batch, max_seq,
-                                dtype=dtype, device=device)
-        for li in range(cfg.n_layers)]}
+        if not blocks.page_addressable(cfg) and (slots is None
+                                                 or slot_seq is None):
+            raise ValueError(
+                "a mixed paged stack keeps its non-attn state slot-resident"
+                " — pass slots= and slot_seq= alongside the page pool dims")
+
+    def entry(li):
+        kind = cfg.block_kind(li)
+        rows, seq = ((slots, slot_seq) if paged and kind != "attn"
+                     else (batch, max_seq))
+        return blocks.block_init_cache(cfg, kind, rows, seq, dtype=dtype,
+                                       device=device)
+
+    cache = {"layers": [entry(li) for li in range(cfg.n_layers)]}
     if cfg.is_encoder_decoder:
         shape = (batch, cfg.n_kv_heads, cfg.encoder_seq, cfg.head_dim)
         cache["cross"] = [
@@ -219,10 +238,12 @@ def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
                 dtype=torch.bfloat16):
     """One auto-regressive step for every row: ``token`` (B, 1) enters at
     position ``lengths[b]``.  With ``block_table`` (B, n_pg) the cache is
-    the page pool and rows outside ``active`` ride along with their
-    writes parked on the null page; without, it is the stacked cache,
-    row ``b`` being slot ``b``, where rows outside ``active`` leave their
-    rings and recurrent states untouched (their K/V writes stay masked).
+    the paged one: ``attn`` layers address the page pool through it, rows
+    outside ``active`` riding along with their writes parked on the null
+    page, and a mixed stack's rings and states take row ``b`` as slot
+    ``b``; without, it is the stacked cache, row ``b`` being slot ``b``.
+    Either way rows outside ``active`` leave their rings and recurrent
+    states untouched (their global K/V writes stay masked).
     An encoder-decoder's layers also attend the first ``enc_lengths[b]``
     positions of the cache's static ``"cross"`` K/V.  Returns
     ``(logits (B, V), cache)``."""
@@ -257,20 +278,26 @@ def prefill_into_slot(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                       dtype=torch.bfloat16):
     """Chunked prefill: write one prompt chunk ``tokens`` (C,), right-padded
     past ``valid`` real tokens, at absolute positions ``offset..`` of one
-    request, with one forward call: on the page pool through the
-    request's block-table row ``block_table`` (n_pg,), or, without a
-    table, into slot ``slot`` of the stacked cache (positions past the
-    cache are dropped).  The chunk attends causally over itself and the
-    request's cache below ``offset``; padding lands above the prompt and
-    stays masked by the length accounting, writes no ring slot and
-    commits no recurrent state (a recurrent layer commits its state after
-    ``valid`` tokens).  Returns
+    request, with one forward call.  With ``block_table`` (the request's
+    row, (n_pg,)) the cache is the paged one: ``attn`` layers write and
+    read the page pool through it, and a mixed stack's rings and states
+    use row ``slot`` of their slot-resident entries.  Without a table,
+    slot ``slot`` of the stacked cache (positions past the cache are
+    dropped).  The chunk attends causally over itself and the request's
+    cache below ``offset``; padding lands above the prompt and stays
+    masked by the length accounting, writes no ring slot and commits no
+    recurrent state (a recurrent layer commits its state after ``valid``
+    tokens).  Returns
     ``(logits (V,) f32 at chunk position valid - 1, cache)``."""
     C = tokens.shape[-1]
     valid = C if valid is None else int(valid)
-    if (block_table is None) == (slot is None):
-        raise ValueError("pass exactly one of block_table (paged cache) "
-                         "and slot (stacked cache)")
+    paged = block_table is not None
+    if not paged and slot is None:
+        raise ValueError("pass block_table (paged cache) or slot (stacked "
+                         "cache)")
+    if paged and slot is None and not blocks.page_addressable(cfg):
+        raise ValueError("a mixed paged stack needs slot= for its "
+                         "slot-resident rings and states")
     tokens = tokens.reshape(1, C)
     positions = (offset + torch.arange(C, device=tokens.device))[None]
     valids = torch.full((1,), valid, dtype=torch.int32, device=tokens.device)
@@ -279,14 +306,11 @@ def prefill_into_slot(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         # clipped gather: the last chunk may hang past the table end
         P = params["pos_embed"].shape[0]
         x = x + params["pos_embed"][positions.clamp(0, P - 1)].to(dtype)
-    if block_table is None:
-        # the slot's rows of the stacked cache, as views written in place
-        view = [{k: t[slot:slot + 1] for k, t in c.items()}
-                for c in cache["layers"]]
-        bts = None
-    else:
-        view = cache["layers"]
-        bts = block_table[None]
+    # the page pool whole, the slot's rows as views written in place
+    view = [{k: t[slot:slot + 1] for k, t in c.items()}
+            if _slot_resident(cfg, li, paged) else c
+            for li, c in enumerate(cache["layers"])]
+    bts = block_table[None] if paged else None
     for li, layer_p in enumerate(params["layers"]):
         x, _, _ = blocks.block_apply_chunk(
             layer_p, x, view[li], cfg, cfg.block_kind(li),
@@ -382,31 +406,43 @@ def batch_prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     return logits[:, -1].float(), cache, lengths
 
 
+def _request_index(cfg: ModelConfig, cache: Dict, li: int, slot: int,
+                   page_ids):
+    """Layer ``li``'s index of one request: its pages (in block-table
+    order) for an ``attn`` entry of a paged cache, else its slot."""
+    if page_ids is None or cfg.block_kind(li) != "attn":
+        return slot
+    return torch.as_tensor(list(page_ids), dtype=torch.long,
+                           device=cache["layers"][li]["k"].device)
+
+
 def gather_request_cache(cfg: ModelConfig, cache: Dict, slot: int, *,
                          page_ids=None) -> Dict:
     """Copy one request's cache to host memory (preemption to host): slot
-    ``slot`` of a stacked cache, or with ``page_ids`` the request's pages
-    of the page pool, in block-table order.  Returns ``{"layers": [{"k",
-    "v"}]}`` of CPU tensors that no later write to the cache touches;
+    ``slot`` of a stacked cache, or with ``page_ids`` a paged cache's
+    per-kind share: the request's pages of each ``attn`` layer's pool, in
+    block-table order, and row ``slot`` of each slot-resident ring and
+    state.  ``page_ids=()`` gathers the slot-resident state alone (the
+    ``attn`` entries come out empty).  Returns ``{"layers": [{...}]}`` of
+    CPU tensors that no later write to the cache touches;
     :func:`scatter_request_cache` is its inverse."""
-    idx = slot if page_ids is None else torch.as_tensor(
-        list(page_ids), dtype=torch.long,
-        device=cache["layers"][0]["k"].device)
-    return {"layers": [{k: t[idx].to("cpu", copy=True)
-                        for k, t in layer.items()}
-                       for layer in cache["layers"]]}
+    return {"layers": [
+        {k: t[_request_index(cfg, cache, li, slot, page_ids)].to(
+            "cpu", copy=True) for k, t in layer.items()}
+        for li, layer in enumerate(cache["layers"])]}
 
 
 def scatter_request_cache(cfg: ModelConfig, cache: Dict, blob: Dict,
                           slot: int, *, page_ids=None) -> Dict:
     """Write a :func:`gather_request_cache` snapshot back into slot
-    ``slot`` of a stacked cache, or into the pages ``page_ids`` (the
-    restore target's, in block-table order; they need not be the pages it
-    was gathered from).  In place; returns the cache."""
-    idx = slot if page_ids is None else torch.as_tensor(
-        list(page_ids), dtype=torch.long,
-        device=cache["layers"][0]["k"].device)
-    for layer, saved in zip(cache["layers"], blob["layers"]):
+    ``slot`` of a stacked cache, or per kind into a paged one: the pages
+    ``page_ids`` (the restore target's, in block-table order; they need
+    not be the pages it was gathered from) and row ``slot`` of the
+    slot-resident entries (``page_ids=()``: those alone).  In place;
+    returns the cache."""
+    for li, (layer, saved) in enumerate(zip(cache["layers"],
+                                            blob["layers"])):
+        idx = _request_index(cfg, cache, li, slot, page_ids)
         for k, t in layer.items():
             t[idx] = saved[k].to(t.device, t.dtype)
     return cache
@@ -422,10 +458,11 @@ def verify_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                  dtype=torch.bfloat16):
     """Score C tokens per row against the cache in ONE forward call
     (speculative verification).  Row ``b``'s tokens occupy positions
-    ``lengths[b] .. lengths[b] + C - 1``; their K/V are written into the
-    pages the row's table names (``block_tables``), or into slot ``b`` of
-    the stacked cache (without), and ``logits[b, i]`` is the next-token
-    distribution after ``tokens[b, :i + 1]``.  A row parked at
+    ``lengths[b] .. lengths[b] + C - 1``; their global K/V are written
+    into the pages the row's table names (``block_tables``; a mixed
+    stack's rings and states take row ``b`` as slot ``b``), or into slot
+    ``b`` of the stacked cache (without), and ``logits[b, i]`` is the
+    next-token distribution after ``tokens[b, :i + 1]``.  A row parked at
     ``lengths[b] >= max_seq`` writes nothing (the null page, or a dropped
     write) and its logits must not be used.
 

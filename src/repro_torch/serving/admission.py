@@ -7,7 +7,9 @@ prefix-shared pages — the formula ``PagedCacheManager.alloc`` enforces —
 or, under :class:`OvercommitAdmission`, the prompt alone, with
 preemption (:func:`victim_order`) covering a pool that runs dry.  On the
 stacked layout every request takes one slot; :meth:`FIFOAdmission.
-slot_price` is its per-layer footprint in positions.
+slot_price` is its per-layer footprint in positions, and
+:meth:`FIFOAdmission.combined_price` the larger of the two on a mixed
+stack's per-kind paged layout.
 Each tick, prompt chunks ride along with the batched decode up to a token
 budget derived from the analytic stage program: decode streams every
 weight through the MP kernel anyway, so the budget is however many
@@ -21,6 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.perfmodel import FPGAPerfModel
+from repro_torch.models import blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +96,23 @@ class FIFOAdmission:
                 price = max(price, min(toks, cfg.window or max_seq,
                                        max_seq))
         return price
+
+    def combined_price(self, cfg: ModelConfig, prompt_len: int,
+                       max_new: int, *, page_size: int, max_seq: int,
+                       shared_tokens: int = 0) -> int:
+        """Admission price in pages on the per-kind paged layout: the
+        larger of the page cost (the ``attn`` layers' K/V, the only part
+        prefix sharing discounts) and the slot-resident cost of the rings
+        and states in positions, rounded up to pages.  The layers cover
+        the same tokens, so the footprint is the max, not the sum; a
+        global-attention stack prices its pages alone."""
+        pages = self.page_price(prompt_len, max_new, page_size=page_size,
+                                max_seq=max_seq, shared_tokens=shared_tokens)
+        if blocks.page_addressable(cfg):
+            return pages
+        slot_pages = -(-self.slot_price(cfg, prompt_len, max_new,
+                                        max_seq=max_seq) // page_size)
+        return max(pages, slot_pages)
 
     def plan_chunks(self, prefilling: Sequence[Tuple[int, int, int]]
                     ) -> List[PrefillChunk]:

@@ -13,15 +13,18 @@ it.
     :class:`~repro_torch.serving.kv_cache.PagedCacheManager` allocates
     pages through per-request block tables, prices admission in pages,
     and shares full prompt pages copy-free between requests with a
-    common prefix.  ``"stacked"``:
+    common prefix; the layout is per kind, so a mixed stack's rings and
+    recurrent states stay slot-resident beside the pages (prefix sharing
+    then saves pages, and the prompt is prefilled whole).  ``"stacked"``:
     :class:`~repro_torch.serving.kv_cache.SlotCacheManager` gives each
     request one row: a contiguous ``max_seq`` region per global-attention
     layer, a ring per sliding-window layer, a state per recurrent layer.
-    ``"auto"`` pages a global-attention stack when ``page_size`` divides
-    ``max_seq`` and serves every other stack stacked.  Both give the same
-    greedy tokens.  A window-capped stack (no global ``attn`` layer:
-    ``recurrentgemma-9b``, ``xlstm-350m``) has no request ceiling: its
-    rings wrap and its states are O(1), so requests run past ``max_seq``.
+    ``"auto"`` pages a stack with a global-attention layer when
+    ``page_size`` divides ``max_seq`` and serves an attention-free one
+    stacked.  Both give the same greedy tokens.  A window-capped stack
+    (no global ``attn`` layer: ``recurrentgemma-9b``, ``xlstm-350m``) has
+    no request ceiling: its rings wrap and its states are O(1), so
+    requests run past ``max_seq``.
   * **Quantized serving** — ``quantized=True`` calibrates SmoothQuant on
     ``calibration_batches`` and runs every linear through the Fused MP
     kernel; the activation stream between kernels stays float32.
@@ -50,7 +53,9 @@ it.
     verify snapshots the ring slots it will overwrite and commits
     through the ``StateStore`` seam (rejected ring writes restored,
     each recurrent state taken off the verify's trajectory at the
-    accepted length), all on the device.  Tree speculation and a draft
+    accepted length), all on the device, on either layout (on the paged
+    one ``kv.rewind`` then releases the ``attn`` layers' rejected
+    pages).  Tree speculation and a draft
     model need a global-attention stack and refuse others with
     ``ValueError``, as in the reference.
 
@@ -59,10 +64,10 @@ each quantized linear; on the paged layout the paged decode kernel for
 the decode step, the paged verify kernel for each prefill chunk and chain
 verify, and its tree body for a tree verify; on the stacked layout the
 contiguous decode kernel for the decode step (a chunk attends in plain
-PyTorch there, as in the reference), and for a sliding-window layer's
-decode over its ring; and the contiguous decode kernel for each step of
-a draft model.  The recurrences run in plain PyTorch, as in the
-reference.  The engine runs on ``device`` (default
+PyTorch there, as in the reference); on either layout the contiguous
+decode kernel for a sliding-window layer's decode over its ring and for
+each step of a draft model.  The recurrences run in plain PyTorch, as in
+the reference.  The engine runs on ``device`` (default
 ``"cuda"``) and raises if that device is missing; the CPU tests pass
 ``device="cpu"``, which takes the plain versions.
 
@@ -70,9 +75,8 @@ The stacks served are decoders of every block kind of the reference
 with a dense or a MoE FFN (``models/moe.py``: the router and the expert
 banks stay in floating point under W8A8, as in the reference, and run as
 batched products in the activation stream's dtype).  Not ported (it
-raises ``NotImplementedError``): ring tensor parallelism (``mesh=``);
-a mixed stack's per-kind paged layout raises in
-:func:`repro_torch.models.lm.init_cache`.  ``prefill_mode="replay"``
+raises ``NotImplementedError``): ring tensor parallelism (``mesh=``).
+``prefill_mode="replay"``
 (the reference's A/B debug mode and its serving bench's baseline)
 replays each prompt one token a tick through the decode step, on either
 layout.  An encoder-decoder (whisper) is refused with ``ValueError``:
@@ -214,10 +218,10 @@ class ServeEngine(LifecycleMixin):
         self.seq_ceiling: Optional[int] = (
             None if probe <= max_seq and cfg.pos != "learned" else max_seq)
         if kv_layout == "auto":
-            # page a global-attention stack, with a page size that divides
-            # max_seq; rings and states (a mixed stack's too, whose
-            # per-kind paged layout is not ported) serve stacked
-            kv_layout = ("paged" if blocks.page_addressable(cfg)
+            # page any stack with a global-attention layer (a mixed one
+            # keeps its rings and states slot-resident), with a page size
+            # that divides max_seq; an attention-free stack serves stacked
+            kv_layout = ("paged" if blocks.paged_capable(cfg)
                          and max_seq % page_size == 0 else "stacked")
         self.kv_layout = kv_layout
         self.paged = kv_layout == "paged"
@@ -371,13 +375,15 @@ class ServeEngine(LifecycleMixin):
                                "modeled_s":
                                ch.n * self._modeled_prefill_tok_s}
                               if tr.enabled else None)):
-                    where = ({"block_table": self._dev(
+                    # the table row routes the paged attn writes, the
+                    # slot a mixed stack's rings and states
+                    bt = ({"block_table": self._dev(
                         self.kv.block_tables[ch.slot])} if self.paged
-                        else {"slot": ch.slot})
+                        else {})
                     logits, self.kv.cache = lm.prefill_into_slot(
                         self.params, self.cfg, self._dev(chunk),
-                        self.kv.cache, ch.start, valid=ch.n,
-                        dtype=self.act_dtype, **where)
+                        self.kv.cache, ch.start, slot=ch.slot, valid=ch.n,
+                        dtype=self.act_dtype, **bt)
                 self._c_pref_mod.value += ch.n * self._modeled_prefill_tok_s
                 self._c_pref_meas.value += time.perf_counter() - t0
                 self.model_calls += 1
@@ -558,15 +564,16 @@ class ServeEngine(LifecycleMixin):
             else:
                 # rings and states: per-row valids bound the writes (0
                 # parks a row), and the slots the verify will overwrite
-                # are copied first, on the device
+                # are copied first, on the device; on the paged layout
+                # the tables route the attn writes beside them
                 valids = self._dev(np.where(decoding, counts + 1, 0)
                                    .astype(np.int32))
                 lens = self._dev(vlen)
                 snap = store.snapshot(self.kv.cache, lens, chunk=k + 1)
                 logits, self.kv.cache, traj = lm.verify_chunk(
                     self.params, self.cfg, self._dev(toks), self.kv.cache,
-                    lens, valids=valids, with_traj=True,
-                    dtype=self.act_dtype)
+                    lens, block_tables=self._tables(), valids=valids,
+                    with_traj=True, dtype=self.act_dtype)
         self._c_dec_mod.value += self._modeled_decode_s
         self._c_dec_meas.value += time.perf_counter() - t0
         self.model_calls += 1

@@ -14,7 +14,14 @@ has_room / rewind / evict_to_host / restore):
     ``max_seq``.
   * :class:`PagedCacheManager` — a global page pool, per-request block
     tables, refcounted pages and copy-free prefix sharing
-    (``kv_layout="paged"``, global-attention stacks).
+    (``kv_layout="paged"``, stacks with a global-attention layer).  The
+    layout is per kind: only ``attn`` layers take pages; a mixed stack's
+    rings and recurrent states stay slot-resident, one row per slot, so
+    this manager owns a :class:`StateStore` too.  Prefix sharing there
+    saves pages only: the shared pages are linked, but slot-resident
+    state cannot be shared, so ``alloc`` returns ``shared_tokens=0`` and
+    the whole prompt is prefilled again, its ``attn`` writes landing in
+    the shared pages with the content they already hold.
 
 Correctness model for pages: logical position ``p`` of a slot lives in
 page ``block_tables[slot, p // page_size]`` at offset ``p % page_size``;
@@ -31,8 +38,9 @@ growth past the pool raises :class:`PagePoolExhausted` for the engine to
 preempt a victim.
 
 Preemption to host (``evict_to_host`` / ``restore``) copies a request's
-cache rows (stacked) or pages (paged, in block-table order) to host
-memory and scatters them back verbatim into a fresh slot or fresh pages.
+cache rows (stacked) or pages (paged, in block-table order, with a mixed
+stack's slot-resident rows) to host memory and scatters them back
+verbatim into a fresh slot or fresh pages.
 """
 from __future__ import annotations
 
@@ -71,7 +79,9 @@ class StateStore:
     copy), and :meth:`commit` restores the rejected ones and selects each
     recurrent state off the verify's trajectory
     (:func:`repro_torch.models.lm.commit_verify`).  Only stacks with a
-    non-``attn`` layer own one."""
+    non-``attn`` layer own one, on either layout: on the paged one the
+    rings and states are the slot-resident entries, and the manager's
+    ``rewind`` releases the ``attn`` side's rejected pages."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -87,6 +97,18 @@ class StateStore:
         ``lengths`` applied per row; returns the committed cache."""
         return lm.commit_verify(self.cfg, snap, cache, traj, lengths,
                                 counts, valids, chunk=chunk)
+
+    def evict_to_host(self, cache: Dict, slot: int) -> Dict:
+        """The slot-resident entries (rings, recurrent states) of ``slot``
+        on host memory: ``page_ids=()`` gathers no page of an ``attn``
+        entry."""
+        return lm.gather_request_cache(self.cfg, cache, slot, page_ids=())
+
+    def restore(self, cache: Dict, blob: Dict, slot: int) -> Dict:
+        """Scatter an :meth:`evict_to_host` snapshot back into ``slot``;
+        in place, returns the cache."""
+        return lm.scatter_request_cache(self.cfg, cache, blob, slot,
+                                        page_ids=())
 
 
 class SlotCacheManager:
@@ -242,8 +264,14 @@ class PagedCacheManager:
                 f"watermark={watermark} must be in (0, 1]: it is the "
                 "occupancy fraction fresh admissions may fill")
         self.watermark = watermark
+        # rings and recurrent states of a mixed stack: slot-resident, with
+        # the stacked layout's rewind seam
+        self.state: Optional[StateStore] = (
+            StateStore(cfg)
+            if any(k != "attn" for k in cfg.block_pattern) else None)
         self.cache = lm.init_cache(cfg, n_pages, page_size, layout="paged",
-                                   dtype=dtype, device=device)
+                                   dtype=dtype, device=device,
+                                   slots=batch_slots, slot_seq=max_seq)
         self.lengths = np.zeros((batch_slots,), np.int32)
         self.block_tables = np.zeros(
             (batch_slots, self.pages_per_seq), np.int32)
@@ -388,7 +416,9 @@ class PagedCacheManager:
         """Admit one request: claim a slot, link shared prefix pages,
         claim fresh pages for the rest of the prompt and reserve its
         decode growth.  Returns ``(slot, shared_tokens)`` — prefill starts
-        at ``shared_tokens`` — or None when slots or pages are short.
+        at ``shared_tokens``, which is 0 on a mixed stack (its
+        slot-resident state is prefilled again over the linked pages) —
+        or None when slots or pages are short.
         Raises ``ValueError`` for a request that can never fit."""
         plen = len(prompt)
         if plen > self.max_seq:
@@ -457,8 +487,9 @@ class PagedCacheManager:
         self._pending_ready[slot] = pending
         self.block_tables[slot] = 0
         self.block_tables[slot, :len(pages)] = pages
-        self.lengths[slot] = n_shared * ps
-        return slot, n_shared * ps
+        shared_tokens = 0 if self.state is not None else n_shared * ps
+        self.lengths[slot] = shared_tokens
+        return slot, shared_tokens
 
     def free(self, slot: int) -> None:
         """Release a slot: decref its pages (shared pages survive their
@@ -477,9 +508,10 @@ class PagedCacheManager:
 
     # -- preemption: host round trip ------------------------------------
     def evict_to_host(self, slot: int) -> Dict:
-        """Snapshot a slot's pages (in block-table order) to host memory
-        and free the slot.  Shared pages are copied, then released by the
-        free; the restore scatters onto fresh, unshared pages."""
+        """Snapshot a slot's pages (in block-table order) and, on a mixed
+        stack, its slot-resident rings and states to host memory, and free
+        the slot.  Shared pages are copied, then released by the free; the
+        restore scatters onto fresh, unshared pages."""
         if slot not in self._used_slots:
             raise ValueError(f"evict of unallocated slot {slot}")
         pages = list(self._slot_pages[slot])
@@ -495,7 +527,8 @@ class PagedCacheManager:
                 lifetime_tokens: Optional[int] = None) -> Optional[int]:
         """Re-seat a host snapshot: claim a slot and fresh pages (the same
         count, any ids: the block table re-maps them), scatter the content
-        back and resume the length where it stopped.  Returns the slot, or
+        back (a mixed stack's rings and states into the new slot's rows)
+        and resume the length where it stopped.  Returns the slot, or
         None (wait).  Restores bypass the over-commit watermark (the
         request paid admission once) but need the pages; in reservation
         mode the rest of the worst-case lifetime (``lifetime_tokens``) is

@@ -1388,3 +1388,130 @@ def test_replay_engine_on_card_runs_only_decode_kernels(h100):
         assert n["mp_matmul"] == 6 * L * s["model_calls"]
         assert n[kernel] == L * s["model_calls"]
         assert n["paged_verify"] == n["paged_verify_tree"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the per-kind paged layout of a mixed stack: its attn layers' group of 16
+# query heads over one KV head of 256 (recurrentgemma-9b's widths)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+def test_paged_mha_decode_group_16_d256_on_card(h100, qdtype):
+    """The paged decode at 16 query heads over one KV head of 256 (two
+    head chunks of 8 a block): rows of lengths 0, 1, 16, at key-split
+    edges +-1 and at the end of the table.  Each output vector within
+    1e-2 of its largest magnitude, the empty row exactly 0, two calls
+    bit-identical, one launch counted a call."""
+    rng = np.random.default_rng(1616)
+    Hkv, group, D, ps, n_pg = 1, 16, 256, 16, 40
+    lengths_np = _decode_split_lengths(Hkv * group, Hkv, ps, D, n_pg)
+    q, kp, vp, lengths, bt = _decode_case(rng, h100, lengths_np, Hkv, group,
+                                          D, ps, n_pg, qdtype)
+    ops.reset_launch_counts()
+    got = ops.paged_mha_decode(q, kp, vp, lengths, bt)
+    again = ops.paged_mha_decode(q, kp, vp, lengths, bt)
+    want = ref.paged_mha_decode_ref(q, kp, vp, lengths, bt)
+    torch.cuda.synchronize()
+    assert bool((got[0] == 0).all())
+    assert _rel_err(got[1:], want[1:]) <= ATTN_REL_TOL
+    assert torch.equal(got, again)
+    assert ops.launch_counts()["paged_mha_decode"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [5, 32])
+def test_paged_verify_group_16_d256_on_card(h100, qdtype, C):
+    """The causal verify at 16 query heads over one KV head of 256: one
+    query a 16-row tile, C tiles along the chunk, Q staged in shared
+    memory and P V over two blocks; a chain verify (C 5) and a prefill
+    chunk (C 32) on rows ending on a key-split edge, past it, a page past
+    it, at base 0, at the end of the table and parked.  Each vector
+    within 1e-2, two calls bit-identical, a lower-triangular mask
+    bit-identical to the causal kernel."""
+    rng = np.random.default_rng(1600 + C)
+    Hkv, group, D, ps, n_pg = 1, 16, 256, 16, 24
+    base_np = _split_edge_bases(C, Hkv, group, ps, n_pg)
+    B = len(base_np)
+    q, kp, vp, base, bt = _verify_case(rng, h100, B, C, Hkv, group, base_np,
+                                       qdtype, D=D, n_pg=n_pg)
+    got = ops.paged_verify(q, kp, vp, base, bt)
+    again = ops.paged_verify(q, kp, vp, base, bt)
+    want = ref.paged_verify_ref(q, kp, vp, base, bt)
+    torch.cuda.synchronize()
+    assert _rel_err(got[:-1], want[:-1]) <= ATTN_REL_TOL
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    tril = torch.tril(torch.ones((B, C, C), dtype=torch.int32, device=h100))
+    assert torch.equal(ops.paged_verify(q, kp, vp, base, bt, anc=tril), got)
+
+
+@pytest.mark.gpu
+def test_mixed_paged_engine_on_card_matches_stacked(h100):
+    """A reduced mixed stack (global attention, local attention, RG-LRU)
+    as W8A8 engines on the card, on the per-kind paged layout (the auto
+    layout) and on the stacked one, plain and with chain speculation on
+    forced drafts: the paged runs launch the paged decode and verify for
+    the attn layer and the contiguous decode for the ring, the stacked
+    runs no paged kernel; each pair of streams is equal up to where it
+    parts, each parting a near-tie along the calls that served it
+    (``chip_smoke.hold_streams``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.quantize import (calibrate,
+                                              quantize_model_params)
+    from repro_torch.serving.speculative import SpecConfig
+
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
+                              name="hybrid-mixed-reduced",
+                              block_pattern=("attn", "local_attn", "rglru"))
+    params = lm.init(cfg, torch.Generator(device=h100).manual_seed(0),
+                     device=h100)
+    calib = [np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 16))]
+    qp = quantize_model_params(params, cfg, calibrate(params, cfg, calib))
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (5, 40,
+                                                                     20)]
+    shape = dict(max_seq=64, page=16, chunk=16, rows=2)
+    streams, fns, plain = {}, {}, None
+    for variant in ("plain", "chain"):
+        for layout in ("auto", "stacked"):
+            spec = SpecConfig(k=3) if variant == "chain" else None
+            eng = ServeEngine(cfg, qp, batch_slots=2, max_seq=64, eos_id=-1,
+                              act_dtype=torch.float32, chunk_size=16,
+                              page_size=16, spec=spec, kv_layout=layout)
+            assert eng.paged == (layout == "auto")
+            if spec is not None:
+                eng.proposer = ForcedDrafts(3, plain, cfg.vocab_size)
+            for p in prompts:
+                eng.submit(p, max_new=8)
+            ops.reset_launch_counts()
+            with cs.ScheduleProbe(eng) as probe:
+                done = {r.rid: r.out for r in eng.run()}
+            n, s = ops.launch_counts(), eng.stats()
+            assert len(done) == 3 and all(len(o) == 8 for o in done.values())
+            verifies = s.get("spec_ticks", 0)
+            decodes = s["model_calls"] - s["prefill_calls"] - verifies
+            if eng.paged:
+                assert n["paged_verify"] == s["prefill_calls"] + verifies
+                assert n["paged_mha_decode"] == n["mha_decode"] == decodes
+            else:
+                assert n["paged_verify"] == n["paged_mha_decode"] == 0
+                assert n["mha_decode"] == 2 * decodes
+            key = f"{'paged' if eng.paged else 'stacked'} {variant}"
+            streams[key] = done
+            fns[key] = cs.served_logits(
+                qp, cfg, probe.calls, h100,
+                layout="paged" if eng.paged else "stacked", **shape)
+            if key == "paged plain":
+                plain = done
+    for a, b in (("stacked plain", "paged plain"),
+                 ("paged chain", "paged plain"),
+                 ("stacked chain", "paged chain")):
+        cs.hold_streams(f"{a} vs {b}", (streams[a], streams[b]), prompts,
+                        (fns[a], fns[b]), 8)

@@ -42,9 +42,10 @@ Held against the reference on the same numpy inputs:
   reaches them (the ring and state rewind's path);
 * preemption to host and by recompute equal to the uninterrupted run;
 * the refusals: paged on an attention-free stack (the reference's
-  ``ValueError``), paged on a mixed stack (``NotImplementedError``: the
-  per-kind paged layout is not ported), tree speculation and a draft
-  model of a hybrid stack (``ValueError``), ``k + 1`` past the window.
+  ``ValueError``), a mixed stack's paged cache without slots for its
+  rings and states (``ValueError``; the per-kind layout itself is held in
+  ``tests/test_torch_mixed.py``), tree speculation and a draft model of a
+  hybrid stack (``ValueError``), ``k + 1`` past the window.
 """
 import dataclasses
 import functools
@@ -376,7 +377,9 @@ def test_planning_matches_reference(family, arch):
     """The stage program (the recurrent kinds' stages, ``local_attn``'s
     MHA stage), the FPGA model's figures, the admission budget and slot
     prices, and the engine's request ceiling: lifted on the window-capped
-    stacks, ``max_seq`` on the mixed one; full configs included."""
+    stacks, ``max_seq`` on the mixed one; full configs included.  The
+    auto layout as the reference's: the mixed stack pages, the others
+    serve stacked."""
     f = family(arch)
     pairs = [(f.jcfg, f.cfg)]
     if arch != "mixed":
@@ -400,11 +403,13 @@ def test_planning_matches_reference(family, arch):
             for max_seq in (64, 1024, 4097):
                 assert ta.slot_price(t, plen, new, max_seq=max_seq) == \
                     ja.slot_price(j, plen, new, max_seq=max_seq)
-    je = JServeEngine(f.jcfg, f.jparams, kv_layout="stacked", **_COMMON)
+    je = JServeEngine(f.jcfg, f.jparams, **_COMMON)
     te = ServeEngine(f.cfg, f.tparams, device="cpu", **_COMMON)
     want = None if arch in WINDOW_CAPPED else MAX_SEQ
     assert te.seq_ceiling == je.seq_ceiling == want
-    assert te.kv_layout == "stacked" and te.kv.bounded == (want is not None)
+    assert te.kv_layout == je.kv_layout == (
+        "stacked" if arch in WINDOW_CAPPED else "paged")
+    assert te.kv_layout == "paged" or not te.kv.bounded
 
 
 # ---------------------------------------------------------------------------
@@ -688,7 +693,7 @@ def test_chain_spec_equals_plain(family, arch, proposer):
         eng.proposer = ForcedDrafts(4, f.plain_stream, f.cfg.vocab_size)
     assert _serve(eng, f.prompts) == f.plain_stream
     s = eng.stats()
-    assert s["slots_in_use"] == 0
+    assert s["pages_in_use" if eng.paged else "slots_in_use"] == 0
     if proposer == "forced":
         assert 0 < s["spec_accepted"] < s["spec_proposed"]
 
@@ -722,7 +727,7 @@ def test_preempt_resume_equals_uninterrupted(family, arch, mode):
 def test_requests_past_max_seq(family, arch):
     """A window-capped stack takes a prompt longer than ``max_seq`` and
     generates past it (the reference's engine the same tokens); the mixed
-    stack keeps the ceiling and refuses it."""
+    stack keeps the ceiling (on the paged layout) and refuses it."""
     f = family(arch)
     prompt = np.random.default_rng(8).integers(
         1, f.cfg.vocab_size, MAX_SEQ + 9).tolist()
@@ -730,7 +735,7 @@ def test_requests_past_max_seq(family, arch):
     if arch not in WINDOW_CAPPED:
         with pytest.raises(ValueError, match="fit the cache"):
             eng.submit(prompt, max_new=4)
-        assert eng.kv.bounded
+        assert eng.paged and eng.seq_ceiling == MAX_SEQ
         return
     got = _serve(eng, [prompt])
     assert len(got[0]) == MAX_NEW and eng.kv.length_of(0) == 0
@@ -742,21 +747,25 @@ def test_requests_past_max_seq(family, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_refusals(family, arch):
     """The paged layout: attention-free stacks get the reference's
-    ``ValueError`` naming the layers, the mixed stack a
-    ``NotImplementedError`` naming the per-kind layout.  Tree
-    speculation and a hybrid draft model: ``ValueError``; and ``k + 1``
-    past a ring's window."""
+    ``ValueError`` naming the layers; the mixed stack pages its ``attn``
+    layer, and its cache without ``slots`` for the rings and states is the
+    reference's ``ValueError``.  Tree speculation and a hybrid draft
+    model: ``ValueError``; and ``k + 1`` past a ring's window."""
     f = family(arch)
     if arch in WINDOW_CAPPED:
-        exc, match = ValueError, "global-attention"
+        with pytest.raises(ValueError, match="global-attention"):
+            lm.init_cache(f.cfg, 3, PS, layout="paged")
+        with pytest.raises(ValueError, match="global-attention"):
+            PagedCacheManager(f.cfg, 2, MAX_SEQ)
+        with pytest.raises(ValueError, match="global-attention"):
+            f.engine(kv_layout="paged")
     else:
-        exc, match = NotImplementedError, "per-kind paged layout"
-    with pytest.raises(exc, match=match):
-        lm.init_cache(f.cfg, 3, PS, layout="paged")
-    with pytest.raises(exc, match=match):
-        PagedCacheManager(f.cfg, 2, MAX_SEQ)
-    with pytest.raises(exc, match=match):
-        f.engine(kv_layout="paged")
+        with pytest.raises(ValueError, match="slots= and slot_seq="):
+            lm.init_cache(f.cfg, 3, PS, layout="paged")
+        kv = PagedCacheManager(f.cfg, 2, MAX_SEQ)
+        assert kv.state is not None
+        assert kv.cache["layers"][1]["k"].shape[0] == 2  # a ring per slot
+        assert f.engine(kv_layout="paged").paged
     with pytest.raises(ValueError, match="tree speculation"):
         f.engine(spec=speculative.SpecConfig(k=2, tree=True))
     with pytest.raises(ValueError, match="global-attention draft"):

@@ -52,8 +52,10 @@ def test_config_copy_matches_reference(reduced):
 
 def test_unsupported_stacks_raise():
     """A mixed stack (global and local attention) initialises and takes a
-    stacked cache, but its per-kind paged layout is not ported; an
-    unknown block kind and an unported layout raise.  An encoder-decoder,
+    stacked cache, and its per-kind paged cache (a ring per slot beside
+    the pages) only with ``slots``/``slot_seq`` (``ValueError`` without,
+    as the reference); an unknown block kind and an unported layout
+    raise.  An encoder-decoder,
     refused before its port, initialises with an encoder and cross
     sub-blocks, and its stacked cache holds a cross K/V per layer."""
     cfg = dataclasses.replace(get_config("gpt2-345m").reduced(),
@@ -62,8 +64,11 @@ def test_unsupported_stacks_raise():
     lm.init(cfg, torch.Generator().manual_seed(0), max_seq=16)
     ring = lm.init_cache(cfg, 2, 16, layout="stacked")["layers"][1]["k"]
     assert ring.shape[2] == 8  # min(window, max_seq)
-    with pytest.raises(NotImplementedError, match="per-kind paged layout"):
+    with pytest.raises(ValueError, match="slots= and slot_seq="):
         lm.init_cache(cfg, 4, PS, layout="paged")
+    paged = lm.init_cache(cfg, 4, PS, layout="paged", slots=2, slot_seq=16)
+    assert paged["layers"][0]["k"].shape[:3] == (4, cfg.n_kv_heads, PS)
+    assert paged["layers"][1]["k"].shape[:3] == (2, cfg.n_kv_heads, 8)
     with pytest.raises(NotImplementedError, match="block kinds"):
         lm.init(dataclasses.replace(cfg, block_pattern=("attn", "conv")),
                 torch.Generator().manual_seed(0), max_seq=16)

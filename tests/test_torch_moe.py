@@ -578,6 +578,8 @@ def test_routing_near_tie_rule_rejects_a_planted_fault(arch, monkeypatch,
         out[:, head] = dropped_key(q_, kp, vp, lengths, bt, **kw)[:, head]
         return out
 
+    schedules = {}
+
     def serve(decode):
         monkeypatch.setattr(ops, "paged_mha_decode", decode)
         eng = ServeEngine(cfg, q, batch_slots=4, max_seq=128, eos_id=-1,
@@ -585,12 +587,16 @@ def test_routing_near_tie_rule_rejects_a_planted_fault(arch, monkeypatch,
                           page_size=16, device=cpu)
         for p in prompts:
             eng.submit(p, max_new=16)
-        return {r.rid: r.out for r in eng.run()}
+        with cs.ScheduleProbe(eng) as probe:
+            out = {r.rid: r.out for r in eng.run()}
+        schedules[decode] = probe.calls
+        return out
 
     def logits(decode):
-        def fn(prompt, history):
+        def fn(rid, prompt, history):
             monkeypatch.setattr(ops, "paged_mha_decode", decode)
-            return cs.logits_after(q, cfg, prompt, history, cpu)
+            return cs.logits_after(q, cfg, schedules[decode][rid], prompt,
+                                   history, cpu, rows=4)
         return fn
 
     plain = serve(good)
