@@ -176,12 +176,13 @@ failure exits non-zero and nothing is caught and continued:
     run's under the near-tie rule (for olmoe with phase 12's routing
     near-ties), logits recomputed in the batch shapes of each run; each
     model is freed before the next, and the peak memory printed.  Then
-    the hybrid stacks at full width, two pattern periods deep
-    (``HYBRID_LAYERS``, ``HYBRID_MAX_SEQ``): ``recurrentgemma-9b`` (6 of
+    the hybrid stacks at full width (``HYBRID_LAYERS``,
+    ``HYBRID_MAX_SEQ``): ``recurrentgemma-9b`` (two pattern periods, 6 of
     its 38 layers: 4 RG-LRU of width 4,096 and 2 local attention of 16
     heads over one KV head of 256 on a ring of 2,048 slots, GeGLU 12,288,
-    vocab 256,000, tied; ``max_seq`` 2,048) and ``xlstm-350m`` (8 of its
-    24 layers: 6 mLSTM of 4 heads of 256 and 2 sLSTM, d 1024, vocab
+    vocab 256,000, tied; ``max_seq`` 2,048) and ``xlstm-350m`` (one
+    period, 4 of its 24 layers: 3 mLSTM of 4 heads of 256 and 1 sLSTM,
+    d 1024, vocab
     50,304; ``max_seq`` 1,024), each stacked plain and stacked chain, 8
     requests of 64 new tokens on six prompts of 16-512 tokens and two of
     2,100-2,400 (rings wrap in prefill and decode, requests run past
@@ -214,6 +215,25 @@ failure exits non-zero and nothing is caught and continued:
     ``LOGIT_REL_TOL`` of their range again: only the routing is exempt,
     nothing after it.  The margins are held as before.  Phase 11 holds
     the MoE runs the same way.
+12b. Training: full-width ``gpt2-345m`` (float32 masters, bf16
+    activations) from a seeded generator on the card.  First one train
+    step at 2 x 64 tokens from the same state on the card and on the CPU:
+    loss within 1% and global grad norm within 2% (bf16 products round
+    differently on the two devices).  Then 20 AdamW steps (lr 1e-3, 5
+    warmup steps) through ``Trainer`` on the port's ``SyntheticLM`` at 8
+    x 512 tokens, async checkpoints every 10 steps into ``chiprun_out/``
+    (removed at the phase's end), under
+    ``torch.use_deterministic_algorithms(True)`` (the script sets
+    ``CUBLAS_WORKSPACE_CONFIG`` before torch starts): median step ms,
+    tokens/s, peak memory, losses at steps 1 and 20, every loss and grad
+    norm finite, and the loss on a held-out batch, which must fall.  A
+    fresh ``Trainer`` restores step 20 bit for bit; one resumed from step
+    10 reaches step 20 bit-identical to the uninterrupted run.  The
+    restored params and the in-memory ones each serve 8 greedy requests
+    of 32 new tokens on a W8A8 paged engine (chunk 32, 8 slots): launch
+    counts match the calls, the streams are equal, and the checkpoint's
+    run's counts join the ``kernels`` line as ``trained checkpoint``.
+    Last, three steps without deterministic algorithms, for their cost.
 13. The device time of each CUDA function of the timed calls
     (``torch.profiler``): one layer's six ``mp_matmul`` calls at M 8 and
     32 (one function), the timed paged and contiguous decodes and the
@@ -222,7 +242,8 @@ failure exits non-zero and nothing is caught and continued:
     calls; last of the measuring phases because the profiler leaves later
     launches slower.
 14. One ``kernels`` JSON line (six kernels, each with its launches on its
-    own path and per run, the RoPE family's rows under ``wide_heads``
+    own path and per run, the trained checkpoint's serving run among the
+    runs, the RoPE family's rows under ``wide_heads``
     and ``family_widths``, the hybrid stacks' under ``hybrid``,
     whisper's under ``whisper``, the mixed stack's under ``mixed``), the
     total time, the card's name and power limit, then the device JSON
@@ -234,6 +255,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -241,6 +263,9 @@ from functools import partial
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# cuBLAS takes a fixed workspace, set before its first call, so that the
+# training phase's deterministic algorithms can run on the card
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -262,6 +287,12 @@ from repro_torch.serving.speculative import (SpecConfig,  # noqa: E402
                                              TokenTree, tree_arrays)
 from repro_torch.serving.quantize import (calibrate,  # noqa: E402
                                           quantize_model_params)
+from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.training.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.training.trainer import (  # noqa: E402
+    TrainConfig, Trainer, batch_to_tensors, init_train_state,
+    make_train_step)
 
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
 #: NVIDIA H100 SXM data sheet: HBM3 rate, dense tensor-core peaks, and
@@ -321,14 +352,29 @@ WHISPER_UNIFORM = 24
 WHISPER_MP_M = (1500, 12000)
 #: replay prefill on phase 5's GPT-2: requests and their prompt lengths
 REPLAY_REQUESTS, REPLAY_PROMPT_LENS = 4, (16, 128)
+#: the training phase: full-width gpt2-345m (float32 masters, bf16
+#: activations) on the port's SyntheticLM, batches of 8 x 512 tokens, 20
+#: AdamW steps (lr 1e-3, 5 warmup steps) checkpointed every 10; the
+#: held-out batch's step; one step at 2 x 64 tokens on the card and on
+#: the CPU, whose loss and global grad norm must agree within these
+#: relative tolerances (bf16 products round differently on the two
+#: devices; a wrong gradient moves the norm by far more); the trained
+#: checkpoint served: 8 greedy requests of 32 new tokens on prompts of
+#: 16-128 tokens from the held-out batch
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_CKPT_EVERY = (
+    "gpt2-345m", 8, 512, 20, 10)
+TRAIN_HELD_OUT_STEP = 10_000
+TRAIN_XDEV_SHAPE, TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = (2, 64), 1e-2, 2e-2
+TRAIN_SERVE_NEW, TRAIN_SERVE_PROMPT_LENS = 32, (16, 128)
 #: the hybrid stacks at full width, stacked plain and chain: config ->
 #: max_seq (recurrentgemma's ring is then its published 2,048-token
 #: window); six prompts of 16-512 tokens and two of 2,100-2,400, which
 #: wrap the rings in prefill and decode and run past max_seq; the depth
-#: each serves at (two pattern periods: the near-tie rule's replay of
-#: every parting along its calls took the time)
+#: each serves at (two pattern periods of recurrentgemma's, one of
+#: xlstm's: the near-tie rule's replay of every parting along its calls,
+#: then the training phase, took the time)
 HYBRID_MAX_SEQ = {"recurrentgemma-9b": 2048, "xlstm-350m": 1024}
-HYBRID_LAYERS = {"recurrentgemma-9b": 6, "xlstm-350m": 8}
+HYBRID_LAYERS = {"recurrentgemma-9b": 6, "xlstm-350m": 4}
 HYBRID_LONG = (2100, 2400)
 #: the recurrent blocks timed alone: (config, kind), at a decode tick's
 #: rows and a prefill chunk's tokens
@@ -2067,6 +2113,179 @@ def by_kernel_phase(dev, entries):
         (name if isinstance(name, dict) else entries[name])[field] = split
 
 
+def held_out_loss(params, cfg, batch) -> float:
+    with torch.no_grad():
+        return float(lm.loss_fn(params, cfg, batch)[0])
+
+
+def same_state(a, b) -> bool:
+    """Every leaf of two train states bit-identical."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def train_xdev_check(cfg, tcfg, dev):
+    """One train step at full width from the same state on the card and
+    on the CPU (plain PyTorch on both): loss and global grad norm."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    state = init_train_state(cfg, tcfg, gen, max_seq=MAX_SEQ, device=dev)
+    B, S = TRAIN_XDEV_SHAPE
+    batch = SyntheticLM(cfg.vocab_size, S, B, seed=5).batch_at(0)
+    step = make_train_step(cfg, tcfg)
+    # the step updates its state in place: the CPU's copy comes first
+    states = {"card": state,
+              "CPU": tree_map(lambda t: t.to("cpu", copy=True), state)}
+    del state
+    out = {}
+    for side, d in (("card", dev), ("CPU", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        _, m = step(states.pop(side), batch_to_tensors(batch, d))
+        out[side] = {k: float(v) for k, v in m.items()}
+        print(f"one step at {B} x {S} on the {side}: loss "
+              f"{out[side]['loss']:.6f}, grad norm "
+              f"{out[side]['grad_norm']:.6f} "
+              f"({time.perf_counter() - t0:.2f} s)")
+    card, cpu = out["card"], out["CPU"]
+    for key, tol in (("loss", TRAIN_LOSS_RTOL),
+                     ("grad_norm", TRAIN_GNORM_RTOL)):
+        rel = abs(card[key] - cpu[key]) / abs(cpu[key])
+        check(np.isfinite(card[key]) and rel <= tol,
+              f"training card vs CPU: {key} {card[key]} vs {cpu[key]} "
+              f"(rel {rel:.3e} > {tol})")
+        print(f"card vs CPU {key}: rel {rel:.3e} <= {tol}")
+
+
+def training_phase(dev):
+    """Train full-width GPT-2 345M through ``Trainer``, restore and resume
+    its checkpoints bit for bit, and serve the trained checkpoint on the
+    W8A8 kernels.  Returns the checkpoint-served run's launch counts."""
+    phase(f"training (full-width {TRAIN_ARCH}, float32 masters, bf16 "
+          f"activations, {TRAIN_STEPS} AdamW steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens)")
+    cfg = get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=5,
+                                       total_steps=TRAIN_STEPS))
+    train_xdev_check(cfg, tcfg, dev)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    held = batch_to_tensors(data.batch_at(TRAIN_HELD_OUT_STEP), dev)
+    ckpt_dir = os.path.join(OUT_DIR, "train_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    def trainer(every):
+        return Trainer(cfg, tcfg, data, ckpt_dir, max_seq=MAX_SEQ,
+                       ckpt_every=every, device=dev)
+
+    try:
+        # the embedding's backward accumulates with atomics on the card;
+        # deterministic algorithms make a run repeatable bit for bit
+        torch.use_deterministic_algorithms(True)
+        tr = trainer(TRAIN_CKPT_EVERY)
+        tr.init_or_restore()
+        before = held_out_loss(tr.state.params, cfg, held)
+        steps = []
+        step_fn = tr.step_fn
+
+        def timed(state, batch):
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            m = {k: float(v) for k, v in m.items()}
+            steps.append((time.perf_counter() - t0, m))
+            return state, m
+
+        tr.step_fn = timed
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.run(TRAIN_STEPS)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        after = held_out_loss(tr.state.params, cfg, held)
+        ms = 1e3 * float(np.median([t for t, _ in steps]))
+        check(len(steps) == TRAIN_STEPS, f"training: {len(steps)} steps")
+        check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                  for _, m in steps), "training: a non-finite loss or grad "
+              "norm")
+        print(f"{TRAIN_STEPS} steps in {wall:.2f} s (checkpoints included): "
+              f"median step {ms:.1f} ms, "
+              f"{TRAIN_BATCH * TRAIN_SEQ / ms * 1e3:.0f} tokens/s; peak "
+              f"memory {peak / 2**30:.2f} GiB")
+        print(f"loss at step 1 {steps[0][1]['loss']:.4f}, at step "
+              f"{TRAIN_STEPS} {steps[-1][1]['loss']:.4f}; grad norm "
+              f"{steps[0][1]['grad_norm']:.3f} -> "
+              f"{steps[-1][1]['grad_norm']:.3f}; held-out loss "
+              f"{before:.4f} -> {after:.4f}; events {tr.events}")
+        check(np.isfinite(after) and after < before,
+              f"training: held-out loss did not fall ({before} -> {after})")
+
+        fresh = trainer(10 * TRAIN_STEPS)
+        check(fresh.init_or_restore() == TRAIN_STEPS,
+              "training: the last checkpoint was not restored")
+        check(same_state(fresh.state, tr.state),
+              "training: the restored state differs from the trained one")
+        restored = fresh.state.params
+        del fresh
+        print(f"restored step {TRAIN_STEPS}: every leaf bit-identical")
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{TRAIN_STEPS}"))
+        resumed = trainer(10 * TRAIN_STEPS)
+        check(resumed.init_or_restore() == TRAIN_CKPT_EVERY,
+              f"training: step {TRAIN_CKPT_EVERY} was not restored")
+        resumed.run(TRAIN_STEPS)
+        check(same_state(resumed.state, tr.state),
+              f"training: resuming at step {TRAIN_CKPT_EVERY} does not "
+              "reproduce the uninterrupted run")
+        del resumed
+        print(f"resumed at step {TRAIN_CKPT_EVERY} to {TRAIN_STEPS} under "
+              "deterministic algorithms: bit-identical to the uninterrupted "
+              "run")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # the trained checkpoint, served on the W8A8 kernels, against the
+    # in-memory trained params
+    rng = np.random.default_rng(9)
+    calib = [rng.integers(1, cfg.vocab_size, (2, 128))]
+    tokens = SyntheticLM(cfg.vocab_size, TRAIN_SERVE_PROMPT_LENS[1], SLOTS,
+                         seed=0).batch_at(TRAIN_HELD_OUT_STEP + 1)["tokens"]
+    lens = np.linspace(*TRAIN_SERVE_PROMPT_LENS, SLOTS).astype(int)
+    prompts = [tokens[i, :n].tolist() for i, n in enumerate(lens)]
+    runs = {}
+    for label, params in (("trained checkpoint", restored),
+                          ("trained in memory", tr.state.params)):
+        eng = ServeEngine(cfg, params, batch_slots=SLOTS, max_seq=MAX_SEQ,
+                          eos_id=-1, quantized=True,
+                          calibration_batches=calib, chunk_size=CHUNK,
+                          page_size=PAGE, seed=0, device=dev)
+        streams, s, launches, _, _ = engine_run(
+            f"{TRAIN_ARCH} {label}", eng, prompts, TRAIN_SERVE_NEW)
+        L = cfg.n_layers
+        decode_steps = s["model_calls"] - s["prefill_calls"]
+        check(launches["mp_matmul"] == 6 * L * s["model_calls"]
+              and launches["paged_verify"] == L * s["prefill_calls"] > 0
+              and launches["paged_mha_decode"] == L * decode_steps > 0,
+              f"{label}: launch counts {launches} do not match the calls")
+        runs[label] = (streams, launches)
+        del eng
+    (a, launches), (b, _) = runs.values()
+    check(a == b, "training: the checkpoint serves other streams than the "
+          "in-memory trained params")
+    print(f"the checkpoint's {len(a)} streams equal the in-memory params' "
+          f"(first: {a[min(a)][:8]}...)")
+    # what the deterministic algorithms cost: three more steps without
+    state, times = tr.state, []
+    for i in range(3):
+        batch = batch_to_tensors(data.batch_at(TRAIN_STEPS + i), dev)
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        float(m["loss"])
+        times.append(time.perf_counter() - t0)
+    print(f"steps without deterministic algorithms: median "
+          f"{1e3 * float(np.median(times)):.1f} ms (with: {ms:.1f} ms)")
+    return launches
+
+
 def mdk_program_phase(dev, qparams, cfg):
     """Walk the ``ln_res`` stages of the per-token stage program
     (``l{i}.ln1``, ``l{i}.ln2``, ``final_ln``) through
@@ -3532,13 +3751,15 @@ def main() -> int:
     whisper_agreement_phase(dev)
     for arch in AGREE_ARCHS:
         agreement_phase(dev, arch)
+    train_launches = training_phase(dev)
     by_kernel_phase(dev, entries)
     phase("kernels")
     by_run = {"plain": launches,
               **{f"{run} spec": n for run, n in spec_launches.items()},
               **stacked_launches, "over-commit": oc_launches,
               **replay_launches,
-              "MDK program": {"ln_res": ln_launches}, **family_launches}
+              "MDK program": {"ln_res": ln_launches}, **family_launches,
+              "trained checkpoint": train_launches}
     # each kernel's count from the run of its own path: plain paged
     # serving for the first slice's three, the tree run for the tree
     # verify, the stacked target's decode for mha_decode, the MDK program

@@ -1,5 +1,6 @@
-"""Carry weights and caches between the JAX package's pytrees and this
-package's dicts, as numpy arrays (this module imports no JAX).
+"""Carry weights, caches and train states between the JAX package's
+pytrees and this package's dicts, as numpy arrays (this module imports
+no JAX).
 
 The JAX ``lm.init`` pytree stacks layers per pattern period:
 ``{"embed", "periods": (period dicts with a leading n_per axis...),
@@ -27,6 +28,9 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+
+from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.trainer import TrainState
 
 
 def to_tensor(a, device=None) -> torch.Tensor:
@@ -81,6 +85,20 @@ def params_from_numpy(tree: Dict, device=None) -> Dict:
             enc["layers"] = _unstack((enc["layers"],), [])
         out["encoder"] = _map(enc, lambda a: to_tensor(a, device))
     return out
+
+
+def train_state_from_numpy(state, device=None):
+    """This package's ``TrainState`` from a JAX ``TrainState`` given as
+    numpy arrays: ``params``, the AdamW moments ``opt.m`` and ``opt.v``
+    and the error-feedback residual ``ef`` (or None) through
+    :func:`params_from_numpy`, and the int32 ``opt.step``."""
+    return TrainState(
+        params=params_from_numpy(state.params, device),
+        opt=AdamWState(step=to_tensor(state.opt.step, device),
+                       m=params_from_numpy(state.opt.m, device),
+                       v=params_from_numpy(state.opt.v, device)),
+        ef=None if state.ef is None else params_from_numpy(state.ef,
+                                                           device))
 
 
 def cache_from_numpy(tree: Dict, device=None) -> Dict:

@@ -17,6 +17,8 @@ decode on one NVIDIA H100.
     PYTHONPATH=src python -m repro_torch.launch.serve --spec ngram    # spec
     PYTHONPATH=src python -m repro_torch.launch.serve --spec model \
         --spec-k 8 --tree-branch 3                                    # tree
+    PYTHONPATH=src python -m repro_torch.launch.serve --ckpt-dir ckpt/ \
+        --max-seq 512                             # trained by launch/train
 
 A stack with a global-attention layer serves on the paged layout (a
 mixed one keeps its rings and recurrent states slot-resident beside the
@@ -27,9 +29,15 @@ patches, as the reference's); ``whisper-large-v3`` is refused
 (encoder-decoder: it runs at model level, see ``chip_smoke.py``).  Draws
 random weights from ``--seed``, calibrates SmoothQuant on synthetic
 prompts made with numpy from the same seed, serves ``--requests``
-requests of mixed prompt lengths greedily, and prints the engine's stats
-and the kernels' launch counts.  The counterpart of the JAX package's
-``examples/serve_gpt2.py``.
+requests of mixed prompt lengths greedily, and prints the first four
+streams, the engine's stats and the kernels' launch counts.  The
+counterpart of the JAX package's ``examples/serve_gpt2.py``.
+
+``--ckpt-dir`` serves the params of the latest checkpoint that
+``launch/train.py`` wrote there (trained with ``--seq`` equal to this
+``--max-seq`` for a model with learned positions) in place of random
+ones; ``--no-quant`` serves the float params (bf16 activations) instead
+of W8A8.
 
 ``--spec ngram|model`` serves with speculative decoding: k
 (``--spec-k``) draft tokens per slot from the n-gram proposer or from a
@@ -55,11 +63,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.serving.engine import ServeEngine, resolve_device
 from repro_torch.serving.speculative import SpecConfig
+from repro_torch.training.trainer import (TrainConfig,
+                                          init_train_state_abstract)
 
 
 def synthetic_prompts(rng: np.random.Generator, n: int, vocab: int,
@@ -94,6 +105,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                     help="draft tokens (tree nodes) per slot and tick")
     ap.add_argument("--tree-branch", type=int, default=0,
                     help="verify token trees of this branching (0: chains)")
+    ap.add_argument("--ckpt-dir",
+                    help="serve the params of launch/train.py's latest "
+                         "checkpoint in this directory")
+    ap.add_argument("--no-quant", action="store_true",
+                    help="serve the float params, not W8A8")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -103,8 +119,15 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     if cfg.is_encoder_decoder:
         raise ValueError(f"{cfg.name} is encoder-decoder: this launcher "
                          "serves decoder stacks")
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = lm.init(cfg, gen, max_seq=args.max_seq, device=dev)
+    if args.ckpt_dir:
+        like = init_train_state_abstract(cfg, TrainConfig(),
+                                         max_seq=args.max_seq)
+        params = CheckpointManager(args.ckpt_dir).restore(
+            None, like, device=dev).params
+        print(f"restored params from {args.ckpt_dir}")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = lm.init(cfg, gen, max_seq=args.max_seq, device=dev)
     rng = np.random.default_rng(args.seed)
     calib = [rng.integers(1, cfg.vocab_size, (2, min(64, args.max_seq)))]
     spec = None
@@ -116,7 +139,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                           draft_params=draft, tree=args.tree_branch > 0,
                           branch=max(1, args.tree_branch))
     eng = ServeEngine(cfg, params, batch_slots=args.slots,
-                      max_seq=args.max_seq, eos_id=-1, quantized=True,
+                      max_seq=args.max_seq, eos_id=-1,
+                      quantized=not args.no_quant,
                       calibration_batches=calib, chunk_size=args.chunk_size,
                       prefill_mode=args.prefill_mode, seed=args.seed,
                       spec=spec, device=dev)
@@ -144,6 +168,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     stats["tokens_per_s"] = toks / wall
     print(f"{cfg.name} on {dev}: {len(done)} requests, {toks} tokens in "
           f"{wall:.3f} s ({toks / wall:.1f} tok/s)")
+    for r in done[:4]:
+        print(f"req {r.rid}: {len(r.prompt)} prompt -> {r.out}")
     print("kernel launches:", json.dumps(ops.launch_counts()))
     print("engine stats:", json.dumps(stats, sort_keys=True))
     return stats

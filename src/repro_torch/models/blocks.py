@@ -5,15 +5,17 @@ Kinds: ``attn`` (global causal attention), ``local_attn`` (a sliding
 window over a rotating ring cache: slot = position mod W), and the
 recurrent kinds ``rglru`` (``models/rglru.py``), ``mlstm`` and ``slstm``
 (``models/xlstm.py``).  The FFN after the mixer is a dense MLP, or with
-``cfg.n_experts`` a top-k MoE (``models/moe.py``) whose serving calls use
-exact capacity, as the reference's do; its aux loss is dropped here.
+``cfg.n_experts`` a top-k MoE (``models/moe.py``): the full-sequence
+path takes the reference's training capacity factor (``moe_cf=1.25``) by
+default and returns the MoE aux loss, the serving calls use exact
+capacity, as the reference's do.
 sLSTM blocks have no FFN.  Whisper's decoder layers carry a
 cross-attention sub-block between the mixer and the FFN
 (:func:`cross_kv`; its decode attends a static cross cache).
 
   * ``block_init``        — params for one layer
-  * ``block_apply_seq``   — full-sequence path (calibration forward,
-    batched prefill, whisper's encoder)
+  * ``block_apply_seq``   — full-sequence path (training, calibration
+    forward, batched prefill, whisper's encoder)
   * ``block_apply_step``  — one decode token against the layer's cache
   * ``block_apply_chunk`` — a prefill or verify chunk against it
   * ``block_init_cache``  — the layer's cache: a page pool or contiguous
@@ -118,26 +120,33 @@ def block_init(gen, cfg: ModelConfig, kind: str, *, cross: bool = False,
     return p
 
 
-def _ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, name: str):
+def _ffn(p: Dict, x: torch.Tensor, cfg: ModelConfig, name: str,
+         moe_cf: Optional[float] = None):
+    """The FFN sub-block -> ``(x_out, aux)``: the MoE aux loss, or None
+    for a dense MLP or no FFN."""
     if "mlp" in p:
         h = apply_norm(p["ln2"], x, cfg.norm)
-        x = x + mlp(p["mlp"], h, cfg.activation, name + ".mlp")
-    elif "moe" in p:
+        return x + mlp(p["mlp"], h, cfg.activation, name + ".mlp"), None
+    if "moe" in p:
         h = apply_norm(p["ln2"], x, cfg.norm)
-        out, _ = moe.moe_apply(p["moe"], h, cfg, capacity_factor=None)
-        x = x + out
-    return x
+        out, aux = moe.moe_apply(p["moe"], h, cfg, capacity_factor=moe_cf)
+        return x + out, aux
+    return x, None
 
 
 def block_apply_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                     *, causal: bool = True,
                     encoder_out: Optional[torch.Tensor] = None,
-                    name: str = ""):
-    """The full-sequence path (B, S, d) -> ``(x_out, state)``: state is
-    the prefill-to-decode handoff, (k, v) (B, S, Hkv, hd) for the
-    attention kinds and the final recurrent state otherwise.  With
-    ``encoder_out`` a layer that has a cross sub-block attends it after
-    the mixer (``causal=False`` is the encoder's unmasked attention)."""
+                    moe_cf: Optional[float] = 1.25, name: str = ""):
+    """The full-sequence path (B, S, d) -> ``(x_out, aux, state)``: aux
+    is the MoE aux loss (float32 scalar, 0 without experts) and state the
+    prefill-to-decode handoff, (k, v) (B, S, Hkv, hd) for the attention
+    kinds and the final recurrent state otherwise.  ``moe_cf`` is the
+    experts' capacity factor, the reference's training default 1.25
+    (choices past capacity drop); ``None`` is exact capacity, which every
+    serving caller passes.  With ``encoder_out`` a layer that has a cross
+    sub-block attends it after the mixer (``causal=False`` is the
+    encoder's unmasked attention)."""
     _check_kind(kind)
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind in ("attn", "local_attn"):
@@ -154,7 +163,10 @@ def block_apply_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
             cross_kv=cross_kv(p["cross_attn"], encoder_out, cfg),
             name=name + ".cross")
         x = x + out
-    return _ffn(p, x, cfg, name), state
+    x, aux = _ffn(p, x, cfg, name, moe_cf)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux, state
 
 
 def cross_kv(p_attn: Dict, encoder_out: torch.Tensor, cfg: ModelConfig):
@@ -283,7 +295,7 @@ def block_apply_step(p: Dict, x: torch.Tensor, cache: Dict,
             p["cross_attn"], h, cfg, cross_cache["k"], cross_cache["v"],
             enc_lengths, cross=True, name=name + ".cross")
         x = x + out
-    return _ffn(p, x, cfg, name), cache
+    return _ffn(p, x, cfg, name)[0], cache
 
 
 def block_apply_chunk(p: Dict, x: torch.Tensor, cache: Dict,
@@ -344,4 +356,4 @@ def block_apply_chunk(p: Dict, x: torch.Tensor, cache: Dict,
         _commit(cache, {k: torch.where(
             (valids > 0).reshape((-1,) + (1,) * (s.dim() - 1)), s,
             state[k].to(s.dtype)) for k, s in sel.items()}, None)
-    return _ffn(p, x + out, cfg, name), cache, traj
+    return _ffn(p, x + out, cfg, name)[0], cache, traj

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import quant
+from repro_torch.core.tree import tree_map
 from repro_torch.kernels import ops
 
 
@@ -190,9 +191,5 @@ def unembed(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def to_device(tree, device: Optional[torch.device]):
-    """Move every tensor of a params/cache tree (dicts and lists)."""
-    if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(to_device(v, device) for v in tree)
-    return tree.to(device)
+    """Move every tensor of a params, cache or train-state tree."""
+    return tree_map(lambda t: t.to(device), tree)

@@ -1,4 +1,6 @@
-"""Language models: init, full-sequence forward, and the serving steps
+"""Language models: init (and ``init_abstract``, shapes and dtypes on
+the meta device), the full-sequence forward and the training loss
+(``loss_fn``), and the serving steps
 (``decode_step``, ``prefill_into_slot``, the speculative
 ``verify_chunk``, ``compact_accepted_path`` and, for rings and recurrent
 states, ``verify_snapshot`` and ``commit_verify``), plus whisper's
@@ -47,9 +49,11 @@ trajectory.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
@@ -90,12 +94,13 @@ def _slot_resident(cfg: ModelConfig, li: int, paged: bool) -> bool:
     return not paged or cfg.block_kind(li) != "attn"
 
 
-def init(cfg: ModelConfig, gen: torch.Generator, *, max_seq: int = 0,
-         dtype=torch.float32, device=None) -> Dict:
+def init(cfg: ModelConfig, gen: Optional[torch.Generator], *,
+         max_seq: int = 0, dtype=torch.float32, device=None) -> Dict:
     """Random parameters drawn from ``gen`` (which must live on
     ``device``), with the JAX package's init scales.  An encoder-decoder
     adds ``"encoder": {"layers", "final_ln", "pos_embed"}`` and a cross
-    sub-block in every decoder layer."""
+    sub-block in every decoder layer.  On the meta device nothing is
+    drawn and ``gen`` may be None (:func:`init_abstract`)."""
     check_supported(cfg)
     kw = {"dtype": dtype, "device": device}
     cross = cfg.is_encoder_decoder
@@ -125,6 +130,14 @@ def init(cfg: ModelConfig, gen: torch.Generator, *, max_seq: int = 0,
     return params
 
 
+def init_abstract(cfg: ModelConfig, *, max_seq: int = 0,
+                  dtype=torch.float32) -> Dict:
+    """The parameter tree's shapes and dtypes as meta tensors, with no
+    allocation and no generator (the reference's ``jax.eval_shape`` of
+    ``init``)."""
+    return init(cfg, None, max_seq=max_seq, dtype=dtype, device="meta")
+
+
 def encode(params: Dict, cfg: ModelConfig,
            frames: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder: ``frames`` (B, Se, d), the stub frontend's
@@ -134,7 +147,8 @@ def encode(params: Dict, cfg: ModelConfig,
     Se = frames.shape[1]
     x = frames + enc["pos_embed"][None, :Se].to(frames.dtype)
     for layer_p in enc["layers"]:
-        x, _ = blocks.block_apply_seq(layer_p, x, cfg, "attn", causal=False)
+        x, _, _ = blocks.block_apply_seq(layer_p, x, cfg, "attn",
+                                         causal=False)
     return apply_norm(enc["final_ln"], x, cfg.norm)
 
 
@@ -148,12 +162,18 @@ def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor):
 def _forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
              frames: Optional[torch.Tensor] = None,
              patches: Optional[torch.Tensor] = None,
+             remat: bool = False, moe_cf: Optional[float] = 1.25,
              dtype=torch.bfloat16):
-    """``(logits (B, S_tot, V), states, encoder_out)``: ``states`` holds
-    every layer's prefill-to-decode handoff (:func:`blocks.
-    block_apply_seq`); ``encoder_out`` is None for a decoder-only stack.
-    ``patches`` (B, P, d) go before the token embeddings (S_tot = P + S)
-    and take positions 0..P-1; an encoder-decoder needs ``frames``."""
+    """``(logits (B, S_tot, V), aux, states, encoder_out)``: ``aux`` is
+    the layers' MoE aux loss summed (float32; 0 without experts),
+    ``states`` every layer's prefill-to-decode handoff
+    (:func:`blocks.block_apply_seq`); ``encoder_out`` is None for a
+    decoder-only stack.  ``patches`` (B, P, d) go before the token
+    embeddings (S_tot = P + S) and take positions 0..P-1; an
+    encoder-decoder needs ``frames``.  ``moe_cf`` is the experts'
+    capacity factor (None: exact).  ``remat`` recomputes each decoder
+    layer in the backward pass instead of keeping its activations (the
+    reference checkpoints each pattern period)."""
     check_supported(cfg)
     x = embed(params["embed"], tokens, dtype)
     if patches is not None:
@@ -166,24 +186,58 @@ def _forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         if frames is None:
             raise ValueError(f"{cfg.name} is encoder-decoder: pass frames")
         encoder_out = encode(params, cfg, frames.to(dtype))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     states = []
     for li, layer_p in enumerate(params["layers"]):
-        x, st = blocks.block_apply_seq(layer_p, x, cfg, cfg.block_kind(li),
-                                       encoder_out=encoder_out,
-                                       name=f"l{li}")
+        fn = blocks.block_apply_seq
+        if remat:
+            fn = partial(checkpoint, fn, use_reentrant=False)
+        x, a, st = fn(layer_p, x, cfg, cfg.block_kind(li),
+                      encoder_out=encoder_out, moe_cf=moe_cf,
+                      name=f"l{li}")
+        aux = aux + a
         states.append(st)
-    return _logits(params, cfg, x), states, encoder_out
+    return _logits(params, cfg, x), aux, states, encoder_out
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             frames: Optional[torch.Tensor] = None,
             patches: Optional[torch.Tensor] = None,
+            moe_cf: Optional[float] = 1.25,
             dtype=torch.bfloat16) -> torch.Tensor:
     """Logits (B, S_tot, V) of a full causal sequence (B, S): with
     ``patches`` (B, P, d) the patch prefix comes first (S_tot = P + S);
-    an encoder-decoder attends the encoding of ``frames`` (B, Se, d)."""
+    an encoder-decoder attends the encoding of ``frames`` (B, Se, d).
+    ``moe_cf`` defaults to the reference's training capacity factor;
+    serving callers pass None (exact capacity)."""
     return _forward(params, cfg, tokens, frames=frames, patches=patches,
-                    dtype=dtype)[0]
+                    moe_cf=moe_cf, dtype=dtype)[0]
+
+
+def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            *, remat: bool = False, aux_weight: float = 0.01):
+    """Next-token cross-entropy plus ``aux_weight`` times the MoE aux loss
+    -> ``(loss, {"ce", "aux"})``, float32 scalars.  ``batch``: ``tokens``
+    (B, S) [+ ``frames`` / ``patches``]; position t predicts token t + 1
+    over the text region only.  The reference's operations in its order:
+    logits in the forward's dtype (bf16), the row max taken there and
+    detached, the shift in that dtype, exp and sum in float32; the gold
+    logit is a gather, equal bit for bit to the reference's one-hot
+    contraction (a form it takes for vocab sharding)."""
+    tokens = batch["tokens"]
+    logits, aux, _, _ = _forward(
+        params, cfg, tokens, frames=batch.get("frames"),
+        patches=batch.get("patches"), remat=remat)
+    n_prefix = logits.shape[1] - tokens.shape[1]
+    lg = logits[:, n_prefix:-1]
+    tgt = tokens[:, 1:].long()
+    gold = lg.gather(-1, tgt[..., None])[..., 0].float()
+    m = lg.amax(dim=-1).detach()
+    shifted = lg - m[..., None]
+    sumexp = torch.exp(shifted.float()).sum(dim=-1)
+    lse = m.float() + torch.log(sumexp)
+    ce = (lse - gold).mean()
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
@@ -375,8 +429,9 @@ def batch_prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     final state; an encoder-decoder also fills its cross cache.  Returns
     ``(last_logits (B, V) f32, cache, lengths)``, every length S_tot."""
     B, S = tokens.shape
-    logits, states, enc_out = _forward(params, cfg, tokens, frames=frames,
-                                       patches=patches, dtype=dtype)
+    logits, _, states, enc_out = _forward(
+        params, cfg, tokens, frames=frames, patches=patches, moe_cf=None,
+        dtype=dtype)
     S_tot = logits.shape[1]
     for li, (state, entry) in enumerate(zip(states, cache["layers"])):
         kind = cfg.block_kind(li)

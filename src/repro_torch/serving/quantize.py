@@ -26,7 +26,8 @@ from repro_torch.models import lm
 @torch.no_grad()
 def calibrate(params, cfg: ModelConfig, sample_batches, *,
               extras: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-    """Run forwards (bf16 activations, as the reference does); returns
+    """Run forwards (bf16 activations and exact MoE capacity, as the
+    reference does); returns
     {linear-name: per-channel activation absmax} on the CPU.  ``extras``
     are passed to every forward (whisper's ``frames``, pixtral's
     ``patches``)."""
@@ -36,7 +37,7 @@ def calibrate(params, cfg: ModelConfig, sample_batches, *,
     with quant.calibration() as stats:
         for tokens in sample_batches:
             lm.forward(params, cfg, torch.as_tensor(tokens, device=dev),
-                       **kw)
+                       moe_cf=None, **kw)
     return {k: v.cpu() for k, v in stats.items()}
 
 

@@ -1515,3 +1515,102 @@ def test_mixed_paged_engine_on_card_matches_stacked(h100):
                  ("stacked chain", "paged chain")):
         cs.hold_streams(f"{a} vs {b}", (streams[a], streams[b]), prompts,
                         (fns[a], fns[b]), 8)
+
+
+# ---------------------------------------------------------------------------
+# training and checkpoints on the card
+
+
+def _train_state(arch, dev, seed=0):
+    from repro_torch.configs import get_config
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import TrainConfig, init_train_state
+
+    cfg = get_config(arch).reduced()
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=1,
+                                       total_steps=10))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return cfg, tcfg, init_train_state(cfg, tcfg, gen, max_seq=64,
+                                       device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,dtype,loss_rtol,gnorm_rtol", [
+    ("gpt2-345m", "bfloat16", 1e-2, 2e-2),
+    ("olmoe-1b-7b", "float32", 1e-4, 1e-4)])
+def test_train_step_on_card_matches_cpu(h100, monkeypatch, arch, dtype,
+                                        loss_rtol, gnorm_rtol):
+    """One reduced train step from the same state on the card and on the
+    CPU: the loss and the global grad norm.  GPT-2 at the
+    bf16 default, whose products round differently on the two devices
+    (1% on the loss, 2% on the norm).  The MoE stack at float32 (TF32
+    off), 1e-4: at bf16 those roundings flip expert choices at routing
+    near-ties between the devices, as they do between the port and the
+    reference on the CPU."""
+    import functools
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.training.trainer import (batch_to_tensors,
+                                              make_train_step)
+
+    monkeypatch.setattr(lm, "_forward", functools.partial(
+        lm._forward, dtype=getattr(torch, dtype)))
+    cfg, tcfg, state = _train_state(arch, h100)
+    cpu_state = tree_map(lambda t: t.to("cpu", copy=True), state)
+    batch = SyntheticLM(cfg.vocab_size, 16, 4, seed=2).batch_at(0)
+    step = make_train_step(cfg, tcfg)
+    _, mc = step(state, batch_to_tensors(batch, h100))
+    _, mp = step(cpu_state, batch_to_tensors(batch, "cpu"))
+    for key, tol in (("loss", loss_rtol), ("grad_norm", gnorm_rtol)):
+        a, b = float(mc[key]), float(mp[key])
+        assert np.isfinite(a) and abs(a - b) <= tol * abs(b), (key, a, b)
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_of_card_state(h100, tmp_path):
+    """bf16, float32 and int32 state on the card, saved and restored to
+    the card and to the CPU, bit-identical."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.tree import tree_leaves, tree_map
+
+    _, _, state = _train_state("gpt2-345m", h100)
+    tree = {"state": state,
+            "bf16": tree_map(lambda t: t.to(torch.bfloat16), state.params)}
+    m = CheckpointManager(str(tmp_path))
+    m.save(1, tree)
+    like = tree_map(lambda t: torch.empty_like(t, device="meta"), tree)
+    for dev in (h100, torch.device("cpu")):
+        got = m.restore(1, like, device=dev)
+        for a, b in zip(tree_leaves(got), tree_leaves(tree)):
+            assert a.device.type == dev.type and a.dtype == b.dtype
+            assert torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.gpu
+def test_async_save_of_card_state_isolated_from_later_steps(h100, tmp_path):
+    """An async save of the card's train state, then two steps that
+    update it in place: the checkpoint holds the state at the save."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.training.trainer import (batch_to_tensors,
+                                              init_train_state_abstract,
+                                              make_train_step)
+
+    cfg, tcfg, state = _train_state("gpt2-345m", h100)
+    step = make_train_step(cfg, tcfg)
+    data = SyntheticLM(cfg.vocab_size, 16, 4, seed=3)
+    state, _ = step(state, batch_to_tensors(data.batch_at(0), h100))
+    want = tree_map(torch.clone, state)
+    m = CheckpointManager(str(tmp_path))
+    m.save(1, state, blocking=False)
+    for i in (1, 2):
+        state, _ = step(state, batch_to_tensors(data.batch_at(i), h100))
+    m.wait()
+    got = m.restore(1, init_train_state_abstract(cfg, tcfg, max_seq=64),
+                    device=h100)
+    assert not torch.equal(tree_leaves(state)[0], tree_leaves(want)[0])
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)

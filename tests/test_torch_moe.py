@@ -323,7 +323,7 @@ def test_forward_logits_match(family, arch):
     want = jlm.forward(f.jparams, f.jcfg, jnp.asarray(tokens),
                        dtype=jnp.float32, moe_cf=None)[0]
     got = lm.forward(f.tparams, f.cfg, torch.from_numpy(tokens),
-                     dtype=torch.float32)
+                     dtype=torch.float32, moe_cf=None)
     assert got.shape == (2, 23, f.cfg.vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=RTOL)
