@@ -85,6 +85,20 @@ failure exits non-zero and nothing is caught and continued:
    rows) and ``paged_verify`` (a prefill chunk of 32, a chain verify of
    8 x 5) at 16 query heads over one KV head of 256 in a table of 4,096
    positions, held and timed as above.
+4b. Ring collectives on four shards of the card
+   (``make_host_mesh(model=4, devices=[card] * 4)``: one controller, a
+   hop is a copy on the card): ``ring_all_gather`` of the distributed
+   tick's logits blocks bit-identical to ``torch.cat``;
+   ``compressed_psum`` of four 2^20-float vectors within one int8 step
+   per hop of the CPU's; ``ring_ag_matmul`` and ``ring_rs_matmul``
+   within 1e-5 relative of one float32 product; ``tp_quant_matmul``
+   bit-identical to the unsharded call at GPT-2's weight shapes at M 8,
+   32 and 40, and each column shard's ``mp_matmul`` bit-identical to its
+   plain version; the attention kernels at a shard's batch of rows (4
+   and 2: the split geometry follows B) against their plain versions as
+   in phase 3; ``mp_matmul`` at the column-shard shapes held to plain and
+   timed beside the unsharded call and its bound (the ``column_shards``
+   rows of the ``kernels`` line).
 5. Serving: full-width ``gpt2-345m`` with random weights from a seeded
    generator, W8A8 SmoothQuant calibrated on seeded prompts, paged KV
    cache, chunk 32, 8 slots, ``max_seq`` 1024, 16 greedy requests with
@@ -127,6 +141,17 @@ failure exits non-zero and nothing is caught and continued:
    prompts of 16-128 tokens, and the same requests chunked; launch
    counts checked (no ``paged_verify`` in the replay run), the replay
    streams held to the chunked ones under the near-tie rule.
+9c. Distributed serving at full width on shards of the card (phase 5's
+   weights and settings): ``DistributedServeEngine`` 2 x 4 paged plain
+   and chain on phase 7's chain prompts, held against phase 7's
+   single-device runs; 4 x 2 paged plain whose shared-system-prompt
+   pair must land on one shard and link pages; 2 x 4 stacked with a
+   state and a recompute migration, held against its unmigrated run;
+   ``ServeEngine(mesh=)`` over 4 shards (ring TP), token for token the
+   unsharded engine's with 4x its ``mp_matmul`` launches.  Each run
+   prints tokens/s, TTFT, TPOT, the overlap ratios, the largest
+   transfer against one page-pool leaf, per-shard utilization and
+   migrations; launches are checked per layout.
 10. Reduced-config agreement: the reduced config served by the engine on
     the card and on the CPU with the same W8A8 weights (batched slots,
     chunked prefill, a shared prefix), plainly, with chain speculation
@@ -215,6 +240,9 @@ failure exits non-zero and nothing is caught and continued:
     ``LOGIT_REL_TOL`` of their range again: only the routing is exempt,
     nothing after it.  The margins are held as before.  Phase 11 holds
     the MoE runs the same way.
+12a. Reduced ``recurrentgemma-9b`` through ``DistributedServeEngine``
+    2 x 2, stacked, chain, card against CPU (two shards of each), held
+    as phase 10.
 12b. Training: full-width ``gpt2-345m`` (float32 masters, bf16
     activations) from a seeded generator on the card.  First one train
     step at 2 x 64 tokens from the same state on the card and on the CPU:
@@ -272,14 +300,18 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import scheduler  # noqa: E402
+from repro_torch.core import collectives, ring, scheduler  # noqa: E402
 from repro_torch.core.mdk import MDK_REGISTRY  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import (make_host_mesh,  # noqa: E402
+                                     make_serving_mesh)
 from repro_torch.models import attention, blocks, lm, moe  # noqa: E402
 from repro_torch.models.layers import activation_fn, to_device  # noqa: E402
 from repro_torch.serving.admission import (  # noqa: E402
     FIFOAdmission, OvercommitAdmission)
+from repro_torch.serving.distributed import (  # noqa: E402
+    DistributedServeEngine)
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.serving.lifecycle import (  # noqa: E402
     DECODE, PREEMPTED_HOST, PREEMPTED_RECOMPUTE)
@@ -565,46 +597,53 @@ def verify_geometry(q, kp, bt):
             f"{4 * g.scratch} B scratch")
 
 
-def verify_split_edges(dev, rng):
+def verify_split_edges(dev, rng, B=SLOTS):
     """Both verify bodies at the serving widths on rows whose keys end on
     the last position of key split 0, on the first of split 1 and a page
     past it, at base 0, at the end of the table, mid-table and parked;
-    chunks of 5, 9 and 32, q float32 and bf16.  Each case is held to its
+    chunks of 5, 9 and 32, q float32 and bf16, in batches of ``B`` rows
+    (the split geometry follows B: 8 for the single-device engine, a
+    shard's 4 or 2 for the distributed one).  Each case is held to its
     plain version per output vector, and a second call must give
     bit-identical output."""
     H, D, n_pg = 16, 64, MAX_SEQ // PAGE
     worst = 0.0
     for C in (5, 9, 32):
-        g = ops._verify_geometry(SLOTS, C, H, H, PAGE, D, n_pg)
+        g = ops._verify_geometry(B, C, H, H, PAGE, D, n_pg)
         edge = g.pps * PAGE
-        base_np = np.array([edge - C, edge - C + 1, edge - C + 1 + PAGE, 0,
-                            MAX_SEQ - C, 2 * edge - C, MAX_SEQ // 2,
-                            MAX_SEQ], np.int32)
-        q, kp, vp, bt = pool_inputs(rng, SLOTS, H, D, dev, (SLOTS, C, H, D))
-        base = torch.from_numpy(base_np).to(dev)
-        bt = live_table(bt, np.minimum(base_np + C, MAX_SEQ))
-        tree = torch.from_numpy(tree_arrays(
-            token_trees(rng, SLOTS, C - 1, 2), C - 1, C)[3].astype(
-                np.int32)).to(dev)
-        for qd in (torch.float32, torch.bfloat16):
-            qq = q.to(qd)
-            for anc in (None, tree):
-                what = (f"paged_verify{'_tree' if anc is not None else ''} "
-                        f"split edges C={C} q={qd}")
-                got = ops.paged_verify(qq, kp, vp, base, bt, anc=anc)
-                again = ops.paged_verify(qq, kp, vp, base, bt, anc=anc)
-                want = ref.paged_verify_ref(qq, kp, vp, base, bt, anc=anc)
-                torch.cuda.synchronize()
-                err, rel = rel_err(got[:-1], want[:-1])
-                check(rel <= ATTN_REL_TOL, f"{what}: rel err {rel}")
-                check(bool(torch.isfinite(got).all()),
-                      f"{what}: non-finite output")
-                check(torch.equal(got, again),
-                      f"{what}: two calls differ")
-                worst = max(worst, rel)
-        print(f"paged_verify split edges C={C} (splits of {g.pps} pages) "
-              f"bases {base_np.tolist()}: causal and tree, q float32 and "
-              f"bf16, within {ATTN_REL_TOL} per vector (worst so far "
+        bases = np.array([edge - C, edge - C + 1, edge - C + 1 + PAGE, 0,
+                          MAX_SEQ - C, 2 * edge - C, MAX_SEQ // 2,
+                          MAX_SEQ], np.int32)
+        for lo in range(0, len(bases), B):
+            base_np = bases[lo:lo + B]
+            live = torch.from_numpy(base_np < MAX_SEQ).to(dev)
+            q, kp, vp, bt = pool_inputs(rng, B, H, D, dev, (B, C, H, D))
+            base = torch.from_numpy(base_np).to(dev)
+            bt = live_table(bt, np.minimum(base_np + C, MAX_SEQ))
+            tree = torch.from_numpy(tree_arrays(
+                token_trees(rng, B, C - 1, 2), C - 1, C)[3].astype(
+                    np.int32)).to(dev)
+            for qd in (torch.float32, torch.bfloat16):
+                qq = q.to(qd)
+                for anc in (None, tree):
+                    what = (f"paged_verify"
+                            f"{'_tree' if anc is not None else ''} split "
+                            f"edges B={B} C={C} q={qd}")
+                    got = ops.paged_verify(qq, kp, vp, base, bt, anc=anc)
+                    again = ops.paged_verify(qq, kp, vp, base, bt, anc=anc)
+                    want = ref.paged_verify_ref(qq, kp, vp, base, bt,
+                                                anc=anc)
+                    torch.cuda.synchronize()
+                    err, rel = rel_err(got[live], want[live])
+                    check(rel <= ATTN_REL_TOL, f"{what}: rel err {rel}")
+                    check(bool(torch.isfinite(got).all()),
+                          f"{what}: non-finite output")
+                    check(torch.equal(got, again),
+                          f"{what}: two calls differ")
+                    worst = max(worst, rel)
+        print(f"paged_verify split edges B={B} C={C} (splits of {g.pps} "
+              f"pages) bases {bases.tolist()}: causal and tree, q float32 "
+              f"and bf16, within {ATTN_REL_TOL} per vector (worst so far "
               f"{worst:.3e}); two calls bit-identical")
 
 
@@ -2516,6 +2555,85 @@ class ScheduleProbe:
         self.eng = None
 
 
+class DistScheduleProbe(ScheduleProbe):
+    """:class:`ScheduleProbe` for a ``DistributedServeEngine``: the
+    sharded entry points (``lm.sharded_prefill_into_slot``,
+    ``sharded_decode_step``, ``sharded_verify_chunk``) are patched, where
+    row b of shard s is the engine's global slot ``s * Bs + b``, so each
+    request's calls are recorded as a single-device engine's are, for
+    :func:`logits_after` to replay with ``rows = Bs``.  The tree's path
+    compaction is not recorded: no distributed run here takes the
+    tree."""
+
+    def __enter__(self):
+        eng = self.eng
+        check(eng.spec is None or not eng.spec.tree,
+              "DistScheduleProbe: a tree run's compaction is not recorded")
+        Bs, host = eng.Bs, self._host
+        self._saved = saved = (lm.sharded_prefill_into_slot,
+                               lm.sharded_decode_step,
+                               lm.sharded_verify_chunk)
+        prefill, step, verify = saved
+
+        def prefill_(params, cfg, mesh, tokens, caches, slots, offsets,
+                     valids, actives, **kw):
+            if params is eng.shard_params:
+                for s in range(mesh.size):
+                    if actives[s]:
+                        self._add(s * Bs + int(slots[s]), kind="prefill",
+                                  pos=int(offsets[s]),
+                                  tokens=host(tokens[s]),
+                                  valid=int(valids[s]))
+            return prefill(params, cfg, mesh, tokens, caches, slots,
+                           offsets, valids, actives, **kw)
+
+        def step_(params, cfg, mesh, tokens, caches, lengths, **kw):
+            if params is eng.shard_params:
+                for s in kw["shards"]:
+                    tok, lens = host(tokens[s]), host(lengths[s])
+                    act = host(kw["actives"][s])
+                    for b in torch.nonzero(act).flatten().tolist():
+                        self._add(s * Bs + b, kind="step", pos=int(lens[b]),
+                                  tokens=tok[b])
+            return step(params, cfg, mesh, tokens, caches, lengths, **kw)
+
+        def verify_(params, cfg, mesh, tokens, caches, lengths, **kw):
+            if params is eng.shard_params:
+                for s in kw["shards"]:
+                    toks, lens = host(tokens[s]), host(lengths[s])
+                    valids = (None if kw.get("valids") is None
+                              else host(kw["valids"][s]))
+                    for b in range(Bs):
+                        req = eng.slots[s * Bs + b]
+                        if req is None or (int(lens[b]) >= eng.max_seq
+                                           if valids is None else
+                                           int(valids[b]) == 0):
+                            continue
+                        self._add(s * Bs + b, kind="verify",
+                                  pos=int(lens[b]), tokens=toks[b],
+                                  valid=None if valids is None
+                                  else int(valids[b]), anc=None,
+                                  depths=None)
+            return verify(params, cfg, mesh, tokens, caches, lengths, **kw)
+
+        emit = eng._emit
+
+        def emit_(req, tok, now):
+            self.calls[req.rid][-1]["emitted"] += 1
+            return emit(req, tok, now)
+
+        (lm.sharded_prefill_into_slot, lm.sharded_decode_step,
+         lm.sharded_verify_chunk) = prefill_, step_, verify_
+        eng._emit = emit_
+        return self
+
+    def __exit__(self, *exc):
+        (lm.sharded_prefill_into_slot, lm.sharded_decode_step,
+         lm.sharded_verify_chunk) = self._saved
+        del self.eng._emit
+        self.eng = None
+
+
 def _route_at(n, pos0):
     if RouterProbe.active is not None:
         RouterProbe.active.at(n, pos0)
@@ -2889,7 +3007,9 @@ def engine_run(label, eng, prompts, max_new, *, drive=None):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    with ScheduleProbe(eng) as probe:
+    probe_cls = (DistScheduleProbe if isinstance(eng, DistributedServeEngine)
+                 else ScheduleProbe)
+    with probe_cls(eng) as probe:
         if drive is not None:
             drive(eng)
         done = eng.run()
@@ -2905,7 +3025,8 @@ def engine_run(label, eng, prompts, max_new, *, drive=None):
           f"{toks / wall:.1f} tok/s; TTFT p50 {s['p50_ttft_s'] * 1e3:.1f} ms "
           f"p99 {s['p99_ttft_s'] * 1e3:.1f} ms; TPOT p50 "
           f"{s['p50_tpot_s'] * 1e3:.2f} ms p99 {s['p99_tpot_s'] * 1e3:.2f} "
-          f"ms; tokens per model call {s['tokens_per_model_call']:.3f}; "
+          f"ms; tokens per model call "
+          f"{toks / max(s['model_calls'], 1):.3f}; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"{label} launches: {json.dumps(launches)}")
     return ({r.rid: r.out for r in done}, s, launches,
@@ -3712,6 +3833,425 @@ def replay_phase(dev, qparams, cfg):
     return {"replay": out["gpt2-345m replay"]}
 
 
+# ---------------------------------------------------------------------------
+# multi-device: ring collectives, ring TP and the distributed engine on
+# shards of one card (a mesh that names the card several times)
+
+RING_SHARDS = 4
+#: the near-tie recomputation's rows for a shard of the 2 x 4 runs
+DIST_BS = SLOTS // 2
+DIST_NEW = 32
+
+
+def ring_phase(dev, timer):
+    """Phase 4b: the ring collectives and ring tensor parallelism on
+    ``make_host_mesh(model=4, devices=[card] * 4)``.  ``ring_all_gather``
+    of the distributed tick's logits blocks bit-identical to
+    ``torch.cat``; ``compressed_psum`` of four 2^20-float vectors within
+    one int8 step per hop of the same call on the CPU (the CPU test's
+    bound); ``ring_ag_matmul`` and ``ring_rs_matmul`` within 1e-5
+    relative of one float32 product; ``tp_quant_matmul`` bit-identical to
+    the unsharded ``quant_matmul`` at GPT-2's weight shapes at M 8, 32 and
+    40, and each column shard's ``mp_matmul`` bit-identical to its plain
+    version; :func:`shard_rows_attention`; then ``mp_matmul`` at the
+    column-shard shapes, bit-identical to plain, timed as in phase 4
+    beside its plain version, ``torch._int_mm`` (M > 16), the unsharded
+    call and its bound.  Returns the timed rows."""
+    n = RING_SHARDS
+    phase(f"ring collectives and ring TP ({n} shards of one card)")
+    mesh = make_host_mesh(model=n, devices=[dev] * n)
+    rng = np.random.default_rng(23)
+    V = get_config("gpt2-345m").vocab_size
+    for shape in ((DIST_BS, V), (DIST_BS, CHAIN_K + 1, V)):
+        blocks = [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) for _ in range(n)]
+        outs = collectives.ring_all_gather(blocks)
+        want = torch.cat(blocks)
+        check(all(torch.equal(o, want) for o in outs),
+              f"ring_all_gather {shape}: not bit-identical to torch.cat")
+        t = timer.ms(partial(collectives.ring_all_gather, blocks))
+        tc = timer.ms(partial(torch.cat, blocks))
+        print(f"ring_all_gather of {n} x {shape} float32 blocks: "
+              f"bit-identical to torch.cat on every shard; {t:.4f} ms "
+              f"({n - 1} hops, {n} copies out) vs one torch.cat {tc:.4f} ms")
+    L = 1 << 20
+    xs = [rng.standard_normal(L).astype(np.float32) for _ in range(n)]
+    got = collectives.compressed_psum(
+        [torch.from_numpy(x).to(dev) for x in xs])
+    cpu = collectives.compressed_psum([torch.from_numpy(x) for x in xs])[0]
+    step = float(np.abs(np.stack(xs)).sum(axis=0).max() / 127.0)
+    err = max((g.cpu() - cpu).abs().max().item() for g in got)
+    same = min(int((g.cpu() == cpu).sum()) for g in got)
+    check(err <= n * step, f"compressed_psum card vs CPU: max err {err} "
+          f"beyond {n} int8 steps ({n * step})")
+    print(f"compressed_psum of {n} x {L} float32: card vs CPU max err "
+          f"{err:.3e} <= {n} x int8 step {step:.3e}; {same}/{L} elements "
+          "bit-identical")
+    for M, K, N in ((SLOTS, 1024, 4096), (CHUNK, 4096, 1024)):
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(
+            np.float32)).to(dev)
+        w = torch.from_numpy(rng.standard_normal((K, N)).astype(
+            np.float32)).to(dev)
+        want = x @ w
+        xs_ = list(x.chunk(n, dim=1))
+        for name, fn, ws in (
+                ("ring_ag_matmul", ring.ring_ag_matmul, w.chunk(n, dim=1)),
+                ("ring_rs_matmul", ring.ring_rs_matmul, w.chunk(n, dim=0))):
+            y = torch.cat(fn(xs_, [c.contiguous() for c in ws]), dim=1)
+            rel = ((y - want).abs().max() / want.abs().max()).item()
+            check(rel <= 1e-5, f"{name} M={M} K={K} N={N}: rel err {rel}")
+            print(f"{name} M={M} K={K} N={N} over {n} shards: rel err "
+                  f"{rel:.3e} (<= 1e-5) against one float32 product")
+    for M in (SLOTS, CHUNK, SLOTS * (CHAIN_K + 1)):
+        for K, N in MP_SHAPES:
+            x, w, xs_, ws, b = args = mp_inputs(rng, M, K, N, dev, bias=True)
+            for od in (torch.float32, torch.bfloat16):
+                check(torch.equal(
+                    ring.tp_quant_matmul(*args, mesh=mesh, out_dtype=od),
+                    ops.quant_matmul(*args, out_dtype=od)),
+                    f"tp_quant_matmul M={M} K={K} N={N} {od}: not "
+                    "bit-identical to the unsharded call")
+                # each column shard the kernel runs, against its plain
+                # version on the same inputs
+                for wl, sl, bl in zip(*(t.chunk(n, dim=-1)
+                                        for t in (w, ws, b))):
+                    shard = (x, wl.contiguous(), xs_, sl.contiguous(),
+                             bl.contiguous())
+                    check(torch.equal(
+                        ops.quant_matmul(*shard, out_dtype=od),
+                        ref.quant_matmul_ref(*shard, out_dtype=od)),
+                        f"mp_matmul column shard M={M} K={K} "
+                        f"N={N // n} {od}: not bit-identical to plain")
+    print(f"tp_quant_matmul over {n} column shards bit-identical to the "
+          f"unsharded quant_matmul at (K, N) {list(MP_SHAPES)}, M {SLOTS}, "
+          f"{CHUNK} and {SLOTS * (CHAIN_K + 1)}, float32 and bf16 out; "
+          "every column shard's mp_matmul bit-identical to its plain "
+          "version")
+    shard_rows_attention(dev, rng)
+    rows = []
+    for M in (SLOTS, CHUNK):
+        for K, N in MP_SHAPES:
+            Nl = N // n
+            x, w, xs_, ws, _ = mp_inputs(rng, M, K, N, dev)
+            wl, wsl = w[:, :Nl].contiguous(), ws[:, :Nl].contiguous()
+            f32 = torch.float32
+            check(torch.equal(
+                ops.quant_matmul(x, wl, xs_, wsl, out_dtype=f32),
+                ref.quant_matmul_ref(x, wl, xs_, wsl, out_dtype=f32)),
+                f"mp_matmul column shard M={M} K={K} N={Nl}: not "
+                "bit-identical to plain")
+            t = timer.ms(partial(ops.quant_matmul, x, wl, xs_, wsl,
+                                 out_dtype=f32))
+            tp = timer.ms(partial(ref.quant_matmul_ref, x, wl, xs_, wsl,
+                                  out_dtype=f32))
+            tl = (timer.ms(partial(
+                lambda x, w, a, b: (torch._int_mm(x, w).float() * a) * b,
+                x, wl, xs_, wsl)) if M > 16 else None)
+            tfull = timer.ms(partial(ops.quant_matmul, x, w, xs_, ws,
+                                     out_dtype=f32))
+            b, by = bound_ms(M * K + K * Nl + 4 * (M + Nl) + 4 * M * Nl,
+                             2 * M * K * Nl, "int8")
+            geo = ops._mp_geometry(M, Nl, K)
+            rows.append({"model": "gpt2-345m",
+                         "shape": f"column shard 1/{n}: M={M} K={K} N={Nl} "
+                                  f"(of {N})",
+                         "ms": t, "plain_ms": tp, "library_ms": tl,
+                         "bound_ms": b, "bound_by": by, "unsharded_ms": tfull})
+            print(f"mp_matmul column shard M={M} K={K} N={Nl} (of {N}; "
+                  f"{geo.splits} K splits): bit-identical, kernel "
+                  f"{t:.4f} ms, plain "
+                  f"{tp:.4f} ms, library "
+                  f"{'n/a (M <= 16)' if tl is None else f'{tl:.4f} ms'}, "
+                  f"unsharded call {tfull:.4f} ms, bound {b:.5f} ms ({by})")
+    return rows
+
+
+def shard_rows_attention(dev, rng):
+    """The attention kernels at a shard's batch of rows, GPT-2's widths:
+    ``DIST_BS`` (the 2 x 4 runs) and 2 (the 4 x 2 run).  Their split
+    geometry follows B (ROADMAP B7), so each is held to its plain version
+    as phase 3 holds it at B 8: ``paged_mha_decode`` with lengths 1 and
+    ``MAX_SEQ`` among them, window 0 and 128, q float32 and bf16, two
+    calls bit-identical; both verify bodies at the split edges
+    (:func:`verify_split_edges`); ``mha_decode`` on the float32 cache of
+    the stacked W8A8 engine and the draft, and on a bf16 one."""
+    H, D, S = 16, 64, MAX_SEQ
+    for B in (DIST_BS, 2):
+        q, kp, vp, bt = pool_inputs(rng, B, H, D, dev, (B, H, D))
+        lengths_np = np.concatenate([[1, MAX_SEQ], rng.integers(
+            2, MAX_SEQ, B - 2)]).astype(np.int32)
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        bt = live_table(bt, lengths_np)
+        worst = 0.0
+        for window, qd in ((0, torch.float32), (128, torch.float32),
+                           (0, torch.bfloat16)):
+            qq = q.to(qd)
+            got = ops.paged_mha_decode(qq, kp, vp, lengths, bt,
+                                       window=window)
+            want = ref.paged_mha_decode_ref(qq, kp, vp, lengths, bt,
+                                            window=window)
+            torch.cuda.synchronize()
+            _, rel = rel_err(got, want)
+            check(rel <= ATTN_REL_TOL, f"paged_mha_decode B={B} "
+                  f"window={window} q={qd}: rel err {rel}")
+            worst = max(worst, rel)
+        check(torch.equal(ops.paged_mha_decode(q, kp, vp, lengths, bt),
+                          ops.paged_mha_decode(q, kp, vp, lengths, bt)),
+              f"paged_mha_decode B={B}: two calls differ")
+        dg = ops._decode_geometry(B, H, H, PAGE, D, MAX_SEQ // PAGE)
+        print(f"paged_mha_decode B={B} lengths {lengths_np.tolist()} "
+              f"({dg.splits} splits of {dg.pps} pages): window 0 and 128, "
+              f"q float32 and bf16 within {ATTN_REL_TOL} per vector (worst "
+              f"{worst:.3e}); two calls bit-identical")
+        verify_split_edges(dev, rng, B)
+        lengths_np = np.linspace(1, S, B).astype(np.int32)
+        lengths = torch.from_numpy(lengths_np).to(dev)
+        q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
+            np.float32)).to(dev)
+        worst = 0.0
+        for kvd in (torch.float32, torch.bfloat16):
+            k, v = (torch.from_numpy(rng.standard_normal(
+                (B, H, S, D)).astype(np.float32)).to(dev, kvd)
+                for _ in range(2))
+            for window in (0, 128):
+                got = ops.mha_decode(q, k, v, lengths, window=window)
+                want = ref.mha_decode_ref(q, k, v, lengths, window=window)
+                again = ops.mha_decode(q, k, v, lengths, window=window)
+                torch.cuda.synchronize()
+                _, rel = rel_err(got, want)
+                check(rel <= ATTN_REL_TOL and torch.equal(got, again),
+                      f"mha_decode B={B} kv={kvd} window={window}: rel err "
+                      f"{rel}, or two calls differ")
+                worst = max(worst, rel)
+        mg = ops._mha_geometry(B, H, H, S, D, 4)
+        print(f"mha_decode B={B} S={S} lengths {lengths_np.tolist()} "
+              f"({mg.splits} splits of {mg.kps} keys on the float32 "
+              f"cache): float32 and bf16 caches, window 0 and 128, within "
+              f"{ATTN_REL_TOL} per vector (worst {worst:.3e}); two calls "
+              "bit-identical")
+
+
+def dist_engine(cfg, qparams, dev, n_shards, slots_per_shard, **kw):
+    """A distributed engine on ``n_shards`` shards of the card, at the
+    serving shapes, on the W8A8 weights of phase 5."""
+    return DistributedServeEngine(
+        cfg, qparams, mesh=make_serving_mesh(n_shards, [dev] * n_shards),
+        slots_per_shard=slots_per_shard, max_seq=MAX_SEQ, eos_id=-1,
+        act_dtype=torch.float32, chunk_size=CHUNK, page_size=PAGE, seed=0,
+        **kw)
+
+
+def dist_report(label, eng, s, launches):
+    """Print a distributed run's transfer and shard figures and check its
+    launches and that no tick transfer reaches one page-pool leaf (only
+    a state migration's blob carries K/V, by design)."""
+    leaf = eng.caches[0]["layers"][0]["k"]
+    leaf_b = leaf.numel() * leaf.element_size()
+    tick_max = max((nb for name, nb, _ in eng.xfer.events
+                    if not name.startswith("migrate.")), default=0)
+    print(f"{label}: overlap_ratio {s['overlap_ratio']:.3f} (prefill "
+          f"{s.get('overlap_ratio_prefill', 1.0):.3f}, drain "
+          f"{s.get('overlap_ratio_drain', 1.0):.3f}); "
+          f"{s['transfers']} transfers, {s['transfers_exposed']} exposed; "
+          f"max_transfer_bytes {s['max_transfer_bytes']:,} (tick transfers "
+          f"{tick_max:,}) vs one pool leaf {leaf_b:,} B; utilization "
+          f"{np.round(eng.utilization(), 3).tolist()}; migrations "
+          f"{s['migrations']} ({s['migrated_bytes_total']:,} B); ticks "
+          f"{s['ticks']}, wave occupancy mean "
+          f"{s['wave_occupancy_mean']:.2f}")
+    check(0 < tick_max < leaf_b, f"{label}: a tick transfer of {tick_max} B "
+          f"reaches a page-pool leaf ({leaf_b} B)")
+    need = (("mp_matmul", "paged_mha_decode", "paged_verify") if eng.paged
+            else ("mp_matmul", "mha_decode"))
+    if eng.spec is not None and eng.paged:
+        need = ("mp_matmul", "paged_verify")
+    for k in need:
+        check(launches[k] > 0, f"{label}: kernel {k} was never launched")
+    if not eng.paged:
+        check(launches["paged_mha_decode"] == launches["paged_verify"] == 0,
+              f"{label}: a paged kernel ran on the stacked layout")
+    eng.kv.check_shard_locality(eng.caches, eng.mesh)
+    print(f"{label} stats:", json.dumps(s, sort_keys=True))
+
+
+def distributed_phase(dev, qparams, cfg, chain_run):
+    """Phase 9c: full-width W8A8 ``gpt2-345m`` on shards of the card, the
+    settings of phase 5.  (1) ``DistributedServeEngine`` 2 x 4, paged,
+    plain, and (2) with chain speculation (n-gram, k ``CHAIN_K``), on
+    phase 7's chain prompts with 64 new tokens, held against phase 7's
+    single-device plain and chain runs; (3) 4 x 2 paged plain, 8
+    requests of 32 new tokens of which two share a 4-page system prompt:
+    the second must land on the first's shard and link its pages; (4) 2 x
+    4 stacked plain with one ``migrate(mode="state")`` and one
+    ``migrate(mode="recompute")`` mid-run, held against the same engine
+    unmigrated; (5) ``ServeEngine(mesh=make_host_mesh(model=4, devices=
+    [card] * 4))`` (ring TP): streams token for token the unsharded
+    engine's, no near-tie allowed, and 4x its ``mp_matmul`` launches.
+    Pairs are held under the near-tie rule along each run's own calls
+    (a distributed run's in its shard's batch of rows).  Each run's
+    launches are zeroed before it and read after.  Returns them."""
+    phase("distributed serving (full-width gpt2-345m, W8A8, shards of one "
+          "card)")
+    prompts, (spec_streams, plain_streams), (spec_fn, plain_fn) = chain_run
+    shape = dict(max_seq=MAX_SEQ, page=PAGE, chunk=CHUNK)
+    out = {}
+    for name, spec, want, fb in (
+            ("plain", None, plain_streams, plain_fn),
+            ("chain", SpecConfig(k=CHAIN_K), spec_streams, spec_fn)):
+        label = f"distributed 2x{DIST_BS} paged {name}"
+        eng = dist_engine(cfg, qparams, dev, 2, DIST_BS, spec=spec)
+        got, s, launches, _, sched = engine_run(label, eng, prompts,
+                                                SPEC_NEW)
+        dist_report(label, eng, s, launches)
+        if spec is not None:
+            print(f"{label}: acceptance {s['acceptance_rate']:.3f} "
+                  f"({s['spec_accepted']}/{s['spec_proposed']}), "
+                  f"{s['spec_ticks']} verify calls, widths "
+                  f"{s['verify_width_min']}..{s['verify_width_max']}")
+        fa = served_logits(qparams, cfg, sched, dev, rows=DIST_BS, **shape)
+        hold_streams(f"{label} vs single-device {name}", (got, want),
+                     prompts, (fa, fb), SPEC_NEW)
+        out[label] = launches
+        del eng
+
+    rng = np.random.default_rng(29)
+    V = cfg.vocab_size
+    system = rng.integers(1, V, 4 * PAGE).tolist()
+    lens = np.linspace(*SPEC_PROMPT_LENS, 6).astype(int)
+    prompts3 = ([system + rng.integers(1, V, 20).tolist()]
+                + [rng.integers(1, V, int(n)).tolist() for n in lens]
+                + [system + rng.integers(1, V, 9).tolist()])
+    want3, ws3, wl3, _, wsched3 = engine_run(
+        "single-device reference (32 new)", w8a8_engine(cfg, qparams, dev),
+        prompts3, DIST_NEW)
+    fb3 = served_logits(qparams, cfg, wsched3, dev, rows=SLOTS, **shape)
+    label = f"distributed {RING_SHARDS}x2 paged plain (shared system prompt)"
+    eng = dist_engine(cfg, qparams, dev, RING_SHARDS, 2)
+    got, s, launches, _, sched = engine_run(label, eng, prompts3, DIST_NEW)
+    dist_report(label, eng, s, launches)
+    by_rid = {r.rid: r for r in eng.finished}
+    shards = [eng.kv.shard_of(by_rid[r].slot)[0] for r in (0, 7)]
+    check(shards[0] == shards[1] and s["prefix_hit_pages"] > 0,
+          f"{label}: the shared-prompt pair on shards {shards}, "
+          f"{s['prefix_hit_pages']} prefix-hit pages")
+    print(f"{label}: the shared-prompt pair both on shard {shards[0]}, "
+          f"{s['prefix_hit_pages']} prefix pages linked")
+    hold_streams(f"{label} vs single-device", (got, want3), prompts3,
+                 (served_logits(qparams, cfg, sched, dev, rows=2, **shape),
+                  fb3), DIST_NEW)
+    out[label] = launches
+    del eng
+
+    sshape = dict(shape, layout="stacked", rows=DIST_BS)
+    label = f"distributed 2x{DIST_BS} stacked plain"
+    eng = dist_engine(cfg, qparams, dev, 2, DIST_BS, kv_layout="stacked")
+    base, s, launches, _, bsched = engine_run(f"{label} (unmigrated)", eng,
+                                              prompts3, DIST_NEW)
+    dist_report(f"{label} (unmigrated)", eng, s, launches)
+    del eng
+    moved = {}
+
+    def drive(e):
+        while len(moved) < 2 and (e.queue or any(
+                r is not None for r in e.slots)):
+            e.tick()
+            for r in e.slots:
+                if (r is not None and r.state == DECODE and len(r.out) >= 8
+                        and r.rid not in moved and r.migrate_to is None):
+                    mode = "recompute" if moved else "state"
+                    src = e.kv.shard_of(r.slot)[0]
+                    check(e.migrate(r.rid, 1 - src, mode=mode),
+                          f"{label}: migrate of request {r.rid} refused")
+                    moved[r.rid] = (mode, src)
+                    break
+
+    eng = dist_engine(cfg, qparams, dev, 2, DIST_BS, kv_layout="stacked")
+    got, s, launches, _, sched = engine_run(f"{label} (migrated)", eng,
+                                            prompts3, DIST_NEW, drive=drive)
+    dist_report(f"{label} (migrated)", eng, s, launches)
+    by_rid = {r.rid: r for r in eng.finished}
+    for rid, (mode, src) in moved.items():
+        dst = eng.kv.shard_of(by_rid[rid].slot)[0]
+        check(by_rid[rid].n_migrations == 1 and dst != src,
+              f"{label}: request {rid} ({mode}) did not move ({src} -> "
+              f"{dst})")
+        print(f"{label}: request {rid} migrated by {mode} from shard {src} "
+              f"to {dst}; its stream "
+              f"{'equals' if got[rid] == base[rid] else 'parts from'} "
+              "the unmigrated one")
+    check(s["migrations"] == 2 and s["migrated_bytes_total"] > 0,
+          f"{label}: migrations {s['migrations']}")
+    hold_streams(f"{label}: migrated vs unmigrated", (got, base), prompts3,
+                 (served_logits(qparams, cfg, sched, dev, **sshape),
+                  served_logits(qparams, cfg, bsched, dev, **sshape)),
+                 DIST_NEW)
+    out[label] = launches
+    del eng
+
+    mesh = make_host_mesh(model=RING_SHARDS, devices=[dev] * RING_SHARDS)
+    label = f"ring TP ServeEngine(mesh=) over {RING_SHARDS} shards"
+    got, s, launches, _, _ = engine_run(
+        label, w8a8_engine(cfg, qparams, dev, mesh=mesh), prompts3, DIST_NEW)
+    check(got == want3, f"{label}: streams differ from the unsharded "
+          "engine's (every W8A8 product is bit-identical)")
+    check(s["model_calls"] == ws3["model_calls"]
+          and launches["mp_matmul"] == RING_SHARDS * wl3["mp_matmul"],
+          f"{label}: mp_matmul launches {launches['mp_matmul']} are not "
+          f"{RING_SHARDS} x the unsharded run's {wl3['mp_matmul']}")
+    for k in ("paged_mha_decode", "paged_verify"):
+        check(launches[k] == wl3[k], f"{label}: {k} launches differ")
+    print(f"{label}: streams token for token the unsharded engine's; "
+          f"mp_matmul launches {launches['mp_matmul']} = {RING_SHARDS} x "
+          f"{wl3['mp_matmul']} over {s['model_calls']} model calls")
+    out[label] = launches
+    return out
+
+
+def dist_agreement_phase(dev):
+    """Reduced ``recurrentgemma-9b`` (rings and recurrent states) through
+    ``DistributedServeEngine`` 2 x 2, stacked, chain speculation, on two
+    shards of the card and on two CPU entries with the same W8A8
+    weights: the streams held under the near-tie rule, as phase 10."""
+    arch = "recurrentgemma-9b"
+    phase(f"reduced-config agreement ({arch}, distributed 2x2 stacked "
+          "chain, card vs CPU, same W8A8 weights)")
+    cfg = get_config(arch).reduced()
+    rng = np.random.default_rng(2)
+    params = lm.init(cfg, torch.Generator().manual_seed(0),
+                     max_seq=AGREE_MAX_SEQ)
+    calib = [rng.integers(1, cfg.vocab_size, (2, 32))]
+    qparams = quantize_model_params(params, cfg, calibrate(params, cfg,
+                                                           calib))
+    run = rng.integers(1, cfg.vocab_size, 5).tolist()
+    prompts = [run * 6] + [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+                           for n in (3, 17, 60, 9)]
+    outs, fns = [], []
+    for d, qp in ((dev, to_device(qparams, dev)),
+                  (torch.device("cpu"), qparams)):
+        eng = DistributedServeEngine(
+            cfg, qparams, mesh=make_serving_mesh(2, [d] * 2),
+            slots_per_shard=2, max_seq=AGREE_MAX_SEQ, eos_id=-1,
+            act_dtype=torch.float32, chunk_size=AGREE_CHUNK,
+            page_size=AGREE_PAGE, kv_layout="stacked",
+            spec=SpecConfig(k=CHAIN_K))
+        for p in prompts:
+            eng.submit(p, max_new=16)
+        with DistScheduleProbe(eng) as probe:
+            outs.append({r.rid: r.out for r in eng.run()})
+        s = eng.stats()
+        print(f"reduced {arch} distributed chain on {d.type}: acceptance "
+              f"{s['acceptance_rate']:.3f} "
+              f"({s['spec_accepted']}/{s['spec_proposed']}), "
+              f"{s['spec_ticks']} verify calls, overlap_ratio "
+              f"{s['overlap_ratio']:.3f}")
+        fns.append(served_logits(qp, cfg, probe.calls, d, rows=2,
+                                 layout="stacked"))
+    hold_streams(f"reduced {arch} distributed 2x2 chain card vs CPU", outs,
+                 prompts, fns, 16)
+
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3730,6 +4270,7 @@ def main() -> int:
         entries[name]["whisper"] = rows
     for name, rows in mixed_kernels_phase(dev, timer).items():
         entries[name]["mixed"] = rows
+    entries["mp_matmul"]["column_shards"] = ring_phase(dev, timer)
     moe_ffn_phase(dev, timer)
     recurrent_block_phase(dev, timer)
     del timer
@@ -3739,6 +4280,7 @@ def main() -> int:
     stacked_launches = stacked_phase(dev, qparams, cfg, *chain_run)
     oc_launches = overcommit_phase(dev, qparams, cfg)
     replay_launches = replay_phase(dev, qparams, cfg)
+    dist_launches = distributed_phase(dev, qparams, cfg, chain_run)
     del qparams
     agreement_phase(dev)
     agreement_phase(dev, prefill_mode="replay")
@@ -3751,13 +4293,14 @@ def main() -> int:
     whisper_agreement_phase(dev)
     for arch in AGREE_ARCHS:
         agreement_phase(dev, arch)
+    dist_agreement_phase(dev)
     train_launches = training_phase(dev)
     by_kernel_phase(dev, entries)
     phase("kernels")
     by_run = {"plain": launches,
               **{f"{run} spec": n for run, n in spec_launches.items()},
               **stacked_launches, "over-commit": oc_launches,
-              **replay_launches,
+              **replay_launches, **dist_launches,
               "MDK program": {"ln_res": ln_launches}, **family_launches,
               "trained checkpoint": train_launches}
     # each kernel's count from the run of its own path: plain paged

@@ -7,10 +7,14 @@ norms, ``{"table"}`` embeddings), so the weight bridge maps them one to
 one.  ``linear`` is the single entry point for every matmul: it runs the
 Fused MP kernel (``ops.quant_matmul``) when the group is quantized, and
 a dense product otherwise, feeding the SmoothQuant calibration recorder.
+Under :func:`tp_context` both go through the ring tensor parallelism of
+:mod:`repro_torch.core.ring` instead.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -19,6 +23,61 @@ import torch.nn.functional as F
 from repro_torch.core import quant
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels import ops
+
+
+_tp_local = threading.local()
+
+
+@contextlib.contextmanager
+def tp_context(mesh, axis: str = "model", strategy: str = "ring_ag",
+               shards: Optional[dict] = None):
+    """Route every ``linear`` called under this context through the ring
+    collective matmul over ``mesh``'s ``axis`` (a
+    :class:`~repro_torch.launch.mesh.DeviceMesh`): a dense product through
+    :func:`repro_torch.core.ring.tp_matmul` with ``strategy``, a W8A8 one
+    through :func:`repro_torch.core.ring.tp_quant_matmul`.  The serving
+    engine enters it around its model calls when given ``mesh=``.  A
+    product whose dimensions do not divide over the axis takes the local
+    path.  Weight shards are kept in ``shards`` (a fresh dict for the
+    context's life when None; the engine passes one it keeps), so each
+    weight is split once."""
+    prev = getattr(_tp_local, "ctx", None)
+    _tp_local.ctx = (mesh, axis, strategy, {} if shards is None else shards)
+    try:
+        yield
+    finally:
+        _tp_local.ctx = prev
+
+
+def _tp_matmul_or_none(x2: torch.Tensor, w: torch.Tensor):
+    ctx = getattr(_tp_local, "ctx", None)
+    if ctx is None or w.dim() != 2:
+        return None
+    mesh, axis, strategy, shards = ctx
+    n = mesh.shape[axis]
+    K, N = w.shape
+    if K % n or N % n:
+        return None  # the shards would not align: local product
+    from repro_torch.core import ring
+
+    return ring.tp_matmul(x2, w, mesh, axis, strategy, shards=shards)
+
+
+def _tp_quant_matmul_or_none(x_q, x_scale, p, out_dtype):
+    """The column-sharded W8A8 product under a :func:`tp_context`
+    (bit-identical to the local kernel's), or None outside one or when
+    the output columns do not divide over the axis."""
+    ctx = getattr(_tp_local, "ctx", None)
+    if ctx is None or p["w_q"].dim() != 2:
+        return None
+    mesh, axis, _, shards = ctx
+    if p["w_q"].shape[1] % mesh.shape[axis]:
+        return None
+    from repro_torch.core import ring
+
+    return ring.tp_quant_matmul(
+        x_q, p["w_q"], x_scale, p["w_scale"], p.get("bias"), mesh=mesh,
+        axis=axis, out_dtype=out_dtype, shards=shards)
 
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int, *,
@@ -39,11 +98,15 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
     if "w_q" in p:  # quantized serving path -> Fused MP kernel
         xs = x2.float() * (1.0 / p["smooth"])[None, :]
         x_q, x_scale = quant.quantize_act(xs)
-        y = ops.quant_matmul(x_q, p["w_q"], x_scale, p["w_scale"],
-                             p.get("bias"), out_dtype=x.dtype)
+        y = _tp_quant_matmul_or_none(x_q, x_scale, p, x.dtype)
+        if y is None:
+            y = ops.quant_matmul(x_q, p["w_q"], x_scale, p["w_scale"],
+                                 p.get("bias"), out_dtype=x.dtype)
     else:
         quant.record_act_stats(name, x2)
-        y = x2 @ p["w"].to(x.dtype)
+        y = _tp_matmul_or_none(x2, p["w"])
+        if y is None:
+            y = x2 @ p["w"].to(x.dtype)
         if "b" in p:
             y = y + p["b"].to(x.dtype)
     return y.reshape(*lead, y.shape[-1])

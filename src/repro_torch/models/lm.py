@@ -46,12 +46,18 @@ rejects drafts must undo them: :func:`verify_snapshot` copies the ring
 slots a verify will overwrite, and :func:`commit_verify` puts back those
 of rejected drafts and selects each recurrent state off the verify's
 trajectory.
+
+Over a mesh, the distributed engine's ``sharded_decode_step``,
+``sharded_prefill_into_slot``, ``sharded_verify_chunk``,
+``sharded_commit_verify`` and ``sharded_compact_accepted_path`` call
+these on each shard's own cache, one cache dict per shard.
 """
 from __future__ import annotations
 
 from functools import partial
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -667,3 +673,160 @@ def compact_accepted_path(cfg: ModelConfig, cache: Dict, src: torch.Tensor,
         for pool in c.values():
             pool[pg_d, :, off_d] = pool[pg_s, :, off_s]
     return cache
+
+
+# ---------------------------------------------------------------------------
+# serving over a mesh: the distributed engine's per-shard calls
+# ---------------------------------------------------------------------------
+#
+# The distributed engine (serving/distributed) partitions request slots
+# over the shards of a mesh.  The reference holds one cache whose leading
+# axis is the shard axis and runs the single-device function per device
+# under ``shard_map``; here one controller loops over the shards.  A
+# shard's cache is the ordinary cache dict on ``mesh.devices[s]``, held in
+# a list indexed by shard (``caches[s]``), and every other per-shard input
+# is a list too (entry s on device s; host integers for a prefill's slot,
+# offset and valid count).  ``params`` is one params tree per shard, each
+# on its shard's device (on one card named several times, the same
+# tensors).  K/V never leave their shard: only tokens, lengths, block
+# tables and logits cross.  ``shards`` names the shards that have work in
+# a call; the others are skipped, their caches untouched and their logits
+# zeros (the reference runs them on parked rows, which write nothing).
+
+
+def _gather_or_keep(parts, gather_logits: bool):
+    from repro_torch.core import collectives
+
+    return collectives.ring_all_gather(parts) if gather_logits else parts
+
+
+def _filled(outs, shards, like_shape, mesh):
+    """Per-shard outputs with zeros for skipped shards."""
+    ref = next(o for o in outs if o is not None)
+    return [o if o is not None else
+            torch.zeros(like_shape, dtype=ref.dtype, device=d)
+            for o, d in zip(outs, mesh.devices)]
+
+
+def sharded_decode_step(params, cfg: ModelConfig, mesh, tokens, caches,
+                        lengths, *, actives=None, block_tables=None,
+                        shards=None, gather_logits: bool = True,
+                        dtype=torch.bfloat16):
+    """One decode step on every shard (:func:`decode_step` on shard s's
+    cache with its ``tokens[s]`` (Bs, 1), ``lengths[s]`` (Bs,),
+    ``actives[s]`` and, paged, ``block_tables[s]``).  With
+    ``gather_logits`` each shard's (Bs, V) logits ride the ring
+    all-gather (:func:`repro_torch.core.collectives.ring_all_gather`), so
+    every device holds the (D * Bs, V) batch in global slot order;
+    otherwise the per-shard logits come back.  Returns (per-device
+    logits, caches)."""
+    run = range(mesh.size) if shards is None else shards
+    outs = [None] * mesh.size
+    for s in run:
+        outs[s], caches[s] = decode_step(
+            params[s], cfg, tokens[s], caches[s], lengths[s],
+            active=None if actives is None else actives[s],
+            block_table=None if block_tables is None else block_tables[s],
+            dtype=dtype)
+    Bs = tokens[run[0]].shape[0]
+    outs = _filled(outs, run, (Bs, cfg.vocab_size), mesh)
+    return _gather_or_keep(outs, gather_logits), caches
+
+
+def sharded_prefill_into_slot(params, cfg: ModelConfig, mesh, tokens,
+                              caches, slots, offsets, valids, actives, *,
+                              block_tables=None, dtype=torch.bfloat16):
+    """One prefill round: every shard with ``actives[s]`` writes its chunk
+    ``tokens[s]`` (C,) at ``offsets[s]`` into local slot ``slots[s]``
+    (:func:`prefill_into_slot`, ``valids[s]`` real tokens; paged through
+    the slot's table row ``block_tables[s]``).  Other shards keep their
+    caches.  Returns (per-shard last logits (V,) float32, zeros for an
+    idle shard, caches)."""
+    outs = [None] * mesh.size
+    for s in range(mesh.size):
+        if not actives[s]:
+            continue
+        bt = ({} if block_tables is None
+              else {"block_table": block_tables[s]})
+        outs[s], caches[s] = prefill_into_slot(
+            params[s], cfg, tokens[s], caches[s], int(offsets[s]),
+            slot=int(slots[s]), valid=int(valids[s]), dtype=dtype, **bt)
+    return _filled(outs, None, (cfg.vocab_size,), mesh), caches
+
+
+def sharded_verify_chunk(params, cfg: ModelConfig, mesh, tokens, caches,
+                         lengths, *, valids=None, block_tables=None,
+                         anc=None, depths=None, with_traj: bool = False,
+                         shards=None, gather_logits: bool = True,
+                         dtype=torch.bfloat16):
+    """One speculative verify on every shard (:func:`verify_chunk` on
+    shard s's cache with ``tokens[s]`` (Bs, C), ``lengths[s]`` and the
+    optional ``valids``, ``block_tables``, ``anc``, ``depths`` entries).
+    Rows parked at ``lengths >= max_seq`` (``valids == 0``) write
+    nothing, so a wave's verify never touches the other wave's rows.
+    With ``gather_logits`` the (Bs, C, V) logits ride the ring
+    all-gather as in :func:`sharded_decode_step`.  Returns (per-device
+    logits, caches[, per-shard trajectories, None for skipped
+    shards])."""
+    run = range(mesh.size) if shards is None else shards
+    outs, trajs = [None] * mesh.size, [None] * mesh.size
+
+    def at(x, s):
+        return None if x is None else x[s]
+
+    for s in run:
+        res = verify_chunk(
+            params[s], cfg, tokens[s], caches[s], lengths[s],
+            valids=at(valids, s), block_tables=at(block_tables, s),
+            anc=at(anc, s), depths=at(depths, s), with_traj=with_traj,
+            dtype=dtype)
+        outs[s], caches[s] = res[0], res[1]
+        if with_traj:
+            trajs[s] = res[2]
+    Bs, C = tokens[run[0]].shape
+    outs = _gather_or_keep(_filled(outs, run, (Bs, C, cfg.vocab_size),
+                                   mesh), gather_logits)
+    if with_traj:
+        return outs, caches, trajs
+    return outs, caches
+
+
+def sharded_commit_verify(cfg: ModelConfig, mesh, snaps, caches, trajs,
+                          lengths, counts, valids, *, chunk: int):
+    """:func:`commit_verify` on every shard that verified (``snaps[s]``
+    not None: :func:`verify_snapshot` of its cache), on its own device:
+    rings and recurrent states never leave their shard.  ``lengths``,
+    ``counts`` and ``valids`` are (D, Bs) host arrays.  Rows with
+    ``counts == 0`` (the other wave, idle slots) pass through, so the
+    commit may land a tick after the verify.  Returns the caches."""
+    for s, snap in enumerate(snaps):
+        if snap is None:
+            continue
+        dev = mesh.devices[s]
+
+        def put(a):
+            return torch.as_tensor(a[s], dtype=torch.int32).to(
+                dev, non_blocking=True)
+
+        caches[s] = commit_verify(cfg, snap, caches[s], trajs[s],
+                                  put(lengths), put(counts), put(valids),
+                                  chunk=chunk)
+    return caches
+
+
+def sharded_compact_accepted_path(cfg: ModelConfig, mesh, caches, src, dst,
+                                  *, block_tables=None):
+    """:func:`compact_accepted_path` on every shard: ``src`` / ``dst``
+    (D, Bs, m) and ``block_tables`` (D, Bs, n_pg) host arrays.  A row
+    whose targets lie past its table or cache (the other wave, chain-
+    shaped accepts) moves nothing, and a shard with no such row is
+    skipped.  Returns the caches."""
+    for s in range(mesh.size):
+        if (np.asarray(src[s]) == np.asarray(dst[s])).all():
+            continue
+        bt = (None if block_tables is None
+              else torch.as_tensor(block_tables[s]))
+        caches[s] = compact_accepted_path(
+            cfg, caches[s], torch.as_tensor(src[s]),
+            torch.as_tensor(dst[s]), block_tables=bt)
+    return caches

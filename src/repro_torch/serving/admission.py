@@ -15,11 +15,18 @@ budget derived from the analytic stage program: decode streams every
 weight through the MP kernel anyway, so the budget is however many
 pipelined prefill tokens fit in a fixed fraction of a decode tick
 (``core/perfmodel.py``, the paper's FPGA model).
+
+For the distributed engine: :class:`ShardPlacement` picks the one pool
+shard a request lives on (prefix affinity, then least loaded), and
+:class:`DecodeWaveScheduler` splits the decoding slots into the two
+phase-shifted decode waves.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.perfmodel import FPGAPerfModel
@@ -45,6 +52,90 @@ def derive_prefill_budget(cfg: ModelConfig, chunk_size: int, *,
     fit = int(hide_frac * pm.token_latency()["total"]
               / max(pm.prefill_token_latency(), 1e-12))
     return max(chunk_size, min(fit, 8 * chunk_size))
+
+
+class ShardPlacement:
+    """Deterministic shard choice for the distributed engine's admission.
+    A request lives on exactly one pool shard (its pages never straddle
+    shards).  Preference: (1) prefix affinity, the shards holding the
+    longest ready shared prefix of the prompt (page links work within one
+    shard's page ids); on a hit only those shards are candidates, so a
+    momentarily full prefix shard makes the request wait rather than lose
+    the link; (2) the most available pages (paged) or free slots
+    (stacked); (3) the lowest shard id."""
+
+    def order(self, shards, prompt=None, *, share: bool = True):
+        """Candidate shard ids, most preferred first."""
+        hits = [(m.shared_prefix_pages(prompt)
+                 if share and prompt is not None
+                 and hasattr(m, "shared_prefix_pages") else 0)
+                for m in shards]
+
+        def key(i):
+            avail = getattr(shards[i], "available_pages", None)
+            if avail is None:
+                avail = shards[i].n_free
+            return (-hits[i], -avail, i)
+
+        order = sorted(range(len(shards)), key=key)
+        best = max(hits, default=0)
+        if best > 0:  # commit to the copy-free link
+            order = [i for i in order if hits[i] == best]
+        return order
+
+
+class DecodeWaveScheduler:
+    """Decoding slots in ``n_waves`` phase-shifted decode waves (the
+    paper's alternating dual-FPGA batches).  The distributed engine
+    dispatches each wave apart within a tick, so one wave's logits fetch
+    lands while the other's call is in flight.  Invariants: waves never
+    share a slot (one ``wave[slot]`` array); a slot that starts decoding
+    joins the lightest wave (lowest id on ties); a wave that runs empty
+    takes half the movable slots of the heaviest, which idle one tick."""
+
+    def __init__(self, n_slots: int, n_waves: int = 2):
+        if n_waves < 1 or n_slots < 1:
+            raise ValueError(f"n_slots={n_slots}, n_waves={n_waves}")
+        self.n_waves = n_waves
+        self.wave = np.full((n_slots,), -1, np.int64)  # -1 = unassigned
+
+    def counts(self) -> List[int]:
+        return [int((self.wave == w).sum()) for w in range(self.n_waves)]
+
+    def imbalance(self) -> float:
+        """(heaviest - lightest) / assigned, 0 when balanced or empty."""
+        c = self.counts()
+        total = sum(c)
+        return (max(c) - min(c)) / total if total else 0.0
+
+    def members(self, w: int) -> List[int]:
+        return [b for b in range(len(self.wave)) if self.wave[b] == w]
+
+    def release(self, slot: int) -> None:
+        self.wave[slot] = -1
+
+    def join(self, slot: int) -> int:
+        """Seat a slot that starts decoding in the lightest wave (no-op
+        for an assigned one); returns its wave."""
+        if self.wave[slot] < 0:
+            self.wave[slot] = int(np.argmin(self.counts()))
+        return int(self.wave[slot])
+
+    def assign(self, movable: Sequence[int]) -> None:
+        """Place unassigned slots and refill emptied waves; only
+        ``movable`` slots (no dispatch in flight) join or move."""
+        movable = list(movable)
+        for b in movable:
+            if self.wave[b] < 0:
+                self.wave[b] = int(np.argmin(self.counts()))
+        for w in range(self.n_waves):
+            c = self.counts()
+            if c[w]:
+                continue
+            donor = int(np.argmax(c))
+            pool = [b for b in movable if self.wave[b] == donor]
+            for b in pool[:min(len(pool), c[donor] // 2)]:
+                self.wave[b] = w
 
 
 def victim_order(candidates, pages_of):

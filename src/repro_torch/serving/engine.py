@@ -74,8 +74,18 @@ the reference.  The engine runs on ``device`` (default
 The stacks served are decoders of every block kind of the reference
 with a dense or a MoE FFN (``models/moe.py``: the router and the expert
 banks stay in floating point under W8A8, as in the reference, and run as
-batched products in the activation stream's dtype).  Not ported (it
-raises ``NotImplementedError``): ring tensor parallelism (``mesh=``).
+batched products in the activation stream's dtype).
+
+Ring tensor parallelism: ``mesh=`` (a
+:class:`~repro_torch.launch.mesh.DeviceMesh` with a ``"model"`` axis,
+e.g. ``make_host_mesh(model=4, devices=["cuda:0"] * 4)``) runs every
+tick under :func:`repro_torch.models.layers.tp_context`, so each linear
+goes through the ring schedule of :mod:`repro_torch.core.ring`: a W8A8
+one column-split over the axis (bit-identical to the unsharded kernel,
+so the served stream does not change), a dense one through the ring
+all-gather matmul; a shape that does not divide (GPT-2's tied head)
+stays local.  The cache stays on the engine's ``device``; a mesh of
+another device type than it is refused.
 ``prefill_mode="replay"``
 (the reference's A/B debug mode and its serving bench's baseline)
 replays each prompt one token a tick through the decode step, on either
@@ -97,7 +107,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import scheduler as sched
 from repro_torch.core.perfmodel import FPGAPerfModel
 from repro_torch.models import blocks, lm
-from repro_torch.models.layers import to_device
+from repro_torch.models.layers import tp_context
 from repro_torch.serving import sampler as samplers
 from repro_torch.serving import speculative
 from repro_torch.serving.admission import FIFOAdmission
@@ -105,7 +115,7 @@ from repro_torch.serving.kv_cache import PagedCacheManager, SlotCacheManager
 from repro_torch.serving.lifecycle import (DECODE, PREFILL, LifecycleMixin,
                                            Request, drain_engine,
                                            latency_stats, submit_request)
-from repro_torch.serving.quantize import calibrate, quantize_model_params
+from repro_torch.serving.quantize import serving_params
 from repro_torch.serving.telemetry import (TID_ENGINE, Telemetry,
                                            linear_edges, registry_counter)
 
@@ -156,10 +166,6 @@ class ServeEngine(LifecycleMixin):
         telemetry: Optional[Telemetry] = None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServeEngine(mesh=) is not ported: this engine serves on "
-                "one device")
         if prefill_mode not in ("auto", "chunked", "replay"):
             raise ValueError(f"prefill_mode={prefill_mode!r} must be "
                              "'auto', 'chunked' or 'replay'")
@@ -181,21 +187,27 @@ class ServeEngine(LifecycleMixin):
         lm.check_supported(cfg)
         self.tel = telemetry or Telemetry()
         self.device = resolve_device(device)
+        if mesh is not None:
+            if "model" not in mesh.axis_names:
+                raise ValueError(f"mesh axes {mesh.axis_names} have no "
+                                 "'model' axis for tensor parallelism")
+            kinds = {d.type for d in mesh.devices}
+            if kinds != {self.device.type}:
+                raise ValueError(
+                    f"mesh devices {sorted(kinds)} differ in type from the "
+                    f"engine's device {self.device}: a mismatched mesh "
+                    "would move the work off it")
+        self.mesh = mesh
+        # the mesh's weight shards, split once (``tp_context(shards=)``)
+        self._tp_shards: dict = {}
         self.cfg = cfg
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.B = batch_slots
         self.chunk_size = min(chunk_size, max_seq)
-        params = to_device(params, self.device)
-        if quantized:
-            stats = None
-            if calibration_batches is not None:
-                stats = calibrate(params, cfg, calibration_batches)
-            params = quantize_model_params(params, cfg, stats)
-        # the W8A8 path re-quantizes activations at every MP kernel input,
-        # so the stream between kernels stays float32
-        self.act_dtype = act_dtype or (torch.float32 if quantized
-                                       else torch.bfloat16)
+        params, self.act_dtype = serving_params(
+            params, cfg, self.device, quantized=quantized,
+            calibration_batches=calibration_batches, act_dtype=act_dtype)
         self.params = params
         # every decoder stack chunks; replay is the A/B debug mode
         self.prefill_mode = "replay" if prefill_mode == "replay" \
@@ -255,35 +267,9 @@ class ServeEngine(LifecycleMixin):
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
 
         self.spec = spec
-        self.proposer: Optional[speculative.DraftProposer] = None
-        self.adaptive: Optional[speculative.AdaptiveDraft] = None
-        if spec is not None:
-            if spec.k < 1:
-                raise ValueError(f"SpecConfig.k={spec.k} must be >= 1")
-            if spec.tree and spec.branch < 1:
-                raise ValueError(
-                    f"SpecConfig.branch={spec.branch} must be >= 1")
-            if "local_attn" in cfg.block_pattern:
-                W = min(cfg.window, max_seq)
-                if spec.k + 1 > W:
-                    raise ValueError(
-                        f"SpecConfig.k={spec.k}: a verify writes k+1 ring "
-                        f"positions but the rotating window holds {W} — "
-                        "state rewind needs k+1 <= W so an accepted write "
-                        "can never share a ring slot with a rejected one")
-            if spec.tree and not blocks.page_addressable(cfg):
-                raise ValueError(
-                    "tree speculation forks K/V across sibling branches, "
-                    "which only absolute-position attn caches support — "
-                    "rings rotate and recurrent states carry, neither can "
-                    "hold two candidate futures at once.  This stack has "
-                    f"kinds {sorted(set(cfg.block_pattern))}; use linear "
-                    "speculation (tree=False) for hybrid stacks")
-            self.proposer = speculative.make_proposer(
-                spec, batch_slots, max_seq, chunk_size=self.chunk_size,
-                dtype=self.act_dtype, device=self.device)
-            self.proposer.tracer = self.tel.tracer
-            self.adaptive = speculative.AdaptiveDraft.from_spec(spec)
+        self.proposer, self.adaptive = speculative.engine_draft(
+            cfg, spec, batch_slots, max_seq, chunk_size=self.chunk_size,
+            dtype=self.act_dtype, device=self.device, tracer=self.tel.tracer)
 
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.queue: deque = deque()
@@ -342,7 +328,15 @@ class ServeEngine(LifecycleMixin):
     def tick(self) -> None:
         """One engine tick: prefill chunks within the budget, then one
         batched decode step over every decoding slot (with
-        ``prefill_mode="replay"``: :meth:`_tick_replay`)."""
+        ``prefill_mode="replay"``: :meth:`_tick_replay`).  With ``mesh=``
+        every model call of the tick runs under the ring tensor
+        parallelism."""
+        if self.mesh is not None:
+            with tp_context(self.mesh, shards=self._tp_shards):
+                return self._tick()
+        return self._tick()
+
+    def _tick(self) -> None:
         if self.prefill_mode == "replay":
             return self._tick_replay()
         t_tick = time.perf_counter()

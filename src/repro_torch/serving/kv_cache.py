@@ -41,6 +41,11 @@ Preemption to host (``evict_to_host`` / ``restore``) copies a request's
 cache rows (stacked) or pages (paged, in block-table order, with a mixed
 stack's slot-resident rows) to host memory and scatters them back
 verbatim into a fresh slot or fresh pages.
+
+For the distributed engine (``serving/distributed``) a manager can hold
+host metadata only (``with_cache=False``): the engine keeps one cache per
+shard, on that shard's device, in a list, and passes it with the shard
+index to ``evict_to_host`` / ``restore`` (``cache=caches, shard=s``).
 """
 from __future__ import annotations
 
@@ -58,7 +63,20 @@ class PagePoolExhausted(RuntimeError):
     """Mid-decode page growth found the pool empty.  Only the over-commit
     admission mode can raise this (reservation mode pre-pays every
     request's worst-case lifetime); the engine catches it and preempts a
-    victim."""
+    victim.  ``slot`` names the request whose growth hit the wall, which
+    locates the exhausted shard of a sharded pool."""
+
+    def __init__(self, msg: str, slot: Optional[int] = None):
+        super().__init__(msg)
+        self.slot = slot
+
+
+def _own_or_given(own: Optional[Dict], cache, shard: Optional[int]) -> Dict:
+    """The cache an eviction or restore works on: the manager's own, or
+    the given one (entry ``shard`` of a per-shard list)."""
+    if cache is None:
+        return own
+    return cache if shard is None else cache[shard]
 
 
 def blob_nbytes(blob: Dict) -> int:
@@ -98,6 +116,17 @@ class StateStore:
         return lm.commit_verify(self.cfg, snap, cache, traj, lengths,
                                 counts, valids, chunk=chunk)
 
+    def commit_sharded(self, mesh, snaps, caches, trajs, lengths, counts,
+                       valids, *, chunk: int):
+        """:meth:`commit` on every shard of a mesh, each on its own device
+        (:func:`repro_torch.models.lm.sharded_commit_verify`): ``snaps``,
+        ``caches`` and ``trajs`` are per-shard lists, ``lengths`` /
+        ``counts`` / ``valids`` (D, Bs).  Rows with ``counts == 0`` pass
+        through, so one wave's commit may land a tick late."""
+        return lm.sharded_commit_verify(self.cfg, mesh, snaps, caches,
+                                        trajs, lengths, counts, valids,
+                                        chunk=chunk)
+
     def evict_to_host(self, cache: Dict, slot: int) -> Dict:
         """The slot-resident entries (rings, recurrent states) of ``slot``
         on host memory: ``page_ids=()`` gathers no page of an ``attn``
@@ -123,7 +152,8 @@ class SlotCacheManager:
     accounting: no layer ever holds more than ``min(len, W)`` positions."""
 
     def __init__(self, cfg: ModelConfig, batch_slots: int, max_seq: int, *,
-                 dtype=torch.bfloat16, device=None, bounded: bool = True):
+                 dtype=torch.bfloat16, device=None, bounded: bool = True,
+                 with_cache: bool = True):
         self.cfg = cfg
         self.B = batch_slots
         self.max_seq = max_seq
@@ -131,9 +161,12 @@ class SlotCacheManager:
         self.state: Optional[StateStore] = (
             StateStore(cfg)
             if any(k != "attn" for k in cfg.block_pattern) else None)
-        self.cache = lm.init_cache(cfg, batch_slots, max_seq,
-                                   layout="stacked", dtype=dtype,
-                                   device=device)
+        # with_cache=False: host metadata only (the distributed engine
+        # keeps the caches, one per shard)
+        self.cache: Optional[Dict] = (
+            lm.init_cache(cfg, batch_slots, max_seq, layout="stacked",
+                          dtype=dtype, device=device)
+            if with_cache else None)
         self.lengths = np.zeros((batch_slots,), np.int32)
         # heap-backed free list: lowest slot first, as the reference
         self._free: List[int] = list(range(batch_slots))
@@ -161,26 +194,32 @@ class SlotCacheManager:
         self.lengths[slot] = 0
 
     # -- preemption: host round trip ------------------------------------
-    def evict_to_host(self, slot: int) -> Dict:
-        """Snapshot a slot's cache rows to host memory and free the slot."""
+    def evict_to_host(self, slot: int, *, cache=None,
+                      shard: Optional[int] = None) -> Dict:
+        """Snapshot a slot's cache rows to host memory and free the slot
+        (from the manager's cache, or ``cache[shard]`` of a per-shard
+        list, or ``cache``)."""
         if slot not in self._used:
             raise ValueError(f"evict of unallocated slot {slot}")
+        src = _own_or_given(self.cache, cache, shard)
         blob = {"layout": "stacked", "length": int(self.lengths[slot]),
-                "kv": lm.gather_request_cache(self.cfg, self.cache, slot)}
+                "kv": lm.gather_request_cache(self.cfg, src, slot)}
         self.free(slot)
         return blob
 
-    def restore(self, blob: Dict, *,
-                lifetime_tokens: Optional[int] = None) -> Optional[int]:
-        """Re-seat a host snapshot into a fresh slot; returns the slot, or
-        None when no slot is free."""
+    def restore(self, blob: Dict, *, lifetime_tokens: Optional[int] = None,
+                cache=None, shard: Optional[int] = None):
+        """Re-seat a host snapshot into a fresh slot.  Returns None when no
+        slot is free, else the slot, or ``(slot, cache)`` when a ``cache``
+        was given (written in place)."""
         slot = self.alloc()
         if slot is None:
             return None
         self.lengths[slot] = blob["length"]
-        self.cache = lm.scatter_request_cache(self.cfg, self.cache,
-                                              blob["kv"], slot)
-        return slot
+        lm.scatter_request_cache(self.cfg, _own_or_given(self.cache, cache,
+                                                         shard),
+                                 blob["kv"], slot)
+        return slot if cache is None else (slot, cache)
 
     def pages_held(self, slot: int) -> int:
         """Victim-policy weight: the stacked layout has no pages, so the
@@ -219,6 +258,14 @@ class SlotCacheManager:
             return True  # window-capped: rings wrap, states are O(1)
         return self.length_of(slot) + n <= self.max_seq
 
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_used(self) -> int:
+        return len(self._used)
+
     def stats(self) -> Dict[str, int]:
         """The slot analogue of ``PagedCacheManager.stats``."""
         return {
@@ -239,7 +286,7 @@ class PagedCacheManager:
                  page_size: int = 16, n_pages: Optional[int] = None,
                  prefix_sharing: bool = True, dtype=torch.bfloat16,
                  device=None, overcommit: bool = False,
-                 watermark: float = 1.0):
+                 watermark: float = 1.0, with_cache: bool = True):
         if max_seq % page_size:
             raise ValueError(
                 f"page_size={page_size} must divide max_seq={max_seq}")
@@ -269,9 +316,12 @@ class PagedCacheManager:
         self.state: Optional[StateStore] = (
             StateStore(cfg)
             if any(k != "attn" for k in cfg.block_pattern) else None)
-        self.cache = lm.init_cache(cfg, n_pages, page_size, layout="paged",
-                                   dtype=dtype, device=device,
-                                   slots=batch_slots, slot_seq=max_seq)
+        # with_cache=False: host metadata only (see SlotCacheManager)
+        self.cache: Optional[Dict] = (
+            lm.init_cache(cfg, n_pages, page_size, layout="paged",
+                          dtype=dtype, device=device, slots=batch_slots,
+                          slot_seq=max_seq)
+            if with_cache else None)
         self.lengths = np.zeros((batch_slots,), np.int32)
         self.block_tables = np.zeros(
             (batch_slots, self.pages_per_seq), np.int32)
@@ -345,6 +395,11 @@ class PagedCacheManager:
             pids.append(pid)
             parent = pid
         return pids, h
+
+    def shared_prefix_pages(self, prompt: Sequence[int]) -> int:
+        """Ready full prefix pages this pool holds for ``prompt`` (no
+        change to the pool): the shard-placement affinity signal."""
+        return len(self._match_prefix(prompt)[0])
 
     def probe_pending(self, prompt: Sequence[int]) -> bool:
         """True if the prompt's next unshared full prefix page is
@@ -507,32 +562,36 @@ class PagedCacheManager:
         heapq.heappush(self._free_slots, slot)
 
     # -- preemption: host round trip ------------------------------------
-    def evict_to_host(self, slot: int) -> Dict:
+    def evict_to_host(self, slot: int, *, cache=None,
+                      shard: Optional[int] = None) -> Dict:
         """Snapshot a slot's pages (in block-table order) and, on a mixed
         stack, its slot-resident rings and states to host memory, and free
         the slot.  Shared pages are copied, then released by the free; the
-        restore scatters onto fresh, unshared pages."""
+        restore scatters onto fresh, unshared pages.  ``cache`` /
+        ``shard`` as in :meth:`SlotCacheManager.evict_to_host`."""
         if slot not in self._used_slots:
             raise ValueError(f"evict of unallocated slot {slot}")
         pages = list(self._slot_pages[slot])
+        src = _own_or_given(self.cache, cache, shard)
         blob = {"layout": "paged", "length": int(self.lengths[slot]),
                 "min_len": self._min_len.get(slot, 0),
                 "n_pages": len(pages),
-                "kv": lm.gather_request_cache(self.cfg, self.cache, slot,
+                "kv": lm.gather_request_cache(self.cfg, src, slot,
                                               page_ids=pages)}
         self.free(slot)
         return blob
 
-    def restore(self, blob: Dict, *,
-                lifetime_tokens: Optional[int] = None) -> Optional[int]:
+    def restore(self, blob: Dict, *, lifetime_tokens: Optional[int] = None,
+                cache=None, shard: Optional[int] = None):
         """Re-seat a host snapshot: claim a slot and fresh pages (the same
         count, any ids: the block table re-maps them), scatter the content
         back (a mixed stack's rings and states into the new slot's rows)
         and resume the length where it stopped.  Returns the slot, or
-        None (wait).  Restores bypass the over-commit watermark (the
-        request paid admission once) but need the pages; in reservation
-        mode the rest of the worst-case lifetime (``lifetime_tokens``) is
-        reserved again."""
+        ``(slot, cache)`` when a ``cache`` was given, or None (wait).
+        Restores bypass the over-commit watermark (the request paid
+        admission once) but need the pages; in reservation mode the rest
+        of the worst-case lifetime (``lifetime_tokens``) is reserved
+        again."""
         need = blob["n_pages"]
         if not self._free_slots:
             return None
@@ -557,10 +616,10 @@ class PagedCacheManager:
         self.block_tables[slot] = 0
         self.block_tables[slot, :len(pages)] = pages
         self.lengths[slot] = blob["length"]
-        self.cache = lm.scatter_request_cache(self.cfg, self.cache,
-                                              blob["kv"], slot,
-                                              page_ids=pages)
-        return slot
+        lm.scatter_request_cache(self.cfg, _own_or_given(self.cache, cache,
+                                                         shard),
+                                 blob["kv"], slot, page_ids=pages)
+        return slot if cache is None else (slot, cache)
 
     def pages_held(self, slot: int) -> int:
         """Victim-policy weight: pages currently backing the slot."""
@@ -650,7 +709,8 @@ class PagedCacheManager:
                     if self.n_free_pages == 0:
                         raise PagePoolExhausted(
                             f"slot {slot} page growth to {need} tokens "
-                            "found the over-committed pool empty")
+                            "found the over-committed pool empty",
+                            slot=slot)
                     pid = self._claim_page()
                 else:
                     raise RuntimeError(
@@ -662,6 +722,14 @@ class PagedCacheManager:
     # -- introspection --------------------------------------------------
     def has_room(self, slot: int, n: int = 1) -> bool:
         return self.length_of(slot) + n <= self.max_seq
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free_slots)
+
+    @property
+    def n_used(self) -> int:
+        return len(self._used_slots)
 
     def refcount(self, pid: int) -> int:
         return int(self._refcount[pid])

@@ -7,16 +7,22 @@ The JAX package's state machine (``repro/serving/lifecycle.py``):
     request detours through ``PREEMPTED_HOST`` (its cache round-trips to
     host memory and is restored verbatim) or ``PREEMPTED_RECOMPUTE``
     (everything is freed and ``prompt + out[:-1]`` is prefilled again),
-    and ``cancel`` ends it in ``CANCELLED``.  ``MIGRATING`` (the JAX
-    distributed engine's cross-shard move) is kept in the table as data;
-    no engine of this package enters it.  Every state change goes through
+    and ``cancel`` ends it in ``CANCELLED``.  ``MIGRATING`` is the
+    distributed engine's cross-shard move
+    (``DistributedServeEngine.migrate``).  Every state change goes through
     :func:`transition`, which raises :class:`IllegalTransition` on
     anything outside :data:`LEGAL_TRANSITIONS`.
   * :class:`LifecycleMixin` — the engine's slot bookkeeping: priority /
     deadline ordered admission (exact FIFO when every request carries the
     defaults), seating, emission (TTFT/TPOT accounting, retirement),
     preemption with a victim policy, host restore, recompute resume and
-    ``cancel(rid)``.
+    ``cancel(rid)``.  Its hooks (:meth:`LifecycleMixin._set_cur_tok`,
+    ``_in_flight_slots``, ``_slot_shard``, ``_on_decode_start``,
+    ``_release_slot_extra``, ``_admit_args``, ``_evict_blob``,
+    ``_restore_blob``) give the distributed engine its geometry: global
+    slots over shards, slots whose dispatch is still in flight (their
+    cancel, migration or eviction waits for the consume), and the decode
+    waves.
 
 Resume is an arithmetic identity: a request that has emitted ``m``
 tokens holds ``P + m - 1`` cache positions (``out[-1]`` is the pending
@@ -105,8 +111,16 @@ class Request:
     #: the resume prefill's last logits must not emit: ``out[-1]`` is
     #: already the pending current token
     resume_decode: bool = False
-    #: the host snapshot while ``PREEMPTED_HOST``
+    #: the host snapshot while ``PREEMPTED_HOST`` (or a migration that
+    #: ships state)
     host_blob: Optional[dict] = None
+    #: a cancel waiting for the consume of the slot's in-flight dispatch
+    cancel_requested: bool = False
+    #: the shard a migration's re-admission must land on
+    forced_shard: Optional[int] = None
+    #: a migration ``(to_shard, mode)`` waiting for the consume
+    migrate_to: Optional[tuple] = None
+    n_migrations: int = 0
 
     @property
     def done(self) -> bool:
@@ -180,15 +194,19 @@ def submit_request(engine, prompt, max_new: int, sampling) -> int:
     return rid
 
 
-def drain_engine(engine, max_ticks: int, on_stall: str) -> List[Request]:
-    """Tick until nothing is queued or seated, or ``max_ticks`` loop
-    iterations pass.  Leftovers raise (``on_stall="raise"``) or are
-    counted in ``stats()["stalled"]`` (``"ignore"``)."""
+def drain_engine(engine, max_ticks: int, on_stall: str,
+                 pending=None) -> List[Request]:
+    """Tick until nothing is queued or seated (or ``pending()`` is false,
+    when given), or ``max_ticks`` loop iterations pass.  Leftovers raise
+    (``on_stall="raise"``) or are counted in ``stats()["stalled"]``
+    (``"ignore"``)."""
     if on_stall not in ("raise", "ignore"):
         raise ValueError(f"on_stall={on_stall!r} must be 'raise' or 'ignore'")
+    if pending is None:
+        def pending():
+            return engine.queue or any(s is not None for s in engine.slots)
     spent = 0
-    while (engine.queue or any(s is not None for s in engine.slots)) \
-            and spent < max_ticks:
+    while pending() and spent < max_ticks:
         engine.tick()
         spent += 1
     queued = [r.rid for r in engine.queue]
@@ -219,11 +237,13 @@ def latency_stats(engine) -> Dict[str, float]:
 
 
 class LifecycleMixin:
-    """The request state machine of the serving engine.  Host
+    """The request state machine of the serving engines.  Host
     attributes: ``kv``, ``paged``, ``_share``, ``queue``, ``slots``,
     ``finished``, ``tel``, ``admission``, ``seq_ceiling``, ``eos_id``,
-    ``cur_tok``, ``_temp``/``_topk``/``_topp``, ``_h_ttft``/``_h_tpot``,
-    ``proposer`` and ``adaptive`` (None without speculation)."""
+    ``cur_tok``, ``_temp``/``_topk``/``_topp`` (indexed by global slot),
+    ``_h_ttft``/``_h_tpot``, ``proposer`` and ``adaptive`` (None without
+    speculation).  The hooks below are the single-device geometry; the
+    distributed engine overrides them."""
 
     preemptions = registry_counter("preemptions")
     preempt_host = registry_counter("preempt_host")
@@ -257,6 +277,37 @@ class LifecycleMixin:
             "evicted_bytes_p99": self._h_evict.quantile(0.99),
         }
 
+    # -- engine hooks ------------------------------------------------------
+    def _set_cur_tok(self, slot: int, tok: int) -> None:
+        self.cur_tok[slot, 0] = tok
+
+    def _in_flight_slots(self) -> frozenset:
+        """Slots whose dispatched call is not consumed yet: never evicted,
+        freed or migrated in place."""
+        return frozenset()
+
+    def _slot_shard(self, slot: int) -> int:
+        return 0
+
+    def _on_decode_start(self, req: Request) -> None:
+        """The request entered DECODE (prefill done, host restore or
+        recompute resume)."""
+
+    def _release_slot_extra(self, slot: int) -> None:
+        """Extra per-slot teardown (decode-wave membership)."""
+
+    def _admit_args(self, req: Request, slot: int,
+                    shared_tokens: int) -> dict:
+        return {"rid": req.rid, "slot": slot,
+                "shared_tokens": shared_tokens}
+
+    def _evict_blob(self, req: Request) -> dict:
+        return self.kv.evict_to_host(req.slot)
+
+    def _restore_blob(self, req: Request) -> Optional[int]:
+        return self.kv.restore(
+            req.host_blob, lifetime_tokens=len(req.prompt) + req.max_new)
+
     # -- admission ---------------------------------------------------------
     def _admit(self) -> None:
         """Seat queued (and preempted) requests while they place.  The
@@ -283,11 +334,13 @@ class LifecycleMixin:
         shared_tokens)``.  Raises ``ValueError`` for a request that can
         never fit."""
         if req.host_blob is not None:
-            slot = self.kv.restore(
-                req.host_blob, lifetime_tokens=len(req.prompt) + req.max_new)
+            slot = self._restore_blob(req)
             return None if slot is None else (slot, 0)
+        # a migration's re-admission lands on its target shard
+        where = ({} if req.forced_shard is None
+                 else {"shard": req.forced_shard})
         if not self.paged:
-            slot = self.kv.alloc()
+            slot = self.kv.alloc(**where)
             return None if slot is None else (slot, 0)
         ctx = req.context
         # prefix sharing is for fresh prompts: a resume context holds
@@ -297,7 +350,7 @@ class LifecycleMixin:
         # and link its pages instead of prefilling them again
         if share and self.kv.probe_pending(ctx):
             return None
-        return self.kv.alloc(ctx, req.remaining_new, share=share)
+        return self.kv.alloc(ctx, req.remaining_new, share=share, **where)
 
     def _admit_by_preemption(self, req: Request):
         """Make room for a higher-priority arrival by preempting strictly
@@ -317,6 +370,7 @@ class LifecycleMixin:
     # -- seating -----------------------------------------------------------
     def _seat_common(self, req: Request, slot: int) -> None:
         req.slot = slot
+        req.forced_shard = None
         self.slots[slot] = req
         if self.adaptive is not None:
             self.adaptive.alloc(slot)
@@ -329,12 +383,11 @@ class LifecycleMixin:
         # a prefix-sharing hit starts prefill past the shared pages
         req.filled = shared_tokens
         self._seat_common(req, slot)
-        self.cur_tok[slot, 0] = req.context[0]  # replay's first token
+        self._set_cur_tok(slot, req.context[0])  # replay's first token
         tr = self.tel.tracer
         if tr.enabled:
             tr.instant("req.admitted", "request", TID_REQUEST,
-                       {"rid": req.rid, "slot": slot,
-                        "shared_tokens": shared_tokens})
+                       self._admit_args(req, slot, shared_tokens))
         if self.proposer is not None:
             self.proposer.alloc(slot, req.context, shared_tokens)
 
@@ -351,12 +404,13 @@ class LifecycleMixin:
             # bring the proposer back in step: a draft model replays the
             # context through its own cache, the n-gram table rebuilds
             self.proposer.alloc(slot, ctx[:-1], len(ctx) - 1)
-        self.cur_tok[slot, 0] = req.out[-1]
+        self._set_cur_tok(slot, req.out[-1])
         self.restores += 1
         tr = self.tel.tracer
         if tr.enabled:
             tr.instant("req.restored", "request", TID_REQUEST,
                        {"rid": req.rid, "slot": slot, "mode": "host"})
+        self._on_decode_start(req)
 
     def _finish_prefill(self, req: Request, sample_tok) -> None:
         """The slot's context is written.  A fresh request emits its first
@@ -364,17 +418,20 @@ class LifecycleMixin:
         resume does not: ``out[-1]`` becomes the current token again."""
         if not req.resume_decode:
             self._emit(req, sample_tok(), time.monotonic())
+            if not req.done:
+                self._on_decode_start(req)
             return
         req.resume_decode = False
         req.ctx = None
         transition(req, DECODE)
-        self.cur_tok[req.slot, 0] = req.out[-1]
+        self._set_cur_tok(req.slot, req.out[-1])
         self.restores += 1
         tr = self.tel.tracer
         if tr.enabled:
             tr.instant("req.restored", "request", TID_REQUEST,
                        {"rid": req.rid, "slot": req.slot,
                         "mode": "recompute"})
+        self._on_decode_start(req)
 
     # -- emission ----------------------------------------------------------
     def _emit(self, req: Request, tok: int, now: float) -> None:
@@ -403,7 +460,7 @@ class LifecycleMixin:
             self._free_slot(req)
         else:
             transition(req, DECODE)
-            self.cur_tok[req.slot, 0] = tok
+            self._set_cur_tok(req.slot, tok)
 
     def _free_slot(self, req: Request, *, free_kv: bool = True) -> None:
         """Release what a seated request holds (cache, draft state,
@@ -416,16 +473,23 @@ class LifecycleMixin:
             self.proposer.free(slot)
         if self.adaptive is not None:
             self.adaptive.free(slot)
-        self.cur_tok[slot, 0] = 0
+        self._set_cur_tok(slot, 0)
+        self._release_slot_extra(slot)
 
     # -- preemption --------------------------------------------------------
-    def _pick_victim(self, *, max_priority: Optional[int] = None
-                     ) -> Optional[Request]:
+    def _pick_victim(self, *, max_priority: Optional[int] = None,
+                     shard: Optional[int] = None) -> Optional[Request]:
         """The victim policy (:func:`~repro_torch.serving.admission.
         victim_order`) over seated requests, restricted to those of a
-        priority below ``max_priority`` when it is given."""
-        cands = [r for r in self.slots if r is not None
-                 and (max_priority is None or r.priority < max_priority)]
+        priority below ``max_priority`` and on ``shard`` when given.  A
+        slot with an in-flight dispatch or a pending cancel is never a
+        victim."""
+        in_flight = self._in_flight_slots()
+        cands = [r for b, r in enumerate(self.slots)
+                 if r is not None and b not in in_flight
+                 and not r.cancel_requested
+                 and (max_priority is None or r.priority < max_priority)
+                 and (shard is None or self._slot_shard(b) == shard)]
         if not cands:
             return None
         return victim_order(cands, lambda r: self.kv.pages_held(r.slot))[0]
@@ -444,7 +508,7 @@ class LifecycleMixin:
         slot = req.slot
         if mode == "host":
             transition(req, PREEMPTED_HOST)
-            req.host_blob = self.kv.evict_to_host(slot)
+            req.host_blob = self._evict_blob(req)
             nbytes = blob_nbytes(req.host_blob)
             self._c_evicted.value += nbytes
             self._h_evict.record(nbytes)
@@ -479,8 +543,10 @@ class LifecycleMixin:
             try:
                 self.kv.ensure_decode_room(mask, n)
                 return mask
-            except PagePoolExhausted:
-                victim = self._pick_victim()
+            except PagePoolExhausted as e:
+                victim = self._pick_victim(
+                    shard=None if e.slot is None
+                    else self._slot_shard(e.slot))
                 if victim is None:
                     raise
                 vslot = victim.slot
@@ -490,15 +556,21 @@ class LifecycleMixin:
     # -- cancel ------------------------------------------------------------
     def cancel(self, rid: int) -> bool:
         """Abort a request: drop it from the queue, or tear down its slot
-        (cache, draft state, sampling row) if seated.  Returns True if the
-        rid was live."""
+        (cache, draft state, sampling row) if seated; a slot with an
+        in-flight dispatch is torn down when that dispatch is consumed.
+        Returns True if the rid was live."""
         for r in list(self.queue):
             if r.rid == rid:
                 self.queue.remove(r)
                 self._finalize_cancel(r)
                 return True
-        for r in self.slots:
+        for b, r in enumerate(self.slots):
             if r is not None and r.rid == rid:
+                if r.cancel_requested:
+                    return True
+                if b in self._in_flight_slots():
+                    r.cancel_requested = True
+                    return True
                 self._free_slot(r)
                 self._finalize_cancel(r)
                 return True
@@ -506,6 +578,7 @@ class LifecycleMixin:
 
     def _finalize_cancel(self, req: Request) -> None:
         transition(req, CANCELLED)
+        req.cancel_requested = False
         req.host_blob = None
         self.cancelled += 1
         self.cancelled_reqs.append(req)

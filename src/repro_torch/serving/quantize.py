@@ -21,6 +21,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
 from repro_torch.models import lm
+from repro_torch.models.layers import to_device
 
 
 @torch.no_grad()
@@ -81,3 +82,21 @@ def quantize_model_params(params, cfg: ModelConfig,
         return node
 
     return walk(params, "")
+
+
+def serving_params(params, cfg: ModelConfig, device, *,
+                   quantized: bool = False, calibration_batches=None,
+                   act_dtype: Optional[torch.dtype] = None):
+    """An engine's params on ``device`` and its activation dtype.  With
+    ``quantized`` the linears become W8A8 (calibrated on
+    ``calibration_batches`` when given), and the stream between the MP
+    kernels, which re-quantize their inputs, defaults to float32; else
+    bf16."""
+    params = to_device(params, device)
+    if quantized:
+        stats = None
+        if calibration_batches is not None:
+            stats = calibrate(params, cfg, calibration_batches)
+        params = quantize_model_params(params, cfg, stats)
+    return params, act_dtype or (torch.float32 if quantized
+                                 else torch.bfloat16)

@@ -691,3 +691,45 @@ def make_proposer(
                           max_seq, spec.k, chunk_size=chunk_size,
                           dtype=dtype, device=device)
     raise ValueError(f"unknown proposer {spec.proposer!r}")
+
+
+def validate_spec(cfg: ModelConfig, spec: SpecConfig, max_seq: int) -> None:
+    """Refuse a speculation config the stack cannot serve, as both
+    engines do before they build a proposer."""
+    if spec.k < 1:
+        raise ValueError(f"SpecConfig.k={spec.k} must be >= 1")
+    if spec.tree and spec.branch < 1:
+        raise ValueError(f"SpecConfig.branch={spec.branch} must be >= 1")
+    if "local_attn" in cfg.block_pattern:
+        W = min(cfg.window, max_seq)
+        if spec.k + 1 > W:
+            raise ValueError(
+                f"SpecConfig.k={spec.k}: a verify writes k+1 ring "
+                f"positions but the rotating window holds {W} — "
+                "state rewind needs k+1 <= W so an accepted write "
+                "can never share a ring slot with a rejected one")
+    if spec.tree and not blocks.page_addressable(cfg):
+        raise ValueError(
+            "tree speculation forks K/V across sibling branches, "
+            "which only absolute-position attn caches support — "
+            "rings rotate and recurrent states carry, neither can "
+            "hold two candidate futures at once.  This stack has "
+            f"kinds {sorted(set(cfg.block_pattern))}; use linear "
+            "speculation (tree=False) for hybrid stacks")
+
+
+def engine_draft(cfg: ModelConfig, spec: Optional[SpecConfig],
+                 batch_slots: int, max_seq: int, *, chunk_size: int,
+                 dtype, device, tracer
+                 ) -> Tuple[Optional[DraftProposer], Optional[AdaptiveDraft]]:
+    """An engine's proposer over its ``batch_slots`` slots and its draft
+    sizer, after :func:`validate_spec`; ``(None, None)`` without
+    speculation."""
+    if spec is None:
+        return None, None
+    validate_spec(cfg, spec, max_seq)
+    proposer = make_proposer(spec, batch_slots, max_seq,
+                             chunk_size=chunk_size, dtype=dtype,
+                             device=device)
+    proposer.tracer = tracer
+    return proposer, AdaptiveDraft.from_spec(spec)

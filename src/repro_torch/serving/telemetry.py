@@ -15,7 +15,10 @@
 ``STATS_KEYS_ENGINE`` documents exactly what ``ServeEngine.stats()``
 returns, and ``STATS_KEYS_ENGINE_SPEC`` what it returns with
 speculation (plus ``adaptive_slots`` and ``adaptive_cap_mean`` under
-adaptive draft sizing).
+adaptive draft sizing); ``STATS_KEYS_DISTRIBUTED`` what
+``DistributedServeEngine.stats()`` returns.  The distributed engine's
+transfer meter re-emits each of its events as a span on the
+"transfers" track (:meth:`Tracer.transfer`).
 """
 from __future__ import annotations
 
@@ -28,8 +31,10 @@ from typing import Dict, List, Optional
 
 #: Chrome trace-event tracks
 TID_ENGINE = 0
+TID_TRANSFER = 1
 TID_REQUEST = 2
-_TID_NAMES = {TID_ENGINE: "engine", TID_REQUEST: "requests"}
+_TID_NAMES = {TID_ENGINE: "engine", TID_TRANSFER: "transfers",
+              TID_REQUEST: "requests"}
 
 
 class Counter:
@@ -226,6 +231,9 @@ class NullTracer:
     def async_end(self, name, id_, cat="request"):
         return None
 
+    def transfer(self, name, t0, nbytes, hidden, phase, kind="stage"):
+        return None
+
     def reset(self):
         return None
 
@@ -257,6 +265,17 @@ class Tracer(NullTracer):
 
     def async_end(self, name, id_, cat="request"):
         self._events.append(("e", name, cat, id_, self._now_us(), 0.0, None))
+
+    def transfer(self, name, t0, nbytes, hidden, phase, kind="stage"):
+        """One transfer-meter event as a complete span on the transfers
+        track, cat ``transfer.hidden`` or ``transfer.exposed``; ``t0`` is
+        its ``time.perf_counter()`` start."""
+        t1 = time.perf_counter()
+        self._events.append((
+            "X", name, "transfer." + ("hidden" if hidden else "exposed"),
+            TID_TRANSFER, (t0 - self._t0) * 1e6, (t1 - t0) * 1e6,
+            {"bytes": nbytes, "hidden": hidden, "phase": phase,
+             "kind": kind}))
 
     def reset(self) -> None:
         self._events.clear()
@@ -333,4 +352,21 @@ STATS_KEYS_ENGINE_SPEC = STATS_KEYS_ENGINE | frozenset({
     "acceptance_rate", "tokens_per_verify_call", "draft_calls",
     "spec_accept_len_p50", "spec_accept_len_p99",
     "verify_touched_positions", "verify_dense_positions",
+})
+
+#: every key ``DistributedServeEngine.stats()`` returns (paged, no
+#: speculation) once both of its phases, ticks with prefill work and
+#: pure-decode ticks, have occurred — the JAX package's
+#: ``STATS_KEYS_DISTRIBUTED``
+STATS_KEYS_DISTRIBUTED = (
+    STATS_KEYS_ENGINE - {"tokens_per_model_call"}) | frozenset({
+    "n_shards", "decode_waves", "mean_device_utilization",
+    "wave_occupancy_mean", "wave_occupancy_p50", "wave_imbalance",
+    "migrations", "migrated_bytes_total",
+    "transfers", "transfers_hidden", "transfers_exposed",
+    "transfer_bytes", "transfer_bytes_hidden", "transfer_bytes_exposed",
+    "max_transfer_bytes", "overlap_ratio", "byte_overlap_ratio",
+    "transfers_prefill", "transfers_exposed_prefill",
+    "overlap_ratio_prefill",
+    "transfers_drain", "transfers_exposed_drain", "overlap_ratio_drain",
 })

@@ -34,6 +34,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import perfmodel, scheduler
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.serving import (admission, kv_cache, sampler, speculative,
                                  telemetry)
 from repro_torch.serving.engine import ServeEngine
@@ -136,11 +137,16 @@ def test_engine_without_card_raises(setup, monkeypatch):
         proposer="model", draft_params={},
         draft_cfg=dataclasses.replace(get_config("gpt2-345m").reduced(),
                                       block_pattern=("rglru",)))},
-    {"prefill_mode": "replay"}, {"mesh": object()},
+    {"prefill_mode": "replay"},
+    # ring tensor parallelism is ported; a mesh of another device type
+    # than the engine's is refused
+    {"mesh": DeviceMesh((torch.device("cuda", 0),) * 4, ("data", "model"),
+                        (1, 4))},
 ])
 def test_unported_engine_options_raise(setup, kw, fp_pair):
     """Options the port refuses raise; replay prefill, refused before its
-    port, now serves the chunked engine's float32 streams."""
+    port, now serves the chunked engine's float32 streams, and a mesh is
+    refused only when its devices differ in type from the engine's."""
     _, cfg, _, tparams, prompts, _ = setup
     if kw.get("prefill_mode") == "replay":
         eng = ServeEngine(cfg, tparams, batch_slots=SLOTS, max_seq=MAX_SEQ,
@@ -151,7 +157,7 @@ def test_unported_engine_options_raise(setup, kw, fp_pair):
         assert eng.stats()["prefill_calls"] == 0
         return
     exc, match = ((ValueError, "global-attention draft") if "spec" in kw
-                  else (NotImplementedError, "not ported"))
+                  else (ValueError, "differ in type"))
     with pytest.raises(exc, match=match):
         ServeEngine(cfg, tparams, max_seq=MAX_SEQ, device="cpu", **kw)
 

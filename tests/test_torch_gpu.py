@@ -1614,3 +1614,108 @@ def test_async_save_of_card_state_isolated_from_later_steps(h100, tmp_path):
     assert not torch.equal(tree_leaves(state)[0], tree_leaves(want)[0])
     for a, b in zip(tree_leaves(got), tree_leaves(want)):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# multi-device serving on shards of the card (a mesh naming it several times)
+
+
+@pytest.mark.gpu
+def test_ring_collectives_on_four_shards_of_the_card(h100):
+    """The ring all-gather bit-identical to ``torch.cat``, the int8-wire
+    all-reduce within one int8 step per hop of the CPU's, the ring
+    products within 1e-5 relative of one float32 product, and the
+    column-split W8A8 product bit-identical to the unsharded kernel."""
+    from repro_torch.core import collectives, ring
+    from repro_torch.launch.mesh import make_host_mesh
+
+    n = 4
+    mesh = make_host_mesh(model=n, devices=[h100] * n)
+    rng = np.random.default_rng(41)
+    blocks = [torch.from_numpy(rng.standard_normal((3, 7, 50)).astype(
+        np.float32)).to(h100) for _ in range(n)]
+    for out in collectives.ring_all_gather(blocks):
+        assert torch.equal(out, torch.cat(blocks))
+    xs = [rng.standard_normal(4096).astype(np.float32) for _ in range(n)]
+    got = collectives.compressed_psum(
+        [torch.from_numpy(x).to(h100) for x in xs])
+    cpu = collectives.compressed_psum([torch.from_numpy(x) for x in xs])[0]
+    step = np.abs(np.stack(xs)).sum(axis=0).max() / 127.0
+    assert max((g.cpu() - cpu).abs().max().item() for g in got) <= n * step
+    x = torch.from_numpy(rng.standard_normal((8, 256)).astype(
+        np.float32)).to(h100)
+    w = torch.from_numpy(rng.standard_normal((256, 512)).astype(
+        np.float32)).to(h100)
+    want = x @ w
+    for fn, dim in ((ring.ring_ag_matmul, 1), (ring.ring_rs_matmul, 0)):
+        y = torch.cat(fn(list(x.chunk(n, dim=1)),
+                         [c.contiguous() for c in w.chunk(n, dim=dim)]), 1)
+        assert (y - want).abs().max() <= 1e-5 * want.abs().max()
+    for M in (8, 32, 40):
+        xq = torch.from_numpy(rng.integers(-127, 128, (M, 1024),
+                                           dtype=np.int8)).to(h100)
+        wq = torch.from_numpy(rng.integers(-127, 128, (1024, 4096),
+                                           dtype=np.int8)).to(h100)
+        xsc = torch.from_numpy(rng.uniform(1e-3, 1e-1, (M, 1)).astype(
+            np.float32)).to(h100)
+        wsc = torch.from_numpy(rng.uniform(1e-4, 1e-2, (1, 4096)).astype(
+            np.float32)).to(h100)
+        ops.reset_launch_counts()
+        got = ring.tp_quant_matmul(xq, wq, xsc, wsc, mesh=mesh,
+                                   out_dtype=torch.float32)
+        assert ops.launch_counts()["mp_matmul"] == n
+        assert torch.equal(got, ops.quant_matmul(xq, wq, xsc, wsc,
+                                                 out_dtype=torch.float32))
+
+
+@pytest.mark.gpu
+def test_distributed_engine_on_card_2x2(h100):
+    """A reduced W8A8 ``DistributedServeEngine`` on 2 shards x 2 slots of
+    the card against the single-device engine with 4 slots on the card:
+    the streams held under ``chip_smoke.py``'s near-tie rule along each
+    run's own calls; every paged kernel launched; then
+    ``ServeEngine(mesh=)`` over 4 shards of the card, whose streams are
+    the unsharded engine's token for token."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh, make_serving_mesh
+    from repro_torch.models import lm
+    from repro_torch.serving.distributed import DistributedServeEngine
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.quantize import calibrate, quantize_model_params
+
+    cs = _chip_smoke()
+    cfg = get_config("gpt2-345m").reduced()
+    params = lm.init(cfg, torch.Generator().manual_seed(0), max_seq=128)
+    rng = np.random.default_rng(5)
+    qp = quantize_model_params(params, cfg, calibrate(
+        params, cfg, [rng.integers(1, cfg.vocab_size, (2, 32))]))
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (3, 17, 33, 60, 9, 25)]
+    kw = dict(max_seq=128, eos_id=-1, act_dtype=torch.float32,
+              chunk_size=16, page_size=16)
+    dist = DistributedServeEngine(
+        cfg, qp, mesh=make_serving_mesh(2, [h100] * 2), slots_per_shard=2,
+        **kw)
+    single = ServeEngine(cfg, qp, batch_slots=4, device=h100, **kw)
+    streams, fns = [], []
+    for eng, probe, rows in ((dist, cs.DistScheduleProbe, 2),
+                             (single, cs.ScheduleProbe, 4)):
+        for p in prompts:
+            eng.submit(p, max_new=16)
+        ops.reset_launch_counts()
+        with probe(eng) as pr:
+            streams.append({r.rid: r.out for r in eng.run()})
+        launches = ops.launch_counts()
+        for k in ("mp_matmul", "paged_mha_decode", "paged_verify"):
+            assert launches[k] > 0, (k, launches)
+        fns.append(cs.served_logits(eng.params, cfg, pr.calls, h100,
+                                    rows=rows))
+    cs.hold_streams("distributed 2x2 vs single-device on the card", streams,
+                    prompts, fns, 16)
+    assert dist.stats()["overlap_ratio"] >= 0.5
+    mesh = make_host_mesh(model=4, devices=[h100] * 4)
+    ringed = ServeEngine(cfg, qp, batch_slots=4, device=h100, mesh=mesh,
+                         **kw)
+    for p in prompts:
+        ringed.submit(p, max_new=16)
+    assert {r.rid: r.out for r in ringed.run()} == streams[1]
