@@ -262,6 +262,28 @@ failure exits non-zero and nothing is caught and continued:
     counts match the calls, the streams are equal, and the checkpoint's
     run's counts join the ``kernels`` line as ``trained checkpoint``.
     Last, three steps without deterministic algorithms, for their cost.
+12c. Analysis: full-width ``gpt2-345m``, W8A8, paged, the serving
+    settings of phase 5, 8 requests of 32 new tokens on seeded prompts of
+    64-256 tokens, after a warm-up on an engine of its own.  An untraced
+    run, each ``lm.decode_step`` timed by CUDA events, then the same
+    requests on an engine with ``Telemetry(trace=True, annotate=True)``
+    under ``torch.profiler`` (CPU and CUDA): the streams equal, token
+    for token; the host trace passes ``validate_chrome_trace``; each
+    annotated dispatch name has as many profiler ranges as host spans
+    (matched by name and count, never by time); every ``mp_matmul``,
+    ``paged_verify`` and paged decode CUDA function is launched from
+    inside a range (``telemetry.profile_ranges``: a kernel's launch call
+    by correlation id), as many as their counters say, none outside;
+    ``modeled_vs_measured`` per span name and the profiler's cost in
+    tokens/s printed.  The median decode step against
+    ``perfmodel.roofline_terms`` of ``model_flops(cfg, "decode", ctx, 8)``
+    and the bytes it must move (the int8 linears, the tied float32 table
+    whole, the K and V pages its rows read, the logits written): the
+    share bound / measured must be in (0, 1.05].  ``greedy``,
+    ``temperature(0.01)`` and ``top_k(1)`` on a CUDA generator equal the
+    argmax, and two seeded draws are equal.  Last, the dry run's
+    ``run_cell`` on ``meta`` for ``gpt2-345m``'s three cells and
+    ``llama3-8b``'s ``decode_32k`` on the single pod mesh: all ``ok``.
 13. The device time of each CUDA function of the timed calls
     (``torch.profiler``): one layer's six ``mp_matmul`` calls at M 8 and
     32 (one function), the timed paged and contiguous decodes and the
@@ -270,9 +292,10 @@ failure exits non-zero and nothing is caught and continued:
     calls; last of the measuring phases because the profiler leaves later
     launches slower.
 14. One ``kernels`` JSON line (six kernels, each with its launches on its
-    own path and per run, the trained checkpoint's serving run among the
-    runs, the RoPE family's rows under ``wide_heads``
-    and ``family_widths``, the hybrid stacks' under ``hybrid``,
+    own path and per run, the trained checkpoint's serving run and the
+    analysis run among the runs, the RoPE family's rows under
+    ``wide_heads`` and ``family_widths``, the hybrid stacks' under
+    ``hybrid``,
     whisper's under ``whisper``, the mixed stack's under ``mixed``), the
     total time, the card's name and power limit, then the device JSON
     line last.
@@ -286,6 +309,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -300,12 +324,13 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import collectives, ring, scheduler  # noqa: E402
+from repro_torch.core import (collectives, partition,  # noqa: E402
+                              perfmodel, ring, scheduler)
 from repro_torch.core.mdk import MDK_REGISTRY  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.mesh import (make_host_mesh,  # noqa: E402
-                                     make_serving_mesh)
+from repro_torch.launch import dryrun, serve  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_host_mesh, make_production_mesh, make_serving_mesh)
 from repro_torch.models import attention, blocks, lm, moe  # noqa: E402
 from repro_torch.models.layers import activation_fn, to_device  # noqa: E402
 from repro_torch.serving.admission import (  # noqa: E402
@@ -315,8 +340,11 @@ from repro_torch.serving.distributed import (  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.serving.lifecycle import (  # noqa: E402
     DECODE, PREEMPTED_HOST, PREEMPTED_RECOMPUTE)
+from repro_torch.serving import sampler  # noqa: E402
 from repro_torch.serving.speculative import (SpecConfig,  # noqa: E402
                                              TokenTree, tree_arrays)
+from repro_torch.serving.telemetry import (  # noqa: E402
+    Telemetry, modeled_vs_measured, profile_ranges, validate_chrome_trace)
 from repro_torch.serving.quantize import (calibrate,  # noqa: E402
                                           quantize_model_params)
 from repro_torch.core.tree import tree_leaves, tree_map  # noqa: E402
@@ -327,10 +355,10 @@ from repro_torch.training.trainer import (  # noqa: E402
     make_train_step)
 
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
-#: NVIDIA H100 SXM data sheet: HBM3 rate, dense tensor-core peaks, and
-#: float32 outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+#: NVIDIA H100 SXM data sheet (``core/perfmodel``'s ``H100_*``): HBM3
+#: rate, dense tensor-core peaks, and float32 outside the tensor cores
+HBM_BYTES_PER_S = perfmodel.H100_HBM_BW
+PEAK_OPS = perfmodel.H100_PEAK_OPS
 #: serving shapes of the main path
 SLOTS, CHUNK, MAX_SEQ, PAGE = 8, 32, 1024, 16
 MP_SHAPES = ((1024, 1024), (1024, 4096), (4096, 1024))  # (K, N)
@@ -426,6 +454,22 @@ MIXED_PATTERN, MIXED_LAYERS, MIXED_MAX_SEQ = (
     ("attn", "local_attn", "rglru"), 6, 4096)
 MIXED_TIMED_LENGTHS = (80, 179, 278, 377, 476, 576, 2164, 2464)
 MIXED_OVERCOMMIT_PAGES = 1 + 160 + 48
+#: the analysis phase: requests, new tokens and prompt lengths of its
+#: traced run; the engine's annotated dispatch sites; the CUDA function
+#: each kernel of the paged W8A8 path launches once a call (the decode's
+#: split kernel is its Paged instance, the combines are not counted);
+#: the largest share of its roofline bound a decode step may show (a
+#: step faster than its bound means a wrong bound or a wrong clock); the
+#: dry run's cells on the single production mesh
+ANALYSIS_REQUESTS, ANALYSIS_NEW, ANALYSIS_PROMPT_LENS = 8, 32, (64, 256)
+ANNOTATED = ("prefill.chunk", "decode.step", "spec.verify", "prefill.round",
+             "wave.consume", "wave.dispatch")
+RANGE_KERNELS = {"mp_matmul": ("mp_matmul_kernel",),
+                 "paged_verify": ("verify::split_kernel",),
+                 "paged_mha_decode": ("decode::split_kernel", "Paged")}
+ROOFLINE_SHARE_MAX = 1.05
+DRYRUN_CELLS = (("gpt2-345m", "train_4k"), ("gpt2-345m", "prefill_32k"),
+                ("gpt2-345m", "decode_32k"), ("llama3-8b", "decode_32k"))
 
 
 #: the timed calls profiled by CUDA function after the serving phases
@@ -4251,6 +4295,199 @@ def dist_agreement_phase(dev):
 
 
 
+# ---------------------------------------------------------------------------
+# the analysis layer: profiler ranges, the roofline share, samplers, dry run
+
+
+class DecodeStepClock:
+    """Times every ``lm.decode_step`` an engine makes with CUDA events
+    around the call (no host sync), and keeps each step's host lengths
+    and active mask, for the roofline of a measured step."""
+
+    def __init__(self, eng):
+        self.eng, self.steps = eng, []
+
+    def __enter__(self):
+        self.orig = lm.decode_step
+
+        def timed(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            lengths = self.eng.kv.lengths.copy()
+            e0.record()
+            out = self.orig(*args, **kw)
+            e1.record()
+            self.steps.append((e0, e1, lengths, kw.get("active")))
+            return out
+
+        lm.decode_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        lm.decode_step = self.orig
+        return False
+
+    def measured(self):
+        """[(device ms, lengths, active rows)] once the run synchronized."""
+        return [(a.elapsed_time(b), n, act.cpu().numpy().astype(bool))
+                for a, b, n, act in self.steps]
+
+
+def decode_step_bytes(params, cfg, lengths, active) -> int:
+    """The bytes a paged W8A8 decode step of ``cfg`` must move: every
+    parameter read once (the tied embedding table whole, for the head;
+    the position table's rows of the batch only), the K and V pages of
+    each active row read whole (its new position included), one K and V
+    position written per active row, and the float32 logits written."""
+    B = len(lengths)
+    total = 0
+    for path, t in zip(*partition.leaf_paths(params)):
+        if path.endswith("pos_embed"):
+            total += B * t.shape[-1] * t.element_size()
+        else:
+            total += t.numel() * t.element_size()
+    pages = -(-(lengths[active].astype(np.int64) + 1) // PAGE)
+    kv_pos = 2 * cfg.n_layers * cfg.kv_dim * 2  # bf16 K and V, all layers
+    total += int(pages.sum()) * PAGE * kv_pos + int(active.sum()) * kv_pos
+    return total + B * cfg.vocab_size * 4
+
+
+def served(eng, prompts, max_new):
+    """Submit, run to the end, synchronize: (rid -> tokens, wall s)."""
+    for p in prompts:
+        eng.submit(p, max_new=max_new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    return {r.rid: r.out for r in done}, time.perf_counter() - t0
+
+
+def analysis_phase(dev):
+    """The analysis layer on the card: (a) a traced and annotated run
+    under ``torch.profiler``, its ranges and kernels against the host
+    spans and launch counts, its streams and tokens/s against an untraced
+    run (both after a warm-up); (b) the median decode step of the
+    untraced run against its roofline bound;
+    (c) the single-policy samplers on a CUDA generator; (d) dry-run cells
+    on ``meta``.  Returns the traced run's launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    phase("analysis (full-width gpt2-345m, W8A8, paged: profiler ranges, "
+          "the decode step's roofline share, samplers, the dry run)")
+    cfg = get_config("gpt2-345m")
+    rng = np.random.default_rng(24)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = lm.init(cfg, gen, max_seq=MAX_SEQ, device=dev)
+    calib = [rng.integers(1, cfg.vocab_size, (2, 128))]
+    lo, hi = ANALYSIS_PROMPT_LENS
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(lo, hi + 1, ANALYSIS_REQUESTS)]
+    toks = ANALYSIS_REQUESTS * ANALYSIS_NEW
+    qparams = ServeEngine(
+        cfg, params, batch_slots=SLOTS, max_seq=MAX_SEQ, eos_id=-1,
+        quantized=True, calibration_batches=calib, chunk_size=CHUNK,
+        page_size=PAGE, seed=0, device=dev).params
+    del params
+    # a warm-up on an engine of its own (its pages keep their prefixes)
+    served(w8a8_engine(cfg, qparams, dev), [prompts[0][::-1]], 8)
+
+    # the untraced run, each decode step timed by CUDA events
+    eng = w8a8_engine(cfg, qparams, dev)
+    with DecodeStepClock(eng) as clock:
+        want, wall0 = served(eng, prompts, ANALYSIS_NEW)
+    steps = clock.measured()
+    # the same requests traced and annotated under the profiler
+    eng = w8a8_engine(cfg, qparams, dev,
+                      telemetry=Telemetry(trace=True, annotate=True))
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got, wall1 = served(eng, prompts, ANALYSIS_NEW)
+    launches = ops.launch_counts()
+    check(got == want, "analysis: the profiled run's streams differ from "
+          "the untraced run's")
+    print(f"tokens/s untraced {toks / wall0:.1f}, traced and annotated "
+          f"under torch.profiler {toks / wall1:.1f} ({wall1 / wall0:.3f}x "
+          f"the wall); streams equal ({toks} tokens)")
+
+    host = eng.tel.tracer.to_chrome()
+    counts = validate_chrome_trace(host)
+    spans = {}
+    for ev in host["traceEvents"]:
+        if ev["ph"] == "X" and ev["name"] in ANNOTATED:
+            spans[ev["name"]] = spans.get(ev["name"], 0) + 1
+    t0 = time.perf_counter()
+    ranges = profile_ranges(prof.profiler.kineto_results.events(), ANNOTATED)
+    print(f"host trace valid ({json.dumps(counts)}); profile read in "
+          f"{time.perf_counter() - t0:.1f} s")
+    got_ranges = {n: r["ranges"] for n, r in ranges.items()
+                  if n is not None and r["ranges"]}
+    print(f"host spans {json.dumps(spans)}; profiler ranges "
+          f"{json.dumps(got_ranges)}")
+    check(spans and got_ranges == spans, "analysis: the profiler's ranges "
+          f"{got_ranges} are not the host spans {spans}")
+    for name, keys in RANGE_KERNELS.items():
+        inside = {n: sum(c for k, c in r["kernels"].items()
+                         if all(x in k for x in keys))
+                  for n, r in ranges.items()}
+        outside = inside.pop(None)
+        print(f"{name}: {json.dumps({n: c for n, c in inside.items() if c})}"
+              f" launched inside the ranges, {outside} outside, "
+              f"{launches[name]} counted")
+        check(outside == 0 and sum(inside.values()) == launches[name] > 0,
+              f"analysis: {name}'s CUDA functions inside the ranges "
+              f"{inside} (outside {outside}) against {launches[name]} "
+              "counted launches")
+    for name, d in sorted(modeled_vs_measured(host).items()):
+        print(f"modeled vs measured {name}: {d['spans']} spans, FPGA model "
+              f"{d['modeled_s'] * 1e3:.3f} ms, host spans "
+              f"{d['measured_s'] * 1e3:.3f} ms, ratio {d['ratio']:.3f}")
+
+    # (b) the median decode step against its roofline bound
+    steps.sort(key=lambda st: st[0])
+    ms, lengths, active = steps[len(steps) // 2]
+    nbytes = decode_step_bytes(qparams, cfg, lengths, active)
+    flops = perfmodel.model_flops(cfg, "decode", int(np.median(
+        lengths[active])), SLOTS)
+    terms = perfmodel.roofline_terms(flops, nbytes, 0.0)
+    share = terms["bound_s"] * 1e3 / ms
+    print(f"decode step: median of {len(steps)} {ms:.4f} ms (min "
+          f"{steps[0][0]:.4f}, max {steps[-1][0]:.4f}) at {int(active.sum())}"
+          f" rows, {int(lengths[active].sum())} cached keys; "
+          f"{nbytes / 1e6:.3f} MB, {flops / 1e9:.3f} GFLOP: bound "
+          f"{terms['bound_s'] * 1e3:.5f} ms ({terms['dominant']}), share "
+          f"bound/measured {share:.4f}")
+    check(0.0 < share <= ROOFLINE_SHARE_MAX, f"analysis: decode-step "
+          f"roofline share {share} outside (0, {ROOFLINE_SHARE_MAX}]")
+
+    # (c) the samplers on a CUDA generator
+    logits = torch.randn((SLOTS, cfg.vocab_size), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(5))
+    arg = logits.argmax(-1).to(torch.int32)
+    g = torch.Generator(device=dev).manual_seed(7)
+    check(torch.equal(sampler.greedy(logits), arg)
+          and torch.equal(sampler.temperature(logits, g, temp=0.01), arg)
+          and torch.equal(sampler.top_k(logits, g, k=1), arg),
+          "analysis: a near-greedy sampler is not the argmax on the card")
+    draws = [sampler.top_k(logits, torch.Generator(device=dev).manual_seed(
+        9), k=40, temp=1.0) for _ in range(2)]
+    check(torch.equal(*draws), "analysis: two draws from one seed differ")
+    print("samplers: greedy, temperature 0.01 and top-k 1 equal the argmax;"
+          " two seeded top-k draws equal")
+
+    # (d) dry-run cells on meta
+    mesh = make_production_mesh()
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape in DRYRUN_CELLS:
+            rec = dryrun.run_cell(arch, shape, mesh, "pod16x16", tmp,
+                                  force=True)
+            check(rec["status"] == "ok", f"dry run {arch} {shape}: "
+                  f"{rec.get('error')}")
+            print(f"dry run {arch} {shape}: {json.dumps(rec)}")
+    return launches
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4295,6 +4532,7 @@ def main() -> int:
         agreement_phase(dev, arch)
     dist_agreement_phase(dev)
     train_launches = training_phase(dev)
+    analysis_launches = analysis_phase(dev)
     by_kernel_phase(dev, entries)
     phase("kernels")
     by_run = {"plain": launches,
@@ -4302,7 +4540,8 @@ def main() -> int:
               **stacked_launches, "over-commit": oc_launches,
               **replay_launches, **dist_launches,
               "MDK program": {"ln_res": ln_launches}, **family_launches,
-              "trained checkpoint": train_launches}
+              "trained checkpoint": train_launches,
+              "analysis": analysis_launches}
     # each kernel's count from the run of its own path: plain paged
     # serving for the first slice's three, the tree run for the tree
     # verify, the stacked target's decode for mha_decode, the MDK program

@@ -2,7 +2,8 @@
 a registry mapping ``--arch`` names to configs, and ``reduced()`` for a
 tiny same-family config used by the CPU tests.
 
-The fields and ``reduced()`` mirror the JAX package's
+The fields, ``reduced()``, ``param_counts()`` and the benchmark shapes
+(:data:`SHAPES`, :func:`applicable_shapes`) mirror the JAX package's
 ``repro/configs/base.py`` exactly, so a test can hold one config against
 the other field by field.  Every configuration of the JAX package is
 registered (:func:`get_config` imports each module).
@@ -11,6 +12,29 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Dict, Tuple
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One benchmark cell: (kind, seq_len, global_batch).
+
+    ``kind`` selects the step a cell runs: ``train`` (forward, backward
+    and optimizer), ``prefill`` (forward filling the KV cache) or
+    ``decode`` (one new token against a ``seq_len`` cache).
+    """
+
+    name: str
+    kind: str
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
 
 
 @dataclass(frozen=True)
@@ -70,6 +94,56 @@ class ModelConfig:
     def block_kind(self, layer_idx: int) -> str:
         return self.block_pattern[layer_idx % len(self.block_pattern)]
 
+    @property
+    def attention_free(self) -> bool:
+        return not any(k in ("attn", "local_attn") for k in self.block_pattern)
+
+    @property
+    def subquadratic(self) -> bool:
+        """True when no block attends over an unbounded full-cache span."""
+        return all(k != "attn" for k in self.block_pattern)
+
+    def param_counts(self) -> Dict[str, float]:
+        """Total and active (per-token) parameter counts, as floats."""
+        d = self.d_model
+        qd, kvd = self.q_dim, self.kv_dim
+        attn = d * qd + 2 * d * kvd + qd * d  # q, k, v, o
+        if self.activation in ("swiglu", "geglu"):
+            ffn_dense = 3 * d * self.d_ff
+        else:
+            ffn_dense = 2 * d * self.d_ff
+        per_layer = {}
+        for kind in set(self.block_pattern):
+            if kind in ("attn", "local_attn"):
+                per_layer[kind] = attn
+            elif kind == "rglru":
+                w = self.lru_width or d
+                per_layer[kind] = 2 * d * w + 3 * w  # in/out proj + gates/decay
+            elif kind == "mlstm":
+                per_layer[kind] = (d * qd + 2 * d * kvd + qd * d
+                                   + 3 * d * self.n_heads)
+            elif kind == "slstm":
+                per_layer[kind] = 4 * d * d + 4 * d
+            else:
+                raise ValueError(kind)
+        mixer_total = sum(per_layer[self.block_kind(i)]
+                          for i in range(self.n_layers))
+        if self.n_experts:
+            ffn_total = self.n_layers * (self.n_experts * ffn_dense
+                                         + d * self.n_experts)
+            ffn_active = self.n_layers * (self.experts_per_token * ffn_dense
+                                          + d * self.n_experts)
+        else:
+            ffn_total = ffn_active = self.n_layers * ffn_dense
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        enc = 0
+        if self.is_encoder_decoder:
+            enc = self.n_encoder_layers * (attn + ffn_dense)
+            mixer_total += self.n_layers * attn  # decoder cross-attention
+        total = mixer_total + ffn_total + embed + enc
+        active = mixer_total + ffn_active + embed + enc
+        return {"total": float(total), "active": float(active)}
+
     def reduced(self) -> "ModelConfig":
         """Tiny same-family config for CPU tests."""
         n_layers = max(2, len(self.block_pattern))
@@ -124,3 +198,25 @@ def list_archs() -> Tuple[str, ...]:
     """The ``--arch`` names this package serves."""
     _ensure_loaded()
     return tuple(sorted(_REGISTRY))
+
+
+ASSIGNED_ARCHS = (
+    "pixtral-12b",
+    "olmoe-1b-7b",
+    "kimi-k2-1t-a32b",
+    "minitron-4b",
+    "tinyllama-1.1b",
+    "gemma-7b",
+    "llama3-8b",
+    "recurrentgemma-9b",
+    "whisper-large-v3",
+    "xlstm-350m",
+)
+
+
+def applicable_shapes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Which of the four shapes this arch runs (the others are skipped)."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        out.append("long_500k")
+    return tuple(out)

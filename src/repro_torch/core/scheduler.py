@@ -12,7 +12,7 @@ products (``moe_up``, ``moe_down``, k experts a token) and sLSTM's
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Dict, List
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mdk import MDKStats
@@ -112,3 +112,10 @@ def mdk_stats(cfg: ModelConfig) -> MDKStats:
     for st in model_program(cfg):
         stats.record(st.kernel, st.name)
     return stats
+
+
+def spatial_equivalent_kernels(cfg: ModelConfig) -> Dict[str, int]:
+    """How many *dedicated* kernel instances a classical spatial
+    architecture would instantiate for the same program: the resource-
+    waste comparison the paper draws in Fig 3(b.2)."""
+    return mdk_stats(cfg).reuse_factor()

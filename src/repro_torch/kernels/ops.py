@@ -4,8 +4,10 @@ hand-written Hopper kernel.
 The dispatch is decided by where the tensors lie and nothing else: a
 tensor on the CPU goes to :mod:`repro_torch.kernels.ref`, a tensor on the
 card launches the CUDA kernel (built at first use, see
-:mod:`repro_torch.kernels.build`) or raises.  There is no fallback from a
-CUDA tensor to the plain version.  Each wrapper checks device, dtype,
+:mod:`repro_torch.kernels.build`) or raises.  A ``meta`` tensor (the dry
+run's) takes the plain version too, which on ``meta`` computes shapes
+only.  There is no fallback from a CUDA tensor to the plain version.
+Each wrapper checks device, dtype,
 shape, contiguity and alignment, allocates its output, launches on
 PyTorch's current stream, raises if the launch reports an error, and
 adds one to its launch counter (``<wrapper>.launches``) per call that
@@ -102,13 +104,15 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _route(name: str, *tensors: torch.Tensor) -> bool:
-    """True for the CUDA kernel, False for the plain CPU version; raises
-    on mixed or unsupported devices."""
+    """True for the CUDA kernel, False for the plain version; raises on
+    mixed or unsupported devices.  The plain version serves CPU tensors
+    and ``meta`` tensors, on which it computes shapes only (the dry run,
+    ``launch/dryrun.py``): nothing is allocated or launched there."""
     devs = {t.device for t in tensors if t is not None}
     if len(devs) != 1:
         raise ValueError(f"{name}: tensors on several devices {devs}")
     dev = devs.pop()
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return False
     if dev.type == "cuda":
         return True

@@ -12,7 +12,9 @@ cards the same code makes each hop a peer copy.
 ``devices=None`` takes every visible card and raises where there is none,
 as :func:`repro_torch.serving.engine.resolve_device` does; the CPU is used
 only when the caller names it (``devices=["cpu"] * n``, as the tests do).
-``make_production_mesh`` (the reference's pod layouts) is not ported.
+:func:`make_production_mesh` builds the reference's pod layouts over
+``meta`` devices: the dry run (``launch/dryrun.py``) reads its axes to
+account per-device bytes, and nothing runs on it.
 """
 from __future__ import annotations
 
@@ -74,6 +76,15 @@ def _devices(devices: Optional[Sequence]) -> List[torch.device]:
             if d.index is None:  # the index tensors report
                 out[i] = torch.device("cuda", torch.cuda.current_device())
     return out
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+    """The reference's production layouts: ``(16, 16)`` over ``("data",
+    "model")``, or ``(2, 16, 16)`` over ``("pod", "data", "model")``,
+    each entry a ``meta`` device (no card needed)."""
+    dims = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return DeviceMesh((torch.device("meta"),) * math.prod(dims), axes, dims)
 
 
 def make_host_mesh(model: int = 1, devices: Optional[Sequence] = None

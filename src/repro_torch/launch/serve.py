@@ -46,7 +46,11 @@ seeded noise), verified as a chain, or as a token tree with up to
 ``--tree-branch`` children per node.
 
 ``--profile DIR`` runs the serving loop under ``torch.profiler`` and
-writes its Chrome trace to ``DIR/serve_trace.json``.  It prints the
+writes its Chrome trace to ``DIR/serve_trace.json``.  The engine then
+records its host timeline too (``Telemetry(trace=True, annotate=True)``),
+written beside it to ``DIR/serve_host_trace.json``: every dispatch is a
+profiler range named as its host span, so the card's kernels sit inside
+``decode.step``, ``prefill.chunk`` or ``spec.verify``.  It prints the
 device's busy share of the loop's wall time (the union of the device's
 kernel and copy intervals, so overlapping work counts once) and the
 heaviest device and host operators.  The profiler's own cost inflates
@@ -69,6 +73,7 @@ from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.serving.engine import ServeEngine, resolve_device
 from repro_torch.serving.speculative import SpecConfig
+from repro_torch.serving.telemetry import Telemetry
 from repro_torch.training.trainer import (TrainConfig,
                                           init_train_state_abstract)
 
@@ -143,7 +148,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                       quantized=not args.no_quant,
                       calibration_batches=calib, chunk_size=args.chunk_size,
                       prefill_mode=args.prefill_mode, seed=args.seed,
-                      spec=spec, device=dev)
+                      spec=spec, device=dev,
+                      telemetry=Telemetry(trace=bool(args.profile),
+                                          annotate=bool(args.profile)))
     hi = max(2, args.max_seq - args.max_new - 1)
     prompts = synthetic_prompts(rng, args.requests, cfg.vocab_size,
                                 min(3, hi), hi)
@@ -163,6 +170,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     if prof is not None:
         prof.stop()
         _report_profile(prof, wall, dev, args.profile)
+        print("host trace written to " + eng.tel.dump_trace(
+            os.path.join(args.profile, "serve_host_trace.json")))
     stats = eng.stats()
     toks = sum(len(r.out) for r in done)
     stats["tokens_per_s"] = toks / wall

@@ -258,7 +258,7 @@ def block_apply_step(p: Dict, x: torch.Tensor, cache: Dict,
                      active: Optional[torch.Tensor] = None,
                      cross_cache: Optional[Dict] = None,
                      enc_lengths: Optional[torch.Tensor] = None,
-                     name: str = ""):
+                     moe_cf: Optional[float] = None, name: str = ""):
     """One decode token (B, 1, d) -> (x_out, cache); the cache is written
     in place.  ``attn``: with ``block_table`` the cache is the page pool
     and rows outside ``active`` park their writes on the null page;
@@ -267,7 +267,8 @@ def block_apply_step(p: Dict, x: torch.Tensor, cache: Dict,
     it.  Rings and recurrent states are written for ``active`` rows only
     (every row when ``active`` is None).  With ``cross_cache`` (the
     layer's static encoder K/V) a cross sub-block attends its first
-    ``enc_lengths[b]`` positions after the mixer."""
+    ``enc_lengths[b]`` positions after the mixer.  ``moe_cf`` is the
+    experts' capacity factor (None: exact)."""
     _check_kind(kind)
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == "attn":
@@ -295,7 +296,7 @@ def block_apply_step(p: Dict, x: torch.Tensor, cache: Dict,
             p["cross_attn"], h, cfg, cross_cache["k"], cross_cache["v"],
             enc_lengths, cross=True, name=name + ".cross")
         x = x + out
-    return _ffn(p, x, cfg, name)[0], cache
+    return _ffn(p, x, cfg, name, moe_cf)[0], cache
 
 
 def block_apply_chunk(p: Dict, x: torch.Tensor, cache: Dict,

@@ -295,7 +295,7 @@ def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
                 block_table: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,
                 enc_lengths: Optional[torch.Tensor] = None,
-                dtype=torch.bfloat16):
+                moe_cf: Optional[float] = None, dtype=torch.bfloat16):
     """One auto-regressive step for every row: ``token`` (B, 1) enters at
     position ``lengths[b]``.  With ``block_table`` (B, n_pg) the cache is
     the paged one: ``attn`` layers address the page pool through it, rows
@@ -305,7 +305,8 @@ def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
     Either way rows outside ``active`` leave their rings and recurrent
     states untouched (their global K/V writes stay masked).
     An encoder-decoder's layers also attend the first ``enc_lengths[b]``
-    positions of the cache's static ``"cross"`` K/V.  Returns
+    positions of the cache's static ``"cross"`` K/V.  ``moe_cf`` is the
+    experts' capacity factor (None, the serving paths': exact).  Returns
     ``(logits (B, V), cache)``."""
     x = embed(params["embed"], token, dtype)  # (B, 1, d)
     if cfg.pos == "learned":
@@ -323,7 +324,7 @@ def decode_step(params: Dict, cfg: ModelConfig, token: torch.Tensor,
             layer_p, x, cache["layers"][li], lengths, cfg,
             cfg.block_kind(li), block_table=block_table, active=active,
             cross_cache=None if cross is None else cross[li],
-            enc_lengths=enc_lengths, name=f"l{li}")
+            enc_lengths=enc_lengths, moe_cf=moe_cf, name=f"l{li}")
         layers.append(c)
     out = dict(cache)
     out["layers"] = layers
@@ -426,17 +427,18 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 def batch_prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: Dict, *, frames: Optional[torch.Tensor] = None,
                   patches: Optional[torch.Tensor] = None,
-                  dtype=torch.bfloat16):
+                  moe_cf: Optional[float] = None, dtype=torch.bfloat16):
     """Parallel prefill on the stacked cache: one full-sequence forward of
     the uniform prompts ``tokens`` (B, S) (after ``patches`` (B, P, d),
     if given) whose every layer's state is written into rows ``0..B-1``
     of the cache, in place: K/V at positions ``0..S_tot-1`` and zeros
     above, a ring's last W positions at their slots, a recurrent layer's
-    final state; an encoder-decoder also fills its cross cache.  Returns
+    final state; an encoder-decoder also fills its cross cache.
+    ``moe_cf`` is the experts' capacity factor (None: exact).  Returns
     ``(last_logits (B, V) f32, cache, lengths)``, every length S_tot."""
     B, S = tokens.shape
     logits, _, states, enc_out = _forward(
-        params, cfg, tokens, frames=frames, patches=patches, moe_cf=None,
+        params, cfg, tokens, frames=frames, patches=patches, moe_cf=moe_cf,
         dtype=dtype)
     S_tot = logits.shape[1]
     for li, (state, entry) in enumerate(zip(states, cache["layers"])):

@@ -4,12 +4,15 @@ exponential gating), per arXiv:2405.04517.
 Both are attention-free recurrences with a constant-size state.  Every
 path threads the state one token at a time through the same cell, with
 the paper's max-stabiliser for the exponential gates (mLSTM's ``m``
-starts at -1e30), as the reference's ``lax.scan`` does.  The cells are
-plain PyTorch, as they are plain ``jnp`` in the reference; mLSTM's
-``qkv``, ``o_gate`` and ``out`` go through ``linear`` (the MP kernel
-under W8A8), while the exponential-gate projections (mLSTM's and
-sLSTM's ``gates``) and sLSTM's block-diagonal ``rec`` stay floating
-point.
+starts at -1e30), as the reference's ``lax.scan`` does.  On the meta
+device (the dry run, which computes shapes only) a sequence's steps
+after the first run as one call of the cell over ``B * (S - 1)`` rows
+instead: the same shapes and operations, without a Python step per
+token.  The cells are plain PyTorch, as they are plain ``jnp`` in the
+reference; mLSTM's ``qkv``, ``o_gate`` and ``out`` go through ``linear``
+(the MP kernel under W8A8), while the exponential-gate projections
+(mLSTM's and sLSTM's ``gates``) and sLSTM's block-diagonal ``rec`` stay
+floating point.
 """
 from __future__ import annotations
 
@@ -26,6 +29,33 @@ def _stack_states(states: List[Dict]) -> Dict:
     """A trajectory: per-token states stacked on dim 1."""
     return {k: torch.stack([s[k] for s in states], dim=1)
             for k in states[0]}
+
+
+def _run_cells(cell, state: Dict, ins) -> Tuple[Dict, torch.Tensor]:
+    """``cell`` over the ``S`` tokens of ``ins`` (each (B, S, ...)) from
+    ``state``: ``(trajectory, outputs (B, S, ...))``.  On meta tensors
+    steps 1..S-1 are one call over ``B * (S - 1)`` rows, each entering
+    with step 0's state: the same shapes and operations as ``S`` calls,
+    the backward pass through the carried state included."""
+    B, S = ins[0].shape[:2]
+    if not ins[0].is_meta or S == 1:
+        states, hs = [], []
+        for t in range(S):
+            state, h = cell(state, *(a[:, t] for a in ins))
+            states.append(state)
+            hs.append(h)
+        return _stack_states(states), torch.stack(hs, dim=1)
+    st0, h0 = cell(state, *(a[:, 0] for a in ins))
+    n = B * (S - 1)
+    rows = {k: v[:, None].expand(B, S - 1, *v.shape[1:]).reshape(
+        n, *v.shape[1:]) for k, v in st0.items()}
+    st, h = cell(rows, *(a[:, 1:].reshape(n, *a.shape[2:]) for a in ins))
+
+    def join(first, rest):
+        return torch.cat([first[:, None],
+                          rest.reshape(B, S - 1, *rest.shape[1:])], dim=1)
+
+    return {k: join(st0[k], v) for k, v in st.items()}, join(h0, h)
 
 
 # ---------------------------------------------------------------------------
@@ -98,14 +128,8 @@ def mlstm_chunk(p: Dict, x: torch.Tensor, state: Dict, cfg: ModelConfig,
                 name: str = "") -> Tuple[torch.Tensor, Dict]:
     """C tokens (B, C, d) against a carried state.  Returns ``(out (B, C,
     d), traj)``, ``traj[:, t]`` being the state after tokens ``0..t``."""
-    ins = _mlstm_prep(p, x, cfg)
-    states, hs = [], []
-    for t in range(x.shape[1]):
-        state, h = _mlstm_cell(state, *(a[:, t] for a in ins))
-        states.append(state)
-        hs.append(h)
-    return (_mlstm_out(p, x, torch.stack(hs, dim=1), cfg, name),
-            _stack_states(states))
+    traj, hs = _run_cells(_mlstm_cell, state, _mlstm_prep(p, x, cfg))
+    return _mlstm_out(p, x, hs, cfg, name), traj
 
 
 def mlstm_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig, name: str = ""):
@@ -175,12 +199,9 @@ def slstm_chunk(p: Dict, x: torch.Tensor, state: Dict, cfg: ModelConfig,
                 name: str = "") -> Tuple[torch.Tensor, Dict]:
     """C tokens (B, C, d) against a carried state: (out, trajectory)."""
     gx = linear(p["gates"], x, name + ".gates")  # (B, C, 4d)
-    states, hs = [], []
-    for t in range(x.shape[1]):
-        state, h = _slstm_cell(p, state, gx[:, t], cfg)
-        states.append(state)
-        hs.append(h)
-    return torch.stack(hs, dim=1).to(x.dtype), _stack_states(states)
+    traj, hs = _run_cells(lambda st, g: _slstm_cell(p, st, g, cfg), state,
+                          (gx,))
+    return hs.to(x.dtype), traj
 
 
 def slstm_seq(p: Dict, x: torch.Tensor, cfg: ModelConfig, name: str = ""):

@@ -464,7 +464,8 @@ class DistributedServeEngine(LifecycleMixin):
                        # widest chunk
                        "modeled_s": (int(valids.max())
                                      * self._modeled_prefill_tok_s)}
-                      if tr.enabled else None)):
+                      if tr.enabled else None)), \
+                tr.annotation("prefill.round"):
             kw = {}
             if self.paged:
                 kw["block_tables"] = self._stage("prefill.block_tables",
@@ -553,7 +554,8 @@ class DistributedServeEngine(LifecycleMixin):
         with tr.span("wave.consume", "wave", TID_ENGINE,
                      ({"wave": w, "kind": kind,
                        "rows": int(pend["mask"].sum())}
-                      if tr.enabled else None)):
+                      if tr.enabled else None)), \
+                tr.annotation("wave.consume"):
             logits_h = self.xfer.fetch(f"{kind}.w{w}.logits",
                                        pend["logits"][0], of=pend["op"])
             now = time.monotonic()
@@ -605,7 +607,8 @@ class DistributedServeEngine(LifecycleMixin):
                        "kind": ("verify" if self.spec is not None
                                 else "decode"),
                        "modeled_s": self._modeled_decode_s}
-                      if tr.enabled else None)):
+                      if tr.enabled else None)), \
+                tr.annotation("wave.dispatch"):
             if self.spec is None:
                 self._dispatch_plain_wave(w, mask)
             elif self.spec.tree:

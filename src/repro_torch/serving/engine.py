@@ -368,7 +368,8 @@ class ServeEngine(LifecycleMixin):
                                "start": ch.start, "n": ch.n,
                                "modeled_s":
                                ch.n * self._modeled_prefill_tok_s}
-                              if tr.enabled else None)):
+                              if tr.enabled else None)), \
+                        tr.annotation("prefill.chunk"):
                     # the table row routes the paged attn writes, the
                     # slot a mixed stack's rings and states
                     bt = ({"block_table": self._dev(
@@ -423,7 +424,8 @@ class ServeEngine(LifecycleMixin):
         with tr.span("decode.step", "stage", TID_ENGINE,
                      ({"rows": int(decoding.sum()),
                        "modeled_s": self._modeled_decode_s}
-                      if tr.enabled else None)):
+                      if tr.enabled else None)), \
+                tr.annotation("decode.step"):
             logits, self.kv.cache = lm.decode_step(
                 self.params, self.cfg, self._dev(self.cur_tok),
                 self.kv.cache, self._dev(self.kv.lengths),
@@ -457,7 +459,8 @@ class ServeEngine(LifecycleMixin):
                      if self.paged else {})
             with tr.span("decode.step", "stage", TID_ENGINE,
                          ({"rows": int(occupied.sum()), "replay": True}
-                          if tr.enabled else None)):
+                          if tr.enabled else None)), \
+                    tr.annotation("decode.step"):
                 logits, self.kv.cache = lm.decode_step(
                     self.params, self.cfg, self._dev(self.cur_tok),
                     self.kv.cache, self._dev(self.kv.lengths),
@@ -548,7 +551,8 @@ class ServeEngine(LifecycleMixin):
                      ({"rows": int(decoding.sum()),
                        "proposed": int(counts.sum()),
                        "modeled_s": self._modeled_decode_s}
-                      if tr.enabled else None)):
+                      if tr.enabled else None)), \
+                tr.annotation("spec.verify"):
             self._count_verify(decoding, lengths_h, counts + 1)
             if store is None:
                 logits, self.kv.cache = lm.verify_chunk(
@@ -655,7 +659,8 @@ class ServeEngine(LifecycleMixin):
                      ({"rows": int(decoding.sum()),
                        "proposed": int(n_nodes.sum()), "tree": True,
                        "modeled_s": self._modeled_decode_s}
-                      if tr.enabled else None)):
+                      if tr.enabled else None)), \
+                tr.annotation("spec.verify"):
             self._count_verify(decoding, lengths_h, n_nodes + 1)
             logits, self.kv.cache = lm.verify_chunk(
                 self.params, self.cfg, self._dev(toks), self.kv.cache,

@@ -1,8 +1,10 @@
-"""Per-request token sampling for the serving engine.
+"""Token samplers for the serving engine.
 
-Each request carries a :class:`SamplingParams`; the engine packs them
-into per-slot tensors and one :func:`sample_batch` call serves the whole
-heterogeneous batch.  Convention: ``temperature <= 0`` is greedy
+:func:`greedy`, :func:`temperature` and :func:`top_k` are single-policy
+functions for tests and offline use.  On the engine path each request
+carries a :class:`SamplingParams`; the engine packs them into per-slot
+tensors and one :func:`sample_batch` call serves the whole heterogeneous
+batch.  Convention: ``temperature <= 0`` is greedy
 (argmax), ``top_k <= 0`` disables top-k, ``top_p >= 1`` disables the
 nucleus.  Randomness comes from an explicit ``torch.Generator``, so
 streams differ from the JAX package's for the same seed: sampled streams
@@ -20,6 +22,27 @@ from typing import Optional
 import torch
 
 _NEG_INF = -1e30
+
+
+def greedy(logits: torch.Tensor, gen=None) -> torch.Tensor:
+    return logits.argmax(dim=-1).to(torch.int32)
+
+
+def temperature(logits: torch.Tensor, gen: torch.Generator,
+                temp: float = 0.8) -> torch.Tensor:
+    """One categorical draw per row of ``logits / temp``."""
+    probs = torch.softmax(logits.float() / max(temp, 1e-4), dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    tok = torch.multinomial(flat, 1, generator=gen)[:, 0]
+    return tok.reshape(probs.shape[:-1]).to(torch.int32)
+
+
+def top_k(logits: torch.Tensor, gen: torch.Generator, k: int = 40,
+          temp: float = 0.8) -> torch.Tensor:
+    """A draw among each row's ``k`` largest logits at ``temp``."""
+    vals, idx = torch.topk(logits.float(), k, dim=-1)
+    choice = temperature(vals, gen, temp).long()
+    return torch.gather(idx, -1, choice[..., None])[..., 0].to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,9 +8,23 @@
   * :class:`Tracer` — tick/stage spans and request instants, exported as
     Chrome/Perfetto trace-event JSON.  The default :data:`NULL_TRACER`
     is a no-op whose methods allocate nothing; call sites build span
-    arguments only under ``tracer.enabled``.  Spans are host time and
-    never synchronize the device, so on the card a span measures dispatch
-    plus host work, not kernel time.
+    arguments only under ``tracer.enabled``.  Spans on one track must
+    nest: closing one that is not the innermost open span raises.  Spans
+    are host time and never synchronize the device, so on the card a span
+    measures dispatch plus host work, not kernel time.
+  * Profile alignment: ``Telemetry(trace=True, annotate=True)`` makes
+    :meth:`Tracer.annotation` a ``torch.profiler.record_function`` range,
+    which the engines wrap around their dispatches, so a profile taken
+    with ``torch.profiler`` shows the card's kernels inside ranges named
+    as the host spans.
+    :func:`profile_ranges` reads such a profile: the ranges of each name
+    and the kernels launched inside them.
+  * :func:`modeled_vs_measured` aggregates a trace's compute spans
+    against the perf model's predicted seconds (``args["modeled_s"]``);
+    :func:`validate_chrome_trace` checks a trace's structure.
+  * :func:`write_bench_artifact` is the one versioned writer of
+    benchmark artifacts: schema version, config fingerprint and the gate
+    thresholds beside the metrics they bound.
 
 ``STATS_KEYS_ENGINE`` documents exactly what ``ServeEngine.stats()``
 returns, and ``STATS_KEYS_ENGINE_SPEC`` what it returns with
@@ -22,12 +36,16 @@ transfer meter re-emits each of its events as a span on the
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import time
 from bisect import bisect_right
 from collections import deque
 from typing import Dict, List, Optional
+
+#: bumped whenever the benchmark artifact layout changes shape
+BENCH_SCHEMA_VERSION = 2
 
 #: Chrome trace-event tracks
 TID_ENGINE = 0
@@ -45,6 +63,9 @@ class Counter:
 
     def __init__(self):
         self.value = 0
+
+    def inc(self, n=1) -> None:
+        self.value += n
 
     def reset(self) -> None:
         self.value = 0
@@ -126,6 +147,15 @@ class Histogram:
             cum += c
         return self.vmax
 
+    def summary(self) -> Dict[str, float]:
+        return {
+            "count": self.count,
+            "mean": self.mean(),
+            "p50": self.quantile(0.5),
+            "p99": self.quantile(0.99),
+            "max": self.vmax if self.count else 0.0,
+        }
+
     def reset(self) -> None:
         for i in range(len(self.counts)):
             self.counts[i] = 0
@@ -156,6 +186,21 @@ class MetricsRegistry:
             h = self._hists[name] = Histogram(edges)
         return h
 
+    def snapshot(self) -> Dict[str, float]:
+        """Flat dict of every metric: counters by name, gauges as
+        ``name`` and ``name_peak``, histograms as ``name_{count, mean,
+        p50, p99, max}``."""
+        out: Dict[str, float] = {}
+        for name, c in self._counters.items():
+            out[name] = c.value
+        for name, g in self._gauges.items():
+            out[name] = g.value
+            out[f"{name}_peak"] = g.peak
+        for name, h in self._hists.items():
+            for k, v in h.summary().items():
+                out[f"{name}_{k}"] = v
+        return out
+
     def reset(self) -> None:
         for m in (*self._counters.values(), *self._gauges.values(),
                   *self._hists.values()):
@@ -180,6 +225,8 @@ class registry_counter:
 
 
 class _NullCtx:
+    """The shared no-op context every disabled call returns."""
+
     __slots__ = ()
 
     def __enter__(self):
@@ -193,7 +240,8 @@ _NULL_CTX = _NullCtx()
 
 
 class _SpanCtx:
-    """Records one complete ("X") trace event."""
+    """Records one complete ("X") trace event; raises if it closes while
+    a span opened inside it on the same track is still open."""
 
     __slots__ = ("tracer", "name", "cat", "tid", "args", "t0")
 
@@ -203,10 +251,16 @@ class _SpanCtx:
 
     def __enter__(self):
         self.t0 = time.perf_counter()
+        self.tracer._stack.setdefault(self.tid, []).append(self.name)
         return self
 
     def __exit__(self, exc_type, exc, tb):
         tr = self.tracer
+        top = tr._stack[self.tid].pop()
+        if top != self.name:
+            raise AssertionError(
+                f"span nesting violated: closing {self.name!r} but "
+                f"{top!r} is open")
         tr._events.append(("X", self.name, self.cat, self.tid,
                            (self.t0 - tr._t0) * 1e6,
                            (time.perf_counter() - self.t0) * 1e6, self.args))
@@ -234,6 +288,9 @@ class NullTracer:
     def transfer(self, name, t0, nbytes, hidden, phase, kind="stage"):
         return None
 
+    def annotation(self, name):
+        return _NULL_CTX
+
     def reset(self):
         return None
 
@@ -242,14 +299,24 @@ NULL_TRACER = NullTracer()
 
 
 class Tracer(NullTracer):
-    """Recording tracer: a bounded event ring exported as Chrome JSON."""
+    """Recording tracer: a bounded event ring exported as Chrome JSON.
+
+    ``annotate=True`` makes :meth:`annotation` return a
+    ``torch.profiler.record_function`` range, so a profile taken with
+    ``torch.profiler`` shows each dispatch's kernels inside a range named
+    as its host span.  A range costs a few microseconds of host time
+    each; with ``annotate`` off :meth:`annotation` hands back the shared
+    no-op context."""
 
     enabled = True
-    __slots__ = ("_t0", "_events")
+    __slots__ = ("_t0", "_events", "_stack", "_annotate")
 
-    def __init__(self, *, max_events: int = 1_000_000):
+    def __init__(self, *, max_events: int = 1_000_000,
+                 annotate: bool = False):
+        self._annotate = annotate
         self._t0 = time.perf_counter()
         self._events = deque(maxlen=max_events)
+        self._stack: Dict[int, List[str]] = {}
 
     def _now_us(self) -> float:
         return (time.perf_counter() - self._t0) * 1e6
@@ -277,7 +344,15 @@ class Tracer(NullTracer):
             {"bytes": nbytes, "hidden": hidden, "phase": phase,
              "kind": kind}))
 
+    def annotation(self, name):
+        if not self._annotate:
+            return _NULL_CTX
+        import torch
+
+        return torch.profiler.record_function(name)
+
     def reset(self) -> None:
+        """Drop recorded events without disturbing open spans."""
         self._events.clear()
 
     @property
@@ -300,14 +375,123 @@ class Tracer(NullTracer):
             out.append(ev)
         return {"traceEvents": out, "displayTimeUnit": "ms"}
 
+    def dump(self, path: str) -> str:
+        with open(path, "w") as f:
+            json.dump(self.to_chrome(), f)
+            f.write("\n")
+        return path
+
+
+def validate_chrome_trace(trace: Dict) -> Dict[str, int]:
+    """Structural validity of a Chrome/Perfetto trace dict: the required
+    ``ph``/``ts``/``pid``/``tid``/``name`` fields on every event,
+    non-negative durations on complete events, and balanced async
+    begin/end pairs.  Returns event counts per phase type; raises
+    ``ValueError`` on the first violation."""
+    evs = trace.get("traceEvents")
+    if not isinstance(evs, list) or not evs:
+        raise ValueError("trace has no traceEvents list")
+    counts: Dict[str, int] = {}
+    asyncs: Dict[tuple, int] = {}
+    for i, ev in enumerate(evs):
+        for field in ("ph", "pid", "name"):
+            if field not in ev:
+                raise ValueError(f"event {i} missing {field!r}: {ev}")
+        ph = ev["ph"]
+        counts[ph] = counts.get(ph, 0) + 1
+        if ph == "M":
+            continue
+        for field in ("ts", "tid"):
+            if field not in ev:
+                raise ValueError(f"event {i} missing {field!r}: {ev}")
+        if ph == "X":
+            if ev.get("dur", -1) < 0:
+                raise ValueError(f"complete event {i} without dur: {ev}")
+        elif ph in ("b", "e"):
+            key = (ev.get("cat"), ev.get("id"), ev["name"])
+            asyncs[key] = asyncs.get(key, 0) + (1 if ph == "b" else -1)
+    for key, bal in asyncs.items():
+        if bal != 0:
+            raise ValueError(f"unbalanced async events for {key}: {bal}")
+    return counts
+
+
+def modeled_vs_measured(trace: Dict) -> Dict[str, Dict[str, float]]:
+    """Per span name, the perf model's predicted seconds
+    (``args.modeled_s``) against the measured host span durations.
+    ``ratio`` > 1 means the stage is slower than the FPGA model predicts;
+    host spans understate device time on the card, so ratios compare
+    runs, not absolute costs."""
+    out: Dict[str, Dict[str, float]] = {}
+    for ev in trace.get("traceEvents", ()):
+        args = ev.get("args") or {}
+        if ev.get("ph") != "X" or "modeled_s" not in args:
+            continue
+        d = out.setdefault(ev["name"], {
+            "spans": 0, "modeled_s": 0.0, "measured_s": 0.0})
+        d["spans"] += 1
+        d["modeled_s"] += float(args["modeled_s"])
+        d["measured_s"] += float(ev.get("dur", 0.0)) / 1e6
+    for d in out.values():
+        d["ratio"] = (d["measured_s"] / d["modeled_s"]
+                      if d["modeled_s"] else 0.0)
+    return out
+
+
+def profile_ranges(events, names) -> Dict[str, Dict]:
+    """What a ``torch.profiler`` run shows inside the annotated ranges
+    named ``names``, from its events (``prof.profiler.kineto_results.
+    events()``): per name, the number of ranges and the device kernels
+    launched from inside one (``{"ranges": n, "kernels": {kernel name:
+    launches}}``), and under ``None`` the device activities launched
+    outside every such range (or by no launch call).  A kernel shares its
+    correlation id with the host call that launched it
+    (``cudaLaunchKernel`` and kin); it belongs to the innermost range
+    that holds that call's start.  Ranges and launch calls are both read
+    on the profiler's host clock; no device timestamp, and no host span
+    of the tracer, is compared with them.  The engines dispatch from one
+    thread, so threads are not told apart."""
+    from torch.autograd import DeviceType
+
+    names = set(names)
+    out: Dict = {n: {"ranges": 0, "kernels": {}} for n in names}
+    out[None] = {"ranges": 0, "kernels": {}}
+    ranges, launch_at, kernels = [], {}, []
+    for ev in events:
+        if ev.device_type() == DeviceType.CPU:
+            name = ev.name()
+            if name in names and ev.is_user_annotation():
+                out[name]["ranges"] += 1
+                ranges.append((ev.start_ns(), ev.end_ns(), name))
+            elif "Launch" in name:
+                launch_at[ev.correlation_id()] = ev.start_ns()
+        elif not ev.is_user_annotation():  # a device activity
+            kernels.append((ev.name(), ev.correlation_id()))
+    for name, corr in kernels:
+        owner, at = None, launch_at.get(corr)
+        if at is not None:
+            holding = [r for r in ranges if r[0] <= at <= r[1]]
+            if holding:
+                owner = min(holding, key=lambda r: r[1] - r[0])[2]
+        ks = out[owner]["kernels"]
+        ks[name] = ks.get(name, 0) + 1
+    return out
+
 
 class Telemetry:
     """One registry + one tracer (no-op unless ``trace=True``), the
-    object the engine hangs off ``self.tel``."""
+    object the engine hangs off ``self.tel``; ``annotate=True`` adds the
+    profiler ranges (:meth:`Tracer.annotation`)."""
 
-    def __init__(self, *, trace: bool = False, max_events: int = 1_000_000):
+    def __init__(self, *, trace: bool = False, annotate: bool = False,
+                 max_events: int = 1_000_000):
         self.registry = MetricsRegistry()
-        self.tracer = Tracer(max_events=max_events) if trace else NULL_TRACER
+        self.tracer = (Tracer(max_events=max_events, annotate=annotate)
+                       if trace else NULL_TRACER)
+
+    @property
+    def tracing(self) -> bool:
+        return self.tracer.enabled
 
     def reset(self) -> None:
         self.registry.reset()
@@ -318,10 +502,39 @@ class Telemetry:
             raise ValueError(
                 "tracing is disabled on this engine; construct it with "
                 "telemetry=Telemetry(trace=True) to record a timeline")
-        with open(path, "w") as f:
-            json.dump(self.tracer.to_chrome(), f)
-            f.write("\n")
-        return path
+        return self.tracer.dump(path)
+
+
+def config_fingerprint(config: Dict) -> str:
+    """Stable short hash of a benchmark's config dict, so a trajectory
+    can tell "the number moved" from "the experiment moved"."""
+    blob = json.dumps(config, sort_keys=True, default=str)
+    return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+
+def write_bench_artifact(path: str, *, bench: str, config: Dict,
+                         metrics: Dict, gates: Optional[Dict] = None,
+                         extra: Optional[Dict] = None) -> str:
+    """The one writer of benchmark artifacts: schema version, config
+    fingerprint, and the gate thresholds the benchmark asserts recorded
+    beside the metrics they bound."""
+    art = {
+        "schema_version": BENCH_SCHEMA_VERSION,
+        "bench": bench,
+        "config": config,
+        "config_fingerprint": config_fingerprint(config),
+        "gates": dict(gates or {}),
+        "metrics": metrics,
+    }
+    for k, v in (extra or {}).items():
+        if k in art:
+            raise ValueError(f"extra key {k!r} collides with the "
+                             "artifact schema")
+        art[k] = v
+    with open(path, "w") as f:
+        json.dump(art, f, indent=1, sort_keys=True)
+        f.write("\n")
+    return path
 
 
 #: every key ``ServeEngine.stats()`` returns on a paged engine without

@@ -44,6 +44,18 @@ class TrainConfig:
     microbatches: int = 1  # gradient accumulation steps
     compress_grads: bool = False  # int8 accumulation with error feedback
     aux_weight: float = 0.01
+    # the reference's dry-run options: this trainer always runs one param
+    # dict per layer, each layer its own call, so only these values exist
+    unroll_periods: bool = True
+    layout: str = "layers"
+
+    def __post_init__(self):
+        if not self.unroll_periods or self.layout != "layers":
+            raise ValueError(
+                "this trainer runs per-layer params layer by layer: only "
+                "unroll_periods=True and layout='layers' exist, got "
+                f"unroll_periods={self.unroll_periods!r}, "
+                f"layout={self.layout!r}")
 
 
 def init_train_state(cfg: ModelConfig, tcfg: TrainConfig,

@@ -1719,3 +1719,74 @@ def test_distributed_engine_on_card_2x2(h100):
     for p in prompts:
         ringed.submit(p, max_new=16)
     assert {r.rid: r.out for r in ringed.run()} == streams[1]
+
+
+# ---------------------------------------------------------------------------
+# the analysis layer: samplers on a CUDA generator, profiler ranges
+
+
+@pytest.mark.gpu
+def test_samplers_on_a_cuda_generator(h100):
+    """``greedy``, ``temperature`` at 0.01 and ``top_k`` at 1 give the
+    argmax on the card; two draws from one seed are equal."""
+    from repro_torch.serving import sampler
+
+    logits = torch.randn((8, 50257), device=h100,
+                         generator=torch.Generator(device=h100).manual_seed(0))
+    arg = logits.argmax(-1).to(torch.int32)
+    gen = torch.Generator(device=h100).manual_seed(1)
+    assert torch.equal(sampler.greedy(logits), arg)
+    assert torch.equal(sampler.temperature(logits, gen, temp=0.01), arg)
+    assert torch.equal(sampler.top_k(logits, gen, k=1), arg)
+    a, b = (sampler.temperature(
+        logits, torch.Generator(device=h100).manual_seed(2), temp=1.0)
+        for _ in range(2))
+    assert a.device == h100 and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_annotated_ranges_hold_the_engine_kernels(h100):
+    """A reduced W8A8 engine traced with ``annotate=True`` under
+    ``torch.profiler``: one range per annotated host span, every
+    ``mp_matmul`` CUDA function launched inside one (as many as the
+    counter says), none outside, and the streams of an untraced run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.telemetry import Telemetry, profile_ranges
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config("gpt2-345m").reduced()
+    params = lm.init(cfg, torch.Generator(device=h100).manual_seed(0),
+                     max_seq=64, device=h100)
+    calib = [np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 16))]
+    base = ServeEngine(cfg, params, batch_slots=2, max_seq=64, eos_id=-1,
+                       quantized=True, calibration_batches=calib,
+                       chunk_size=16)
+    prompts = [list(range(1, n + 1)) for n in (5, 30, 12)]
+    for p in prompts:
+        base.submit(p, max_new=4)
+    want = {r.rid: r.out for r in base.run()}
+    eng = ServeEngine(cfg, base.params, batch_slots=2, max_seq=64,
+                      eos_id=-1, act_dtype=torch.float32, chunk_size=16,
+                      telemetry=Telemetry(trace=True, annotate=True))
+    for p in prompts:
+        eng.submit(p, max_new=4)
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = {r.rid: r.out for r in eng.run()}
+        torch.cuda.synchronize()
+    assert got == want
+    names = ("prefill.chunk", "decode.step")
+    ranges = profile_ranges(prof.profiler.kineto_results.events(), names)
+    spans = {n: 0 for n in names}
+    for ev in eng.tel.tracer.to_chrome()["traceEvents"]:
+        if ev["ph"] == "X" and ev["name"] in names:
+            spans[ev["name"]] += 1
+    assert {n: ranges[n]["ranges"] for n in names} == spans
+    mp = {n: sum(c for k, c in r["kernels"].items()
+                 if "mp_matmul_kernel" in k) for n, r in ranges.items()}
+    assert mp[None] == 0
+    assert mp["prefill.chunk"] > 0 and mp["decode.step"] > 0
+    assert sum(mp.values()) == ops.launch_counts()["mp_matmul"]

@@ -238,15 +238,31 @@ def test_paged_verify_window_and_anc_are_exclusive():
                          anc=torch.ones((1, 2, 2), dtype=torch.int32))
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor with no data on a device this package does not serve."""
+
+    @staticmethod
+    def __new__(cls, shape, dtype):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, shape, dtype=dtype, device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError("a device this package does not serve")
+
+
 def test_wrappers_refuse_devices_they_cannot_serve():
-    """No silent fallback: a tensor neither on the CPU nor on a card, or
-    operands on two devices, raise instead of taking the plain path."""
-    x = torch.zeros((2, 4), dtype=torch.int8, device="meta")
+    """No silent fallback: a tensor neither on the CPU, nor on a card,
+    nor on ``meta`` (the dry run's, shapes only), or operands on two
+    devices, raise instead of taking the plain path."""
+    args = (_Elsewhere((2, 4), torch.int8), _Elsewhere((4, 3), torch.int8),
+            _Elsewhere((2, 1), torch.float32),
+            _Elsewhere((1, 3), torch.float32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.quant_matmul(*args)
     w = torch.zeros((4, 3), dtype=torch.int8, device="meta")
     s = torch.zeros((2, 1), device="meta")
     ws = torch.zeros((1, 3), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        ops.quant_matmul(x, w, s, ws)
     with pytest.raises(ValueError, match="several devices"):
         ops.quant_matmul(torch.zeros((2, 4), dtype=torch.int8), w, s, ws)
 
