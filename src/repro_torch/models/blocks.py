@@ -28,6 +28,10 @@ writes them only for ``active`` rows, a chunk writes a ring only below
 each row's ``limit`` and commits a state only at its ``valids``-th
 token, and a row at position 0 enters with the kind's init state (slot
 reuse must not leak the previous occupant's state).
+
+The decode step and the chunk open a ``model.attn`` stage
+(``serving.telemetry.stage``) around an attention mixer: its
+projections, cache or page writes and kernel call.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, moe, rglru, xlstm
 from repro_torch.models.layers import (apply_norm, linear, mlp, mlp_init,
                                        norm_init)
+from repro_torch.serving.telemetry import stage
 
 KINDS = ("attn", "local_attn", "rglru", "mlstm", "slstm")
 RECURRENT_KINDS = ("rglru", "mlstm", "slstm")
@@ -272,19 +277,21 @@ def block_apply_step(p: Dict, x: torch.Tensor, cache: Dict,
     _check_kind(kind)
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == "attn":
-        if block_table is None:
-            out, k_c, v_c = attention.decode_attention(
-                p["attn"], h, cfg, cache["k"], cache["v"], lengths,
-                name=name + ".attn")
-        else:
-            out, k_c, v_c = attention.paged_decode_attention(
-                p["attn"], h, cfg, cache["k"], cache["v"], lengths,
-                block_table, active=active, name=name + ".attn")
+        with stage("model.attn"):
+            if block_table is None:
+                out, k_c, v_c = attention.decode_attention(
+                    p["attn"], h, cfg, cache["k"], cache["v"], lengths,
+                    name=name + ".attn")
+            else:
+                out, k_c, v_c = attention.paged_decode_attention(
+                    p["attn"], h, cfg, cache["k"], cache["v"], lengths,
+                    block_table, active=active, name=name + ".attn")
         cache = {"k": k_c, "v": v_c}
     elif kind == "local_attn":
-        out, _, _ = attention.ring_decode_attention(
-            p["attn"], h, cfg, cache["k"], cache["v"], lengths,
-            active=active, name=name + ".attn")
+        with stage("model.attn"):
+            out, _, _ = attention.ring_decode_attention(
+                p["attn"], h, cfg, cache["k"], cache["v"], lengths,
+                active=active, name=name + ".attn")
     else:
         state = _entering_state(cfg, kind, cache, lengths == 0)
         out, new = _STEP[kind](p[kind], h, state, cfg, f"{name}.{kind}")
@@ -337,19 +344,22 @@ def block_apply_chunk(p: Dict, x: torch.Tensor, cache: Dict,
     traj = None
     h = apply_norm(p["ln1"], x, cfg.norm)
     if kind == "attn":
-        if block_tables is None:
-            out, _, _ = attention.chunk_attention(
-                p["attn"], h, cfg, cache["k"], cache["v"], positions,
-                anc=anc, rope_positions=rope_positions, name=name + ".attn")
-        else:
-            out, _, _ = attention.paged_chunk_attention(
-                p["attn"], h, cfg, cache["k"], cache["v"], positions,
-                block_tables, anc=anc, rope_positions=rope_positions,
-                name=name + ".attn")
+        with stage("model.attn"):
+            if block_tables is None:
+                out, _, _ = attention.chunk_attention(
+                    p["attn"], h, cfg, cache["k"], cache["v"], positions,
+                    anc=anc, rope_positions=rope_positions,
+                    name=name + ".attn")
+            else:
+                out, _, _ = attention.paged_chunk_attention(
+                    p["attn"], h, cfg, cache["k"], cache["v"], positions,
+                    block_tables, anc=anc, rope_positions=rope_positions,
+                    name=name + ".attn")
     elif kind == "local_attn":
-        out, _, _ = attention.chunk_attention_rotating(
-            p["attn"], h, cfg, cache["k"], cache["v"], positions,
-            positions[:, 0] + valids, name=name + ".attn")
+        with stage("model.attn"):
+            out, _, _ = attention.chunk_attention_rotating(
+                p["attn"], h, cfg, cache["k"], cache["v"], positions,
+                positions[:, 0] + valids, name=name + ".attn")
     else:
         state = _entering_state(cfg, kind, cache, positions[:, 0] == 0)
         out, traj = _CHUNK[kind](p[kind], h, state, cfg, f"{name}.{kind}")

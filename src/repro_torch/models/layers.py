@@ -9,6 +9,13 @@ Fused MP kernel (``ops.quant_matmul``) when the group is quantized, and
 a dense product otherwise, feeding the SmoothQuant calibration recorder.
 Under :func:`tp_context` both go through the ring tensor parallelism of
 :mod:`repro_torch.core.ring` instead.
+
+Stages: a quantized linear's activation quantization (``model.quant_act``,
+the smoothing multiply and ``quant.quantize_act``, never the kernel
+call), every norm (``model.norm``) and the MLP's activation
+(``model.mlp_act``) open a span on the ticking engine's tracer
+(``serving.telemetry.stage``): a ``torch.profiler`` range too when it
+annotates and a profiler records, a shared no-op when tracing is off.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.core import quant
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels import ops
+from repro_torch.serving.telemetry import stage
 
 
 _tp_local = threading.local()
@@ -96,8 +104,9 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
     lead, K = x.shape[:-1], x.shape[-1]
     x2 = x.reshape(-1, K)
     if "w_q" in p:  # quantized serving path -> Fused MP kernel
-        xs = x2.float() * (1.0 / p["smooth"])[None, :]
-        x_q, x_scale = quant.quantize_act(xs)
+        with stage("model.quant_act"):
+            xs = x2.float() * (1.0 / p["smooth"])[None, :]
+            x_q, x_scale = quant.quantize_act(xs)
         y = _tp_quant_matmul_or_none(x_q, x_scale, p, x.dtype)
         if y is None:
             y = ops.quant_matmul(x_q, p["w_q"], x_scale, p["w_scale"],
@@ -120,18 +129,19 @@ def norm_init(d: int, kind: str, *, dtype=torch.float32, device=None):
 
 
 def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-5):
-    xf = x.float()
-    if kind == "layernorm":
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = (xf - mu).square().mean(dim=-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + eps)
-        y = y * p["w"].float() + p["b"].float()
-    elif kind == "rmsnorm":
-        ms = xf.square().mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + eps) * p["w"].float()
-    else:
-        raise ValueError(kind)
-    return y.to(x.dtype)
+    with stage("model.norm"):
+        xf = x.float()
+        if kind == "layernorm":
+            mu = xf.mean(dim=-1, keepdim=True)
+            var = (xf - mu).square().mean(dim=-1, keepdim=True)
+            y = (xf - mu) * torch.rsqrt(var + eps)
+            y = y * p["w"].float() + p["b"].float()
+        elif kind == "rmsnorm":
+            ms = xf.square().mean(dim=-1, keepdim=True)
+            y = xf * torch.rsqrt(ms + eps) * p["w"].float()
+        else:
+            raise ValueError(kind)
+        return y.to(x.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -233,9 +243,12 @@ def mlp(p, x: torch.Tensor, activation: str, name: str = ""):
     act = activation_fn(activation)
     h = linear(p["up"], x, name + ".up")
     if activation in ("swiglu", "geglu"):
-        h = act(linear(p["gate"], x, name + ".gate")) * h
+        g = linear(p["gate"], x, name + ".gate")
+        with stage("model.mlp_act"):
+            h = act(g) * h
     else:
-        h = act(h)
+        with stage("model.mlp_act"):
+            h = act(h)
     return linear(p["down"], h, name + ".down")
 
 

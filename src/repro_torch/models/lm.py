@@ -66,6 +66,7 @@ from repro_torch.models import blocks
 from repro_torch.models.layers import (apply_norm, embed, embed_init,
                                        linear, linear_init, norm_init,
                                        unembed)
+from repro_torch.serving.telemetry import stage
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -159,10 +160,12 @@ def encode(params: Dict, cfg: ModelConfig,
 
 
 def _logits(params: Dict, cfg: ModelConfig, x: torch.Tensor):
-    x = apply_norm(params["final_ln"], x, cfg.norm)
-    if cfg.tie_embeddings:
-        return unembed(params["embed"], x)
-    return linear(params["lm_head"], x, "lm_head")
+    """The final norm and the head (``model.head``)."""
+    with stage("model.head"):
+        x = apply_norm(params["final_ln"], x, cfg.norm)
+        if cfg.tie_embeddings:
+            return unembed(params["embed"], x)
+        return linear(params["lm_head"], x, "lm_head")
 
 
 def _forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,

@@ -94,7 +94,7 @@ from repro_torch.serving.lifecycle import (DECODE, MIGRATING, PREFILL,
 from repro_torch.serving.quantize import serving_params
 from repro_torch.serving.telemetry import (TID_ENGINE, TID_REQUEST,
                                            Telemetry, linear_edges,
-                                           registry_counter)
+                                           registry_counter, set_active)
 
 
 class DistributedServeEngine(LifecycleMixin):
@@ -464,8 +464,7 @@ class DistributedServeEngine(LifecycleMixin):
                        # widest chunk
                        "modeled_s": (int(valids.max())
                                      * self._modeled_prefill_tok_s)}
-                      if tr.enabled else None)), \
-                tr.annotation("prefill.round"):
+                      if tr.enabled else None)):
             kw = {}
             if self.paged:
                 kw["block_tables"] = self._stage("prefill.block_tables",
@@ -496,7 +495,15 @@ class DistributedServeEngine(LifecycleMixin):
     @torch.no_grad()
     def tick(self) -> None:
         """One pipelined tick: phases A, B/C per wave, D (module
-        docstring)."""
+        docstring).  The engine's tracer is the active one for the tick
+        (``telemetry.stage``)."""
+        prev = set_active(self.tel.tracer)
+        try:
+            self._tick()
+        finally:
+            set_active(prev)
+
+    def _tick(self) -> None:
         t0 = time.perf_counter()
         did = False
         tick_ops = []
@@ -554,8 +561,7 @@ class DistributedServeEngine(LifecycleMixin):
         with tr.span("wave.consume", "wave", TID_ENGINE,
                      ({"wave": w, "kind": kind,
                        "rows": int(pend["mask"].sum())}
-                      if tr.enabled else None)), \
-                tr.annotation("wave.consume"):
+                      if tr.enabled else None)):
             logits_h = self.xfer.fetch(f"{kind}.w{w}.logits",
                                        pend["logits"][0], of=pend["op"])
             now = time.monotonic()
@@ -607,8 +613,7 @@ class DistributedServeEngine(LifecycleMixin):
                        "kind": ("verify" if self.spec is not None
                                 else "decode"),
                        "modeled_s": self._modeled_decode_s}
-                      if tr.enabled else None)), \
-                tr.annotation("wave.dispatch"):
+                      if tr.enabled else None)):
             if self.spec is None:
                 self._dispatch_plain_wave(w, mask)
             elif self.spec.tree:

@@ -117,7 +117,8 @@ from repro_torch.serving.lifecycle import (DECODE, PREFILL, LifecycleMixin,
                                            latency_stats, submit_request)
 from repro_torch.serving.quantize import serving_params
 from repro_torch.serving.telemetry import (TID_ENGINE, Telemetry,
-                                           linear_edges, registry_counter)
+                                           linear_edges, registry_counter,
+                                           set_active)
 
 
 def resolve_device(device) -> torch.device:
@@ -316,12 +317,22 @@ class ServeEngine(LifecycleMixin):
         return submit_request(self, prompt, max_new, sampling)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        """A host array on the device: a copy from pageable memory, which
+        waits for the stream to drain (``engine.sync``)."""
+        with self.tel.tracer.span("engine.sync"):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _host(self, t: torch.Tensor) -> list:
+        """A device tensor as a host list: a copy that waits for the
+        device (``engine.sync``)."""
+        with self.tel.tracer.span("engine.sync"):
+            return t.tolist()
 
     def _sample(self, logits: torch.Tensor, rows) -> List[int]:
-        return samplers.sample_batch(
-            logits, self.gen, self._dev(self._temp[rows]),
-            self._dev(self._topk[rows]), self._dev(self._topp[rows])).tolist()
+        with self.tel.tracer.span("engine.sample"):
+            return self._host(samplers.sample_batch(
+                logits, self.gen, self._dev(self._temp[rows]),
+                self._dev(self._topk[rows]), self._dev(self._topp[rows])))
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -330,11 +341,16 @@ class ServeEngine(LifecycleMixin):
         batched decode step over every decoding slot (with
         ``prefill_mode="replay"``: :meth:`_tick_replay`).  With ``mesh=``
         every model call of the tick runs under the ring tensor
-        parallelism."""
-        if self.mesh is not None:
-            with tp_context(self.mesh, shards=self._tp_shards):
-                return self._tick()
-        return self._tick()
+        parallelism.  The engine's tracer is the active one for the tick
+        (``telemetry.stage``)."""
+        prev = set_active(self.tel.tracer)
+        try:
+            if self.mesh is not None:
+                with tp_context(self.mesh, shards=self._tp_shards):
+                    return self._tick()
+            return self._tick()
+        finally:
+            set_active(prev)
 
     def _tick(self) -> None:
         if self.prefill_mode == "replay":
@@ -368,8 +384,7 @@ class ServeEngine(LifecycleMixin):
                                "start": ch.start, "n": ch.n,
                                "modeled_s":
                                ch.n * self._modeled_prefill_tok_s}
-                              if tr.enabled else None)), \
-                        tr.annotation("prefill.chunk"):
+                              if tr.enabled else None)):
                     # the table row routes the paged attn writes, the
                     # slot a mixed stack's rings and states
                     bt = ({"block_table": self._dev(
@@ -424,8 +439,7 @@ class ServeEngine(LifecycleMixin):
         with tr.span("decode.step", "stage", TID_ENGINE,
                      ({"rows": int(decoding.sum()),
                        "modeled_s": self._modeled_decode_s}
-                      if tr.enabled else None)), \
-                tr.annotation("decode.step"):
+                      if tr.enabled else None)):
             logits, self.kv.cache = lm.decode_step(
                 self.params, self.cfg, self._dev(self.cur_tok),
                 self.kv.cache, self._dev(self.kv.lengths),
@@ -459,8 +473,7 @@ class ServeEngine(LifecycleMixin):
                      if self.paged else {})
             with tr.span("decode.step", "stage", TID_ENGINE,
                          ({"rows": int(occupied.sum()), "replay": True}
-                          if tr.enabled else None)), \
-                    tr.annotation("decode.step"):
+                          if tr.enabled else None)):
                 logits, self.kv.cache = lm.decode_step(
                     self.params, self.cfg, self._dev(self.cur_tok),
                     self.kv.cache, self._dev(self.kv.lengths),
@@ -551,8 +564,7 @@ class ServeEngine(LifecycleMixin):
                      ({"rows": int(decoding.sum()),
                        "proposed": int(counts.sum()),
                        "modeled_s": self._modeled_decode_s}
-                      if tr.enabled else None)), \
-                tr.annotation("spec.verify"):
+                      if tr.enabled else None)):
             self._count_verify(decoding, lengths_h, counts + 1)
             if store is None:
                 logits, self.kv.cache = lm.verify_chunk(
@@ -588,7 +600,7 @@ class ServeEngine(LifecycleMixin):
                 self.kv.cache = store.commit(
                     snap, self.kv.cache, traj, lens, commit, valids,
                     chunk=k + 1)
-        n_acc, next_tok = n_acc.tolist(), next_tok.tolist()
+        n_acc, next_tok = self._host(n_acc), self._host(next_tok)
         now = time.monotonic()
         for b in range(B):
             req = self.slots[b]
@@ -659,8 +671,7 @@ class ServeEngine(LifecycleMixin):
                      ({"rows": int(decoding.sum()),
                        "proposed": int(n_nodes.sum()), "tree": True,
                        "modeled_s": self._modeled_decode_s}
-                      if tr.enabled else None)), \
-                tr.annotation("spec.verify"):
+                      if tr.enabled else None)):
             self._count_verify(decoding, lengths_h, n_nodes + 1)
             logits, self.kv.cache = lm.verify_chunk(
                 self.params, self.cfg, self._dev(toks), self.kv.cache,
@@ -675,7 +686,7 @@ class ServeEngine(LifecycleMixin):
             _, acc, next_tok = samplers.spec_accept_tree(
                 logits, self._dev(tokens_a), self._dev(parents),
                 self._dev(n_nodes), *self._accept_args())
-            acc, next_tok = acc.cpu().numpy(), next_tok.tolist()
+            acc, next_tok = np.asarray(self._host(acc)), self._host(next_tok)
         # accepted path per row in depth order (DFS layout: a parent's
         # position precedes its children's, so ascending is root-to-leaf)
         paths = [np.flatnonzero(acc[b, 1:]) + 1 if decoding[b]

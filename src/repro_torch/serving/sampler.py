@@ -13,6 +13,10 @@ with no stochastic row draws nothing from the generator.
 
 :func:`spec_accept_batch` and :func:`spec_accept_tree` are speculative
 decoding's accept rules, which keep every row's sampling distribution.
+
+Where a sampler branches on a device value (is any row stochastic?), it
+reads it inside an ``engine.sync`` stage (``telemetry.stage``): the read
+waits for the device.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from repro_torch.serving.telemetry import stage
 
 _NEG_INF = -1e30
 
@@ -85,13 +91,21 @@ def _filter_logits(lg: torch.Tensor, temp: torch.Tensor, topk: torch.Tensor,
     return torch.where(ranks < n_keep, x, _NEG_INF)
 
 
+def _any_stochastic(temp: torch.Tensor) -> bool:
+    """Whether any row samples (``temp > 0``): a read of one device value
+    on the host (``engine.sync``)."""
+    stochastic = (temp > 0.0).any()
+    with stage("engine.sync"):
+        return bool(stochastic)
+
+
 def sample_batch(logits: torch.Tensor, gen: torch.Generator,
                  temp: torch.Tensor, topk: torch.Tensor,
                  topp: torch.Tensor) -> torch.Tensor:
     """One token per row under that row's params; (B,) int64."""
     lg = logits.float()
     greedy_tok = lg.argmax(dim=-1)
-    if not bool((temp > 0.0).any()):
+    if not _any_stochastic(temp):
         return greedy_tok
     probs = torch.softmax(_filter_logits(lg, temp, topk, topp), dim=-1)
     tok = torch.multinomial(probs, 1, generator=gen)[:, 0]
@@ -117,7 +131,7 @@ def _filtered_probs(lg: torch.Tensor, temp: torch.Tensor, topk: torch.Tensor,
 def _uniforms(temp: torch.Tensor, k: int, gen: torch.Generator):
     """(B, k) uniforms for the accept trials, or None for an all-greedy
     batch, which draws nothing."""
-    if not bool((temp > 0.0).any()):
+    if not _any_stochastic(temp):
         return None
     return torch.rand((temp.shape[0], k), generator=gen, device=temp.device)
 

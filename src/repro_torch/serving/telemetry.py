@@ -12,19 +12,33 @@
     nest: closing one that is not the innermost open span raises.  Spans
     are host time and never synchronize the device, so on the card a span
     measures dispatch plus host work, not kernel time.
-  * Profile alignment: ``Telemetry(trace=True, annotate=True)`` makes
-    :meth:`Tracer.annotation` a ``torch.profiler.record_function`` range,
-    which the engines wrap around their dispatches, so a profile taken
-    with ``torch.profiler`` shows the card's kernels inside ranges named
-    as the host spans.
+  * One span, one range: with ``Telemetry(trace=True, annotate=True)``
+    every span opened while a profiler records is also a
+    ``torch.profiler.record_function`` range of the same name, so a
+    profile taken with ``torch.profiler`` shows the card's kernels inside
+    ranges named as the host spans.
     :func:`profile_ranges` reads such a profile: the ranges of each name
     and the kernels launched inside them.
+  * One clock: spans, instants and transfers are stamped in nanoseconds
+    on the clock of the profiler's events (``start_ns()`` of
+    ``prof.profiler.kineto_results.events()``), the Unix epoch as
+    ``time.time_ns()`` reads it, on torch 2.13 on the CPU and on torch
+    2.11+cu128 with CUDA activities on the H100 alike.  Each stamp is
+    read on ``time.perf_counter_ns()`` and moved to the epoch through
+    one anchor pair, taken when the tracer starts and on :meth:`Tracer.
+    reset`, so a host trace (:meth:`Tracer.to_chrome`, microseconds)
+    lies on the device trace as it stands.
+  * Stages: :func:`stage` opens a named span on the *active* tracer, the
+    one slot that ``ServeEngine.tick`` and ``DistributedServeEngine.
+    tick`` fill with their own for the tick's duration
+    (:func:`set_active`); outside a tick it holds :data:`NULL_TRACER`.
+    Model and sampler code open their stages (``model.norm``,
+    ``model.quant_act``, ``model.attn``, ``model.mlp_act``,
+    ``model.head``, ``engine.sync``) through it with a fixed name: when
+    disabled that costs one lookup and the shared no-op context.
   * :func:`modeled_vs_measured` aggregates a trace's compute spans
     against the perf model's predicted seconds (``args["modeled_s"]``);
     :func:`validate_chrome_trace` checks a trace's structure.
-  * :func:`write_bench_artifact` is the one versioned writer of
-    benchmark artifacts: schema version, config fingerprint and the gate
-    thresholds beside the metrics they bound.
 
 ``STATS_KEYS_ENGINE`` documents exactly what ``ServeEngine.stats()``
 returns, and ``STATS_KEYS_ENGINE_SPEC`` what it returns with
@@ -36,16 +50,12 @@ transfer meter re-emits each of its events as a span on the
 """
 from __future__ import annotations
 
-import hashlib
 import json
 import math
 import time
 from bisect import bisect_right
 from collections import deque
 from typing import Dict, List, Optional
-
-#: bumped whenever the benchmark artifact layout changes shape
-BENCH_SCHEMA_VERSION = 2
 
 #: Chrome trace-event tracks
 TID_ENGINE = 0
@@ -240,30 +250,42 @@ _NULL_CTX = _NullCtx()
 
 
 class _SpanCtx:
-    """Records one complete ("X") trace event; raises if it closes while
-    a span opened inside it on the same track is still open."""
+    """Records one complete ("X") trace event and, on an annotating
+    tracer while a profiler records, holds a
+    ``torch.profiler.record_function`` range of the same name open over
+    it; raises if it closes while a span opened inside it on the same
+    track is still open."""
 
-    __slots__ = ("tracer", "name", "cat", "tid", "args", "t0")
+    __slots__ = ("tracer", "name", "cat", "tid", "args", "t0", "rf")
 
     def __init__(self, tracer, name, cat, tid, args):
         self.tracer, self.name, self.cat = tracer, name, cat
         self.tid, self.args = tid, args
+        self.rf = None
 
     def __enter__(self):
-        self.t0 = time.perf_counter()
-        self.tracer._stack.setdefault(self.tid, []).append(self.name)
+        tr = self.tracer
+        if tr._record_function is not None and tr._profiling():
+            self.rf = tr._record_function(self.name)
+            self.rf.__enter__()
+        tr._stack.setdefault(self.tid, []).append(self.name)
+        self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        t1 = time.perf_counter_ns()
         tr = self.tracer
-        top = tr._stack[self.tid].pop()
-        if top != self.name:
-            raise AssertionError(
-                f"span nesting violated: closing {self.name!r} but "
-                f"{top!r} is open")
-        tr._events.append(("X", self.name, self.cat, self.tid,
-                           (self.t0 - tr._t0) * 1e6,
-                           (time.perf_counter() - self.t0) * 1e6, self.args))
+        try:
+            top = tr._stack[self.tid].pop()
+            if top != self.name:
+                raise AssertionError(
+                    f"span nesting violated: closing {self.name!r} but "
+                    f"{top!r} is open")
+            tr._events.append(("X", self.name, self.cat, self.tid,
+                               tr._stamp(self.t0), t1 - self.t0, self.args))
+        finally:
+            if self.rf is not None:
+                self.rf.__exit__(exc_type, exc, tb)
         return False
 
 
@@ -288,84 +310,122 @@ class NullTracer:
     def transfer(self, name, t0, nbytes, hidden, phase, kind="stage"):
         return None
 
-    def annotation(self, name):
-        return _NULL_CTX
-
     def reset(self):
         return None
 
 
 NULL_TRACER = NullTracer()
 
+#: the active tracer: the ticking engine's, else the null one
+_active = NULL_TRACER
+
+
+def set_active(tracer):
+    """Make ``tracer`` the one :func:`stage` opens its spans on; returns
+    the one it replaces, for the caller to put back."""
+    global _active
+    prev, _active = _active, tracer
+    return prev
+
+
+def stage(name: str):
+    """A span named ``name`` on the active tracer (:func:`set_active`),
+    with the defaults' category and track: the shared no-op context when
+    no tracing engine is ticking."""
+    return _active.span(name)
+
 
 class Tracer(NullTracer):
     """Recording tracer: a bounded event ring exported as Chrome JSON.
 
-    ``annotate=True`` makes :meth:`annotation` return a
-    ``torch.profiler.record_function`` range, so a profile taken with
-    ``torch.profiler`` shows each dispatch's kernels inside a range named
-    as its host span.  A range costs a few microseconds of host time
-    each; with ``annotate`` off :meth:`annotation` hands back the shared
-    no-op context."""
+    Events are ``(ph, name, cat, tid_or_id, ts_ns, dur_ns, args)``,
+    ``ts_ns`` on the profiler's clock (module docstring).
+    ``annotate=True`` makes every span also a
+    ``torch.profiler.record_function`` range of its name, so a profile
+    taken with ``torch.profiler`` shows each stage's kernels inside a
+    range named as its host span.  A range costs a few microseconds of
+    host time each, so it is opened only while a profiler records (a
+    check of a fraction of a microsecond); the span is recorded
+    either way."""
 
     enabled = True
-    __slots__ = ("_t0", "_events", "_stack", "_annotate")
+    __slots__ = ("_perf0", "_epoch0", "_events", "_stack",
+                 "_record_function", "_profiling")
 
     def __init__(self, *, max_events: int = 1_000_000,
                  annotate: bool = False):
-        self._annotate = annotate
-        self._t0 = time.perf_counter()
+        self._record_function = self._profiling = None
+        if annotate:
+            import torch
+
+            self._record_function = torch.profiler.record_function
+            self._profiling = torch._C._autograd._profiler_enabled
         self._events = deque(maxlen=max_events)
         self._stack: Dict[int, List[str]] = {}
+        self._anchor()
 
-    def _now_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
+    @property
+    def annotate(self) -> bool:
+        return self._record_function is not None
+
+    def _anchor(self) -> None:
+        """One (``perf_counter_ns``, ``time_ns``) pair: the performance
+        counter read on both sides of the epoch clock."""
+        a = time.perf_counter_ns()
+        self._epoch0 = time.time_ns()
+        self._perf0 = (a + time.perf_counter_ns()) // 2
+
+    def _stamp(self, t_perf_ns: int) -> int:
+        """A ``perf_counter_ns`` reading on the profiler's clock."""
+        return t_perf_ns - self._perf0 + self._epoch0
+
+    def _now_ns(self) -> int:
+        return self._stamp(time.perf_counter_ns())
 
     def span(self, name, cat="stage", tid=TID_ENGINE, args=None):
         return _SpanCtx(self, name, cat, tid, args)
 
     def instant(self, name, cat="stage", tid=TID_ENGINE, args=None):
-        self._events.append(("i", name, cat, tid, self._now_us(), 0.0, args))
+        self._events.append(("i", name, cat, tid, self._now_ns(), 0, args))
 
     def async_begin(self, name, id_, cat="request", args=None):
-        self._events.append(("b", name, cat, id_, self._now_us(), 0.0, args))
+        self._events.append(("b", name, cat, id_, self._now_ns(), 0, args))
 
     def async_end(self, name, id_, cat="request"):
-        self._events.append(("e", name, cat, id_, self._now_us(), 0.0, None))
+        self._events.append(("e", name, cat, id_, self._now_ns(), 0, None))
 
     def transfer(self, name, t0, nbytes, hidden, phase, kind="stage"):
         """One transfer-meter event as a complete span on the transfers
         track, cat ``transfer.hidden`` or ``transfer.exposed``; ``t0`` is
         its ``time.perf_counter()`` start."""
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
+        t0 = int(t0 * 1e9)
         self._events.append((
             "X", name, "transfer." + ("hidden" if hidden else "exposed"),
-            TID_TRANSFER, (t0 - self._t0) * 1e6, (t1 - t0) * 1e6,
+            TID_TRANSFER, self._stamp(t0), t1 - t0,
             {"bytes": nbytes, "hidden": hidden, "phase": phase,
              "kind": kind}))
 
-    def annotation(self, name):
-        if not self._annotate:
-            return _NULL_CTX
-        import torch
-
-        return torch.profiler.record_function(name)
-
     def reset(self) -> None:
-        """Drop recorded events without disturbing open spans."""
+        """Drop recorded events without disturbing open spans, and take
+        the clock's anchor again."""
         self._events.clear()
+        self._anchor()
 
     @property
     def events(self) -> List[tuple]:
         return list(self._events)
 
     def to_chrome(self) -> Dict:
+        """The events as Chrome trace JSON: ``ts`` and ``dur`` in
+        microseconds, ``ts`` on the profiler's clock."""
         out = [{"ph": "M", "pid": 0, "tid": tid, "name": "thread_name",
                 "args": {"name": tname}} for tid, tname in _TID_NAMES.items()]
         for ph, name, cat, tid_or_id, ts, dur, args in self._events:
-            ev = {"ph": ph, "name": name, "cat": cat, "pid": 0, "ts": ts}
+            ev = {"ph": ph, "name": name, "cat": cat, "pid": 0,
+                  "ts": ts / 1e3}
             if ph == "X":
-                ev["tid"], ev["dur"] = tid_or_id, dur
+                ev["tid"], ev["dur"] = tid_or_id, dur / 1e3
             elif ph in ("b", "e"):
                 ev["tid"], ev["id"] = TID_REQUEST, tid_or_id
             else:
@@ -480,8 +540,8 @@ def profile_ranges(events, names) -> Dict[str, Dict]:
 
 class Telemetry:
     """One registry + one tracer (no-op unless ``trace=True``), the
-    object the engine hangs off ``self.tel``; ``annotate=True`` adds the
-    profiler ranges (:meth:`Tracer.annotation`)."""
+    object the engine hangs off ``self.tel``; ``annotate=True`` makes
+    each span a profiler range too (:class:`Tracer`)."""
 
     def __init__(self, *, trace: bool = False, annotate: bool = False,
                  max_events: int = 1_000_000):
@@ -503,38 +563,6 @@ class Telemetry:
                 "tracing is disabled on this engine; construct it with "
                 "telemetry=Telemetry(trace=True) to record a timeline")
         return self.tracer.dump(path)
-
-
-def config_fingerprint(config: Dict) -> str:
-    """Stable short hash of a benchmark's config dict, so a trajectory
-    can tell "the number moved" from "the experiment moved"."""
-    blob = json.dumps(config, sort_keys=True, default=str)
-    return hashlib.sha256(blob.encode()).hexdigest()[:16]
-
-
-def write_bench_artifact(path: str, *, bench: str, config: Dict,
-                         metrics: Dict, gates: Optional[Dict] = None,
-                         extra: Optional[Dict] = None) -> str:
-    """The one writer of benchmark artifacts: schema version, config
-    fingerprint, and the gate thresholds the benchmark asserts recorded
-    beside the metrics they bound."""
-    art = {
-        "schema_version": BENCH_SCHEMA_VERSION,
-        "bench": bench,
-        "config": config,
-        "config_fingerprint": config_fingerprint(config),
-        "gates": dict(gates or {}),
-        "metrics": metrics,
-    }
-    for k, v in (extra or {}).items():
-        if k in art:
-            raise ValueError(f"extra key {k!r} collides with the "
-                             "artifact schema")
-        art[k] = v
-    with open(path, "w") as f:
-        json.dump(art, f, indent=1, sort_keys=True)
-        f.write("\n")
-    return path
 
 
 #: every key ``ServeEngine.stats()`` returns on a paged engine without

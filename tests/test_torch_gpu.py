@@ -1790,3 +1790,127 @@ def test_annotated_ranges_hold_the_engine_kernels(h100):
     assert mp[None] == 0
     assert mp["prefill.chunk"] > 0 and mp["decode.step"] > 0
     assert sum(mp.values()) == ops.launch_counts()["mp_matmul"]
+
+
+def _innermost(ranges, t):
+    """The name of the innermost ``(start, end, name)`` range holding
+    ``t`` (ranges nest: one thread), or None."""
+    holding = [r for r in ranges if t is not None and r[0] <= t <= r[1]]
+    return max(holding, key=lambda r: r[0])[2] if holding else None
+
+
+@pytest.mark.gpu
+def test_spans_lie_on_the_profiler_clock_on_card(h100):
+    """With CUDA activities recorded, a range's ``start_ns()`` is the Unix
+    epoch's clock (``time.time_ns()``), and a span's start, moved to it
+    through the tracer's anchor, lies within 100 us of its range's start
+    (median of 20 spans after a warm-up)."""
+    import statistics
+    import time
+
+    from repro_torch.serving.telemetry import Tracer
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = Tracer(annotate=True)
+    x = torch.ones(1 << 16, device=h100)
+    before = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with tr.span("warm-up"):
+            x.add_(1)
+        for i in range(20):
+            before[f"probe{i}"] = (time.time_ns(), time.monotonic_ns())
+            with tr.span(f"probe{i}"):
+                x.add_(1)
+            torch.cuda.synchronize()
+    starts = {e.name(): e.start_ns()
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CPU
+              and e.is_user_annotation() and e.name().startswith("probe")}
+    spans = {e[1]: e[4] for e in tr.events if e[1].startswith("probe")}
+    assert len(starts) == len(spans) == 20
+    epoch = [starts[n] - before[n][0] for n in starts]
+    mono = [starts[n] - before[n][1] for n in starts]
+    gaps = [abs(spans[n] - starts[n]) for n in starts]
+    print(f"range start after time.time_ns(): median "
+          f"{statistics.median(epoch) / 1e3:.1f} us; after "
+          f"time.monotonic_ns(): {statistics.median(mono) / 1e9:.1f} s; "
+          f"span start from range start: median "
+          f"{statistics.median(gaps) / 1e3:.1f} us, most "
+          f"{max(gaps) / 1e3:.1f} us")
+    assert 0 <= statistics.median(epoch) <= 1_000_000
+    assert statistics.median(gaps) <= 100_000
+
+
+@pytest.mark.gpu
+def test_engine_syncs_are_the_sync_debug_modes_on_card(h100):
+    """A reduced W8A8 engine traced with ``annotate=True`` under
+    ``torch.profiler`` and ``torch.cuda.set_sync_debug_mode("warn")``:
+    in every tick the synchronizing calls the debug mode reports are the
+    ``engine.sync`` spans, each range launches exactly one copy, and a
+    tick of one decode step alone waits 9 times.  The stage ranges hold
+    no ``mp_matmul`` launch as innermost range but ``model.attn`` (the
+    attention's projections) and none of the paged kernels' but
+    ``model.attn``."""
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServeEngine
+    from repro_torch.serving.telemetry import Telemetry
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config("gpt2-345m").reduced()
+    params = lm.init(cfg, torch.Generator(device=h100).manual_seed(0),
+                     max_seq=64, device=h100)
+    calib = [np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 16))]
+    qparams = ServeEngine(cfg, params, batch_slots=2, max_seq=64,
+                          quantized=True, calibration_batches=calib,
+                          chunk_size=16).params
+    eng = ServeEngine(cfg, qparams, batch_slots=2, max_seq=64, eos_id=-1,
+                      act_dtype=torch.float32, chunk_size=16,
+                      telemetry=Telemetry(trace=True, annotate=True))
+    for n in (5, 30, 12):
+        eng.submit(list(range(1, n + 1)), max_new=6)
+    eng.tick()  # the first tick builds and warms what it launches
+    torch.cuda.synchronize()
+    tr = eng.tel.tracer
+    warned, spans, alone = [], [], []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            while eng.queue or any(s is not None for s in eng.slots):
+                tr.reset()
+                with warnings.catch_warnings(record=True) as w:
+                    warnings.simplefilter("always")
+                    eng.tick()
+                warned.append(sum("synchroniz" in str(x.message)
+                                  for x in w))
+                names = [e[1] for e in tr.events if e[0] == "X"]
+                spans.append(names.count("engine.sync"))
+                alone.append(names.count("decode.step") == 1
+                             and "prefill.chunk" not in names)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert warned == spans and sum(spans) > 0
+    assert {s for s, a in zip(spans, alone) if a} == {9}
+    evs = list(prof.profiler.kineto_results.events())
+    ann = [(e.start_ns(), e.end_ns(), e.name()) for e in evs
+           if e.device_type() == DeviceType.CPU and e.is_user_annotation()]
+    calls = {e.correlation_id(): e.start_ns() for e in evs
+             if e.device_type() == DeviceType.CPU
+             and not e.is_user_annotation() and e.name().startswith("cu")}
+    owner = [(e.name(), _innermost(ann, calls.get(e.correlation_id())))
+             for e in evs if e.device_type() != DeviceType.CPU
+             and not e.is_user_annotation()]
+    synced = [n for n, o in owner if o == "engine.sync"]
+    assert len(synced) == sum(spans)
+    assert all(n.startswith("Memcpy") for n in synced), set(synced)
+    kernels = {o for n, o in owner if "mp_matmul_kernel" in n
+               or "split_kernel" in n or "combine_kernel" in n}
+    assert not {o for o in kernels if o and o.startswith(("model.",
+                                                          "engine."))} \
+        - {"model.attn"}

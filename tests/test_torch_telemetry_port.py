@@ -2,11 +2,10 @@
 reference's ``tests/test_telemetry.py`` cases that touch no engine
 (histograms, the registry and its snapshot, span nesting and the
 misnesting error, Chrome export and its validator, modeled-vs-measured,
-the zero-allocation disabled path, the artifact writer), the artifact
-file byte for byte against the reference's writer, and the profiler
-ranges of ``annotate=True``: on the CPU engine they leave streams and
-stats as they were, and a ``torch.profiler`` trace holds one range per
-annotated host span, under its name.
+the zero-allocation disabled path, a decode step's stage hooks
+included), and the profiler ranges of ``annotate=True``: on the CPU
+engine (float and W8A8) they leave streams and stats as they were, and a
+``torch.profiler`` trace holds one range per host span, under its name.
 """
 import json
 import tracemalloc
@@ -25,10 +24,9 @@ from repro_torch.serving.engine import ServeEngine
 from repro_torch.launch.mesh import make_serving_mesh
 from repro_torch.serving.speculative import SpecConfig
 from repro_torch.serving.telemetry import (
-    BENCH_SCHEMA_VERSION, NULL_TRACER, Histogram, MetricsRegistry, Telemetry,
-    Tracer, config_fingerprint, linear_edges, modeled_vs_measured,
-    profile_ranges, registry_counter, validate_chrome_trace,
-    write_bench_artifact)
+    NULL_TRACER, Histogram, MetricsRegistry, Telemetry, Tracer, linear_edges,
+    modeled_vs_measured, profile_ranges, registry_counter, set_active, stage,
+    validate_chrome_trace)
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_intra_op_thread():
@@ -44,6 +42,9 @@ def _one_intra_op_thread():
 #: the reference's annotated dispatch sites
 ANNOTATED = ("prefill.chunk", "decode.step", "spec.verify", "prefill.round",
              "wave.consume", "wave.dispatch")
+#: the stages model and sampler code open through ``telemetry.stage``
+STAGES = ("model.norm", "model.quant_act", "model.attn", "model.mlp_act",
+          "model.head", "engine.sync")
 
 
 # ---------------------------------------------------------------------------
@@ -224,11 +225,24 @@ def test_modeled_vs_measured_aggregation():
     assert np.isclose(d["measured_s"], 6.0) and np.isclose(d["ratio"], 3.0)
 
 
-def test_null_tracer_zero_allocations():
-    """The disabled tracer's hot-path methods, annotation included,
-    allocate nothing."""
+def test_null_tracer_zero_allocations(gpt2):
+    """The disabled tracer's hot-path methods, the stage hooks included,
+    allocate nothing: neither called alone nor from inside decode steps
+    of a W8A8 model with the null tracer active."""
     tel_file = NULL_TRACER.span.__func__.__code__.co_filename
-    off = Tracer(annotate=False)
+    cfg, params, _ = gpt2
+    eng = ServeEngine(cfg, params, batch_slots=2, max_seq=64, eos_id=-1,
+                      quantized=True, chunk_size=8, page_size=8,
+                      calibration_batches=[np.arange(1, 17)[None]],
+                      device="cpu")
+    assert eng.tel.tracer is NULL_TRACER
+    # a stage on the null tracer is the one shared context: it allocates
+    # nothing even for a moment
+    assert stage("model.norm") is stage("engine.sync") is NULL_TRACER.span(
+        "decode.step")
+    cache = lm.init_cache(cfg, 2, 64, layout="stacked", device="cpu")
+    tok = torch.ones((2, 1), dtype=torch.long)
+    lengths = torch.zeros((2,), dtype=torch.int32)
 
     def burst(n):
         for i in range(n):
@@ -238,10 +252,14 @@ def test_null_tracer_zero_allocations():
                 NULL_TRACER.transfer("logits", 0.0, 64, True, "drain")
             NULL_TRACER.async_begin("request", i)
             NULL_TRACER.async_end("request", i)
-            with NULL_TRACER.annotation("decode.step"):
-                pass
-            with off.annotation("decode.step"):
-                pass
+            for name in STAGES:
+                with stage(name):
+                    pass
+        prev = set_active(NULL_TRACER)
+        for _ in range(max(1, n // 100)):
+            lm.decode_step(eng.params, cfg, tok, cache, lengths,
+                           dtype=torch.float32)
+        set_active(prev)
 
     burst(10)
     tracemalloc.start()
@@ -259,11 +277,27 @@ def test_null_tracer_zero_allocations():
 
 
 def test_annotation_is_a_profiler_range_only_when_asked():
-    assert Tracer().annotation("x") is NULL_TRACER.annotation("y")
-    rf = Tracer(annotate=True).annotation("decode.step")
-    assert isinstance(rf, torch.profiler.record_function)
+    """A span is a ``torch.profiler`` range of its name only on an
+    annotating tracer; the null tracer's span is the shared no-op
+    context, and ``annotate`` alone traces nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    plain, annotated = Tracer(), Tracer(annotate=True)
+    assert NULL_TRACER.span("x") is NULL_TRACER.span("y")
+    assert not plain.annotate and annotated.annotate
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with plain.span("host.only"):
+            pass
+        with annotated.span("decode.step"):
+            with annotated.span("model.norm"):
+                pass
+    ranges = [e.name() for e in prof.profiler.kineto_results.events()
+              if e.is_user_annotation()]
+    assert sorted(ranges) == ["decode.step", "model.norm"]
+    assert [e[1] for e in plain.events] == ["host.only"]
+    assert [e[1] for e in annotated.events] == ["model.norm", "decode.step"]
     t = Telemetry(trace=True, annotate=True)
-    assert t.tracing and t.tracer._annotate
+    assert t.tracing and t.tracer.annotate
     assert not Telemetry().tracing and not Telemetry(annotate=True).tracing
 
 
@@ -272,51 +306,6 @@ def test_telemetry_dump_requires_tracing():
     assert t.tracer is NULL_TRACER
     with pytest.raises(ValueError, match="disabled"):
         t.dump_trace("never.json")
-
-
-# ---------------------------------------------------------------------------
-# the artifact writer
-
-
-def _artifact_args(extra=True):
-    kw = dict(bench="x", config={"model": "gpt2-345m", "seed": 0,
-                                 "shape": (8, 32), "nested": {"b": 1, "a": 2}},
-              metrics={"overlap_ratio": 0.97, "tokens_per_s": 1234.5678,
-                       "per_kernel": {"mp": [1, 2.5]}},
-              gates={"overlap_ratio_min": 0.85})
-    if extra:
-        kw["extra"] = {"baseline": {"ticks": 10}, "device": "NVIDIA H100"}
-    return kw
-
-
-@pytest.mark.parametrize("extra", [True, False], ids=["extra", "plain"])
-def test_write_bench_artifact_is_byte_identical(tmp_path, extra):
-    a = write_bench_artifact(str(tmp_path / "a.json"), **_artifact_args(extra))
-    b = jtel.write_bench_artifact(str(tmp_path / "b.json"),
-                                  **_artifact_args(extra))
-    with open(a, "rb") as fa, open(b, "rb") as fb:
-        assert fa.read() == fb.read()
-    assert BENCH_SCHEMA_VERSION == jtel.BENCH_SCHEMA_VERSION
-
-
-def test_write_bench_artifact_schema(tmp_path):
-    cfgd = {"model": "gpt2-345m", "seed": 0}
-    assert config_fingerprint(cfgd) == jtel.config_fingerprint(cfgd)
-    p = write_bench_artifact(
-        str(tmp_path / "BENCH_x.json"), bench="x", config=cfgd,
-        metrics={"overlap_ratio": 0.97}, gates={"overlap_ratio_min": 0.85},
-        extra={"baseline": {"ticks": 10}})
-    with open(p) as f:
-        art = json.load(f)
-    assert art["schema_version"] == BENCH_SCHEMA_VERSION
-    assert art["config_fingerprint"] == config_fingerprint(cfgd)
-    assert art["gates"] == {"overlap_ratio_min": 0.85}
-    assert art["baseline"] == {"ticks": 10}
-    assert config_fingerprint({"model": "gpt2-345m", "seed": 1}) != \
-        art["config_fingerprint"]
-    with pytest.raises(ValueError, match="collides"):
-        write_bench_artifact(str(tmp_path / "y.json"), bench="y", config={},
-                             metrics={}, extra={"metrics": {}})
 
 
 # ---------------------------------------------------------------------------
@@ -417,14 +406,19 @@ def _profiled(make, prompts):
 
 
 @pytest.mark.parametrize("kind", ["paged", "stacked", "spec_chain",
-                                  "replay", "distributed"])
+                                  "replay", "distributed", "w8a8"])
 def test_annotated_engine_ranges_match_host_spans(gpt2, kind):
     """``annotate=True`` changes no stream and no counted stat against an
-    untraced engine, and the profile holds one range per annotated host
-    span, under its name."""
+    untraced engine, and the profile holds one range per host span, under
+    its name: the annotated dispatch sites and the stages among them."""
     cfg, params, prompts = gpt2
     common = dict(max_seq=64, eos_id=-1, chunk_size=8,
                   act_dtype=torch.float32)
+    if kind == "w8a8":
+        params = ServeEngine(
+            cfg, params, batch_slots=3, max_seq=64, quantized=True,
+            calibration_batches=[np.arange(1, 17)[None]],
+            device="cpu").params
     if kind == "distributed":
         def make(t):
             return DistributedServeEngine(
@@ -448,12 +442,13 @@ def test_annotated_engine_ranges_match_host_spans(gpt2, kind):
     assert streams == want
     assert _untimed(stats) == _untimed(plain.stats())
     validate_chrome_trace(host)
-    ranges = profile_ranges(prof.profiler.kineto_results.events(),
-                            ANNOTATED)
     spans = {}
     for ev in host["traceEvents"]:
-        if ev["ph"] == "X" and ev["name"] in ANNOTATED:
+        if ev["ph"] == "X" and ev["tid"] == tel.TID_ENGINE:
             spans[ev["name"]] = spans.get(ev["name"], 0) + 1
-    assert spans, "no annotated span was reached"
+    assert set(ANNOTATED) & set(spans), "no annotated span was reached"
+    assert set(STAGES) - {"model.quant_act"} <= set(spans)
+    assert ("model.quant_act" in spans) == (kind == "w8a8")
+    ranges = profile_ranges(prof.profiler.kineto_results.events(), spans)
     assert {n: r["ranges"] for n, r in ranges.items()
             if n is not None and r["ranges"]} == spans
