@@ -32,6 +32,11 @@ failure exits non-zero and nothing is caught and continued:
    residual
    bit-identical, ``scale`` within 1e-5 relative, ``y`` within one bf16
    ulp, ``y_q`` within 1 and equal on at least 99.9% of elements.
+   ``quant_act`` (rows 1, 32, 127, 1,500; widths 1,024 to 24,576 and a
+   ragged 1,027; x float32 and bf16, one row of zeros; smoothing factors
+   over [1e-3, 1e3]): ``x_q`` and ``scale`` bit-identical to its plain
+   version run on the CPU, the yardstick, since ATen on the card may
+   divide by the scalar 127 as a multiply by its reciprocal.
 4. Timing: each kernel, its plain version and one PyTorch library call
    that computes the same function, timed with CUDA events per launch
    with the 50 MB L2 flushed before each launch (the serving loop streams
@@ -40,7 +45,8 @@ failure exits non-zero and nothing is caught and continued:
    operations over the dense peak of the operands' type); the
    ``mp_matmul``, decode and verify timings print their split geometry;
    the contiguous decode is timed on the draft's float32 cache and on a
-   bf16 cache, ``ln_res`` at 8, 32 and 256 rows.
+   bf16 cache, ``ln_res`` at 8, 32 and 256 rows, ``quant_act`` at 127
+   and 32 rows of 1,024 and 4,096.
    Two yardsticks of the timing itself: an empty kernel (a 4-byte fill)
    and, beside each decode-tick ``mp_matmul``, a device-to-device copy of
    the same weight bytes.
@@ -385,6 +391,13 @@ LN_TIMED = (8, 32, 256)
 #: ln_res tolerances: y within one bf16 ulp, scale within 1e-5 relative,
 #: y_q within 1 everywhere and equal on this share of elements
 LN_SCALE_RTOL, LN_YQ_EQUAL = 1e-5, 0.999
+#: quant_act against its plain version on the CPU: rows (a decode tick's,
+#: a prefill chunk's, whisper's encoder's) and widths (GPT-2's, whisper's,
+#: the RoPE family's and gemma's widest, a ragged one); timed at a decode
+#: tick's and a prefill chunk's rows at GPT-2's two widths
+QA_ROWS, QA_WIDTHS = (1, 32, 127, 1500), (1024, 1280, 4096, 14336, 24576,
+                                          1027)
+QA_TIMED = ((127, 1024), (127, 4096), (32, 1024), (32, 4096))
 #: the RoPE family's head shapes held and timed beside GPT-2's: groups 4
 #: and 3 at D 128, and D 256
 WIDE_ARCHS = ("llama3-8b", "minitron-4b", "gemma-7b", "olmoe-1b-7b")
@@ -921,6 +934,7 @@ def kernel_phase(dev, timer):
     entries["paged_verify_tree"] = tree_verify_phase(dev, timer, rng)
     entries["mha_decode"] = mha_decode_phase(dev, timer, rng)
     entries["ln_res"] = ln_res_phase(dev, timer, rng)
+    entries["quant_act"] = quant_act_phase(dev, timer, rng)
     return entries
 
 
@@ -1288,6 +1302,69 @@ def ln_res_phase(dev, timer, rng):
         entry.update({f"B{B}_ms": big[0], f"B{B}_plain_ms": big[1],
                       f"B{B}_norm_only_ms": big[2], f"B{B}_bound_ms": big[3]})
     return entry
+
+
+def quant_act_inputs(rng, M, K, dtype, dev):
+    """Rows of mixed magnitudes (one all zeros) and smoothing factors
+    spread log-uniformly over [1e-3, 1e3], the range ``smooth_factors``
+    clamps to."""
+    x = rng.standard_normal((M, K)) * rng.uniform(0.01, 50, (M, 1))
+    x[M // 2] = 0.0
+    s = np.exp(rng.uniform(np.log(1e-3), np.log(1e3), K))
+    return (torch.from_numpy(x.astype(np.float32)).to(dev, dtype),
+            torch.from_numpy(s.astype(np.float32)).to(dev))
+
+
+def quant_act_phase(dev, timer, rng):
+    """The activation quantization kernel against its plain version run
+    on the CPU, bit for bit, at ``QA_ROWS`` x ``QA_WIDTHS`` with x in
+    float32 and bf16; how many rows' scales the plain version's ATen ops
+    on the card put a last place away from the CPU's; then timed at
+    ``QA_TIMED`` (float32 x, as the W8A8 engines run) beside the plain
+    version on the card."""
+    cpu = torch.device("cpu")
+    aten_off = aten_rows = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for M in QA_ROWS:
+            for K in QA_WIDTHS:
+                x, s = quant_act_inputs(rng, M, K, dtype, dev)
+                q, sc = ops.quant_act(x, s)
+                wq, wsc = ref.quant_act_ref(x.to(cpu), s.to(cpu))
+                check(torch.equal(q.cpu(), wq) and torch.equal(sc.cpu(), wsc),
+                      f"quant_act {dtype} M={M} K={K}: not bit-identical "
+                      "to the plain version on the CPU")
+                _, asc = ref.quant_act_ref(x, s)
+                aten_off += int((asc.cpu() != wsc).sum())
+                aten_rows += M
+        print(f"quant_act x {dtype}: M {QA_ROWS} x K {QA_WIDTHS} "
+              "bit-identical to the plain version on the CPU")
+    print(f"quant_act: the plain version's ATen ops on the card give "
+          f"{aten_off} of {aten_rows} rows another scale than the CPU")
+    rows = []
+    for M, K in QA_TIMED:
+        x, s = quant_act_inputs(rng, M, K, torch.float32, dev)
+        t = timer.ms(lambda: ops.quant_act(x, s))
+        tp = timer.ms(lambda: ref.quant_act_ref(x, s))
+        bnd, by = bound_ms(4 * M * K + 4 * K + M * K + 4 * M, 6 * M * K,
+                           "f32")
+        threads, nv = ops._quant_act_geometry(K)
+        rows.append({"M": M, "K": K, "ms": t, "plain_ms": tp,
+                     "bound_ms": bnd, "bound_by": by})
+        field = "by_kernel" if len(rows) == 1 else f"M{M}_K{K}_by_kernel"
+        PROFILED.append((f"quant_act M={M} K={K}", "quant_act", field,
+                         lambda x=x, s=s: ops.quant_act(x, s),
+                         ("quant_act_kernel",)))
+        print(f"quant_act M={M} K={K} float32: kernel {t:.4f} ms, plain "
+              f"{tp:.4f} ms, library none, bound {bnd:.6f} ms ({by}); "
+              f"{M} blocks of {threads} threads, {nv} chunks a thread")
+    return {
+        "name": "quant_act", "route": "cuda",
+        "source": "src/repro_torch/csrc/quant_act.cu", "replaces": None,
+        "max_abs_err": 0.0, "ms": rows[0]["ms"],
+        "plain_ms": rows[0]["plain_ms"], "bound_ms": rows[0]["bound_ms"],
+        "bound_by": rows[0]["bound_by"], "library_ms": None,
+        "shape": f"M={QA_TIMED[0][0]} K={QA_TIMED[0][1]} float32",
+        "timed": rows, "aten_scale_off": [aten_off, aten_rows]}
 
 
 def attn_row(rows, timer, kernel, label, shape, call, plain, lib, nbytes,
@@ -4556,7 +4633,7 @@ def main() -> int:
                                 for run, n in by_run.items()}
         check(e["launches"] > 0, f"kernel {name} never launched on its path")
         kernels.append(e)
-    check(len(kernels) == 6, f"{len(kernels)} kernels in the line")
+    check(len(kernels) == 7, f"{len(kernels)} kernels in the line")
     print(f"total {time.perf_counter() - T_START:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

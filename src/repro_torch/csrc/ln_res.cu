@@ -60,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "row_reduce.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;  // per row (one block)
@@ -144,26 +146,6 @@ __device__ __forceinline__ void store8(int8_t* p, int col, int D,
   }
 }
 
-// Sum (or maximum) over the row's threads; every thread gets the same
-// bits.  A warp's butterfly is exact in its order (each add is
-// commutative), then the warps in warp order from `red` (NW entries of
-// its own, so one barrier suffices).
-template <bool MAX, typename T>
-__device__ __forceinline__ T row_reduce(T v, T* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const T u = __shfl_xor_sync(0xffffffffu, v, o);
-    v = MAX ? (v > u ? v : u) : v + u;
-  }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = red[0];
-#pragma unroll
-  for (int w = 1; w < NW; ++w)
-    v = MAX ? (v > red[w] ? v : red[w]) : v + red[w];
-  return v;
-}
-
 // One block per row, NV chunks of 8 columns per thread.
 template <int NV, bool VEC, typename TX, typename TR>
 __global__ void __launch_bounds__(THREADS)
@@ -209,7 +191,7 @@ ln_res_kernel(const TX* __restrict__ x, const TR* __restrict__ res,
                  : __dadd_rn(cs, (double)r[i][e]);
     s = __dadd_rn(s, cs);
   }
-  s = row_reduce<false>(s, red_s);
+  s = row_reduce<false>(s, red_s, NW);
   float mu = 0.0f, var;
   if (rms) {
     var = __double2float_rn(__ddiv_rn(s, (double)D));
@@ -229,7 +211,7 @@ ln_res_kernel(const TX* __restrict__ x, const TR* __restrict__ res,
       s2 = __dadd_rn(s2, cs);
     }
     var = __double2float_rn(
-        __ddiv_rn(row_reduce<false>(s2, red_v), (double)D));
+        __ddiv_rn(row_reduce<false>(s2, red_v, NW), (double)D));
   }
   const float rstd = __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(var, eps)));
 
@@ -249,7 +231,7 @@ ln_res_kernel(const TX* __restrict__ x, const TR* __restrict__ res,
     }
     store8<VEC>(y + off, col, D, r[i]);
   }
-  amax = row_reduce<true>(amax, red_m);
+  amax = row_reduce<true>(amax, red_m, NW);
   const float sc = __fdiv_rn(fmaxf(amax, 1e-6f), 127.0f);
 #pragma unroll
   for (int i = 0; i < NV; ++i) {

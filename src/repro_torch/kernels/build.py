@@ -51,6 +51,8 @@ SIGNATURES = {
     # x, res, w, b, y, rn, yq, scale, x_bf16, res_bf16, B, D, rms, eps,
     # nv, vec, stream
     "ln_res": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
+    # x, smooth, x_q, scale, M, K, x_bf16, threads, nv, vec, stream
+    "quant_act": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

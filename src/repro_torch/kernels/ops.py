@@ -15,13 +15,15 @@ launches its kernel: ``quant_matmul`` launches one CUDA function, a
 cluster of blocks per output strip; ``paged_mha_decode``,
 ``mha_decode`` and ``paged_verify`` launch two each (the split-KV
 attention, then the combine of its splits) and count once, the verify's
-causal and tree-masked calls apart (``launches``, ``tree_launches``).  ``ln_res``
+causal and tree-masked calls apart (``launches``, ``tree_launches``);
+``quant_act`` launches one per call.  ``ln_res``
 is reached only through ``core/mdk.MDK_REGISTRY["ln_res"]``, as in the
 JAX package.  Unlike the TPU wrappers these pad nothing: the kernels
 mask their own ragged edges.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Optional
 
@@ -58,6 +60,8 @@ _DECODE_BLOCKS = 4 * _N_SMS
 #: ln_res.cu: threads per row (one block), 8-column chunks a thread may
 #: hold
 _LN_THREADS, _LN_MAX_NV = 256, 8
+#: quant_act.cu: the widest block
+_QA_MAX_THREADS = 1024
 
 
 class MpGeometry(NamedTuple):
@@ -131,7 +135,8 @@ def launch_counts() -> Dict[str, int]:
             "paged_verify": paged_verify.launches,
             "paged_verify_tree": paged_verify.tree_launches,
             "mha_decode": mha_decode.launches,
-            "ln_res": ln_res.launches}
+            "ln_res": ln_res.launches,
+            "quant_act": quant_act.launches}
 
 
 def reset_launch_counts() -> None:
@@ -141,6 +146,7 @@ def reset_launch_counts() -> None:
     paged_verify.tree_launches = 0
     mha_decode.launches = 0
     ln_res.launches = 0
+    quant_act.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -542,6 +548,54 @@ def ln_res(x, res, weight, bias=None, *, kind: str = "layernorm",
     _check_launch(name, err)
     ln_res.launches += 1
     return y, rn, yq, scale
+
+
+@functools.cache
+def _quant_act_geometry(K: int):
+    """(threads, nv) of ``quant_act.cu`` for rows of ``K`` columns: the
+    fewest 4-column chunks a thread (1, 2 or 4) with which a block of at
+    most 1,024 threads holds the row in registers, and the fewest threads,
+    a multiple of 32, that cover the row; past 16,384 columns, 1,024
+    threads and two passes over the row (nv 0)."""
+    chunks = -(-K // 4)
+    for nv in (1, 2, 4):
+        if chunks <= nv * _QA_MAX_THREADS:
+            return 32 * -(-chunks // (32 * nv)), nv
+    return _QA_MAX_THREADS, 0
+
+
+def quant_act(x, smooth):
+    """A W8A8 linear's input smoothed and quantized per token, in one
+    launch: ``xs = x * (1 / smooth)``, then symmetric per-token int8.
+
+    ``x`` (M, K) float32 or bf16, ``smooth`` float32 (K,).  Returns
+    ``(x_q int8 (M, K), scale float32 (M, 1))``, bit for bit the plain
+    version's (``ref.quant_act_ref``)."""
+    name = "quant_act"
+    if not _route(name, x, smooth):
+        return ref.quant_act_ref(x, smooth)
+    _require(x.dim() == 2 and x.shape[1] > 0
+             and x.dtype in (torch.float32, torch.bfloat16),
+             f"{name}: x must be (M, K) float32 or bfloat16, K > 0")
+    M, K = x.shape
+    _require(smooth.dtype == torch.float32 and smooth.shape == (K,),
+             f"{name}: smooth must be float32 ({K},)")
+    _require(x.is_contiguous() and smooth.is_contiguous(),
+             f"{name}: x and smooth must be contiguous")
+    x_q = torch.empty((M, K), dtype=torch.int8, device=x.device)
+    scale = torch.empty((M, 1), dtype=torch.float32, device=x.device)
+    if M == 0:
+        return x_q, scale
+    threads, nv = _quant_act_geometry(K)
+    # 16-byte loads and packed stores when every row starts aligned
+    vec = (K % 4 == 0 and x.data_ptr() % 16 == 0
+           and smooth.data_ptr() % 16 == 0)
+    err = build.library().quant_act(
+        x.data_ptr(), smooth.data_ptr(), x_q.data_ptr(), scale.data_ptr(), M,
+        K, int(x.dtype == torch.bfloat16), threads, nv, int(vec), _stream(x))
+    _check_launch(name, err)
+    quant_act.launches += 1
+    return x_q, scale
 
 
 reset_launch_counts()

@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import quant
+
 
 def quant_matmul_ref(
     x_q: torch.Tensor,  # int8 (M, K)
@@ -135,6 +137,18 @@ def paged_verify_ref(
     p = torch.where(valid.any(dim=-1, keepdim=True), p, 0.0)
     out = torch.einsum("bhgcs,bhsd->bchgd", p.to(v.dtype).float(), v.float())
     return out.reshape(B, C, H, D).to(q.dtype)
+
+
+def quant_act_ref(
+    x: torch.Tensor,  # (M, K) float32 or bf16
+    smooth: torch.Tensor,  # f32 (K,) smoothing factors
+):
+    """A W8A8 linear's input smoothed and quantized per token: ``(x_q int8
+    (M, K), scale f32 (M, 1))``.  The JAX package's linear
+    (``repro/models/layers.py``) does the same two steps in plain jnp: it
+    has no kernel here."""
+    xs = x.float() * (1.0 / smooth)[None, :]
+    return quant.quantize_act(xs)
 
 
 def ln_res_ref(

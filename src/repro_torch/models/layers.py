@@ -10,10 +10,10 @@ a dense product otherwise, feeding the SmoothQuant calibration recorder.
 Under :func:`tp_context` both go through the ring tensor parallelism of
 :mod:`repro_torch.core.ring` instead.
 
-Stages: a quantized linear's activation quantization (``model.quant_act``,
-the smoothing multiply and ``quant.quantize_act``, never the kernel
-call), every norm (``model.norm``) and the MLP's activation
-(``model.mlp_act``) open a span on the ticking engine's tracer
+Stages: a quantized linear's activation quantization (``model.quant_act``:
+``ops.quant_act``, the smoothing multiply and per-token int8 in one
+launch, never the matmul's call), every norm (``model.norm``) and the
+MLP's activation (``model.mlp_act``) open a span on the ticking engine's tracer
 (``serving.telemetry.stage``): a ``torch.profiler`` range too when it
 annotates and a profiler records, a shared no-op when tracing is off.
 """
@@ -105,8 +105,7 @@ def linear(p: Dict[str, torch.Tensor], x: torch.Tensor,
     x2 = x.reshape(-1, K)
     if "w_q" in p:  # quantized serving path -> Fused MP kernel
         with stage("model.quant_act"):
-            xs = x2.float() * (1.0 / p["smooth"])[None, :]
-            x_q, x_scale = quant.quantize_act(xs)
+            x_q, x_scale = ops.quant_act(x2, p["smooth"])
         y = _tp_quant_matmul_or_none(x_q, x_scale, p, x.dtype)
         if y is None:
             y = ops.quant_matmul(x_q, p["w_q"], x_scale, p["w_scale"],

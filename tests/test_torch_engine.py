@@ -118,7 +118,8 @@ def test_quantized_greedy_agreement(setup):
     # on the CPU every wrapper took its plain version: nothing launched
     assert ops.launch_counts() == {
         "mp_matmul": 0, "paged_mha_decode": 0, "paged_verify": 0,
-        "paged_verify_tree": 0, "mha_decode": 0, "ln_res": 0}
+        "paged_verify_tree": 0, "mha_decode": 0, "ln_res": 0,
+        "quant_act": 0}
 
 
 def test_engine_without_card_raises(setup, monkeypatch):

@@ -17,7 +17,9 @@ fault on the long row, such as a page left out, must not hide under the
 short row's scale.  The split-KV verify is also held bit for bit against
 itself: a second call on the same inputs (its splits merge in a fixed
 order), and a lower-triangular tree mask against the causal mask.
-``ln_res`` keeps the new residual bit-identical,
+``quant_act`` is bit-identical to its plain version run on the CPU
+(IEEE divisions, a maximum in any order).  ``ln_res`` keeps the new
+residual bit-identical,
 ``scale`` within 1e-5 relative, ``y`` within one bf16 ulp per element and
 ``y_q`` within 1 everywhere and equal on at least 99.9% of elements (the
 kernel takes its sums in another order than the plain version).
@@ -615,6 +617,8 @@ def test_engine_on_card_runs_every_kernel(h100):
     assert n["paged_verify"] == L * s["prefill_calls"]
     assert n["paged_mha_decode"] == L * (s["model_calls"]
                                          - s["prefill_calls"])
+    # every W8A8 linear quantizes its input in one launch
+    assert n["quant_act"] == 6 * L * s["model_calls"] > 0
 
 
 @pytest.mark.gpu
@@ -734,6 +738,72 @@ def test_ln_res_check_rejects_a_one_pass_variance(h100):
     planted = (y.to(torch.bfloat16), r,
                torch.round(y / sc).clamp(-127, 127).to(torch.int8), sc)
     assert _ln_res_faults(planted, want)
+
+
+def _quant_act_inputs(rng, M, K, dtype, dev, offset=0):
+    """Rows of mixed magnitudes, one all zeros, and smoothing factors
+    spread log-uniformly over [1e-3, 1e3] (``smooth_factors``' clamp);
+    ``offset`` elements in front of x leave it contiguous but not 16-byte
+    aligned."""
+    x = rng.standard_normal((M, K)) * rng.uniform(0.01, 50, (M, 1))
+    x[M // 2] = 0.0
+    s = np.exp(rng.uniform(np.log(1e-3), np.log(1e3), K))
+    flat = torch.zeros(offset + M * K, dtype=dtype, device=dev)
+    flat[offset:] = torch.from_numpy(x.astype(np.float32)).reshape(-1).to(
+        dev, dtype)
+    return (flat[offset:].view(M, K),
+            torch.from_numpy(s.astype(np.float32)).to(dev))
+
+
+_QA_CASES = [(M, K, 0) for M in (1, 8, 32, 127, 128, 1500)
+             for K in (1024, 1280, 4096, 5120, 14336, 24576)] + [
+    (M, K, 0) for M in (1, 127) for K in (1027, 3, 100)] + [
+    (127, 1024, 1), (8, 14336, 2), (3, 24576, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,offset", _QA_CASES)
+def test_quant_act_kernel_bitexact_on_card(h100, dtype, M, K, offset):
+    """Every row count the engines send (a decode step, a prefill chunk,
+    whisper's encoder) at the configs' widths (GPT-2 and whisper, the
+    RoPE family's and gemma's widest, two passes past 16,384 columns),
+    ragged widths (scalar accesses), contiguous rows that start off a
+    16-byte boundary: ``x_q`` and ``scale`` bit-identical to the plain
+    version run on the CPU, not to ATen on the card, which may divide by
+    the scalar 127 as a multiply by its reciprocal; one launch a call."""
+    rng = np.random.default_rng(M * 7 + K + offset)
+    x, s = _quant_act_inputs(rng, M, K, getattr(torch, dtype), h100, offset)
+    ops.reset_launch_counts()
+    q, sc = ops.quant_act(x, s)
+    assert ops.launch_counts()["quant_act"] == 1
+    wq, wsc = ref.quant_act_ref(x.cpu(), s.cpu())
+    assert q.device == h100 and q.dtype == torch.int8 and q.shape == (M, K)
+    assert sc.dtype == torch.float32 and sc.shape == (M, 1)
+    assert torch.equal(q.cpu(), wq) and torch.equal(sc.cpu(), wsc)
+
+
+@pytest.mark.gpu
+def test_quant_act_makes_no_host_sync_on_card(h100):
+    """The activation quantization never waits for the card: it runs
+    under ``set_sync_debug_mode("error")`` at every path of the kernel
+    (registers, two passes, scalar accesses, bf16)."""
+    rng = np.random.default_rng(4)
+    cases = [_quant_act_inputs(rng, M, K, dt, h100)
+             for M, K, dt in ((127, 1024, torch.float32),
+                              (32, 4096, torch.bfloat16),
+                              (8, 24576, torch.float32),
+                              (5, 1027, torch.float32))]
+    for x, s in cases:  # build and load
+        ops.quant_act(x, s)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for x, s in cases:
+            ops.quant_act(x, s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu

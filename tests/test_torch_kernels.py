@@ -273,9 +273,28 @@ def test_plain_path_counts_no_launch():
     ops.quant_matmul(x, torch.ones((4, 3), dtype=torch.int8),
                      torch.ones((2, 1)), torch.ones((1, 3)))
     ops.ln_res(torch.ones((2, 4)), torch.ones((2, 4)), torch.ones(4))
+    ops.quant_act(torch.ones((2, 4)), torch.ones(4))
     assert ops.launch_counts() == {
         "mp_matmul": 0, "paged_mha_decode": 0, "paged_verify": 0,
-        "paged_verify_tree": 0, "mha_decode": 0, "ln_res": 0}
+        "paged_verify_tree": 0, "mha_decode": 0, "ln_res": 0,
+        "quant_act": 0}
+
+
+@pytest.mark.parametrize("K", [1, 3, 100, 1024, 1027, 1280, 4096, 5120,
+                               14336, 16384, 16385, 24576, 100_000])
+def test_quant_act_geometry_covers_the_row(K):
+    """``quant_act.cu``'s block for rows of K columns: a multiple of 32
+    threads, at most 1,024; up to 16,384 columns the fewest 4-column
+    chunks a thread (1, 2 or 4) and the fewest threads that hold the row
+    in registers, past it two passes (nv 0)."""
+    threads, nv = ops._quant_act_geometry(K)
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    if K <= 16384:
+        assert nv in (1, 2, 4) and threads * nv * 4 >= K
+        assert (threads - 32) * nv * 4 < K
+        assert nv == 1 or 1024 * (nv // 2) * 4 < K
+    else:
+        assert (threads, nv) == (1024, 0)
 
 
 def test_gpt2_attention_geometry_fits_shared_memory():
@@ -841,6 +860,40 @@ def test_ln_res_entry_passes_the_geometry(monkeypatch):
                    torch.ones(16392))
 
 
+def test_quant_act_entry_passes_the_geometry(monkeypatch):
+    """The wrapper passes the block's width, the chunks a thread holds and
+    16-byte accesses only for a width that is a multiple of 4 and rows
+    that start aligned; it allocates int8 (M, K) and float32 (M, 1), skips
+    the launch for no rows, and refuses a wrong smoothing vector; one
+    launch per call."""
+    calls = []
+
+    class Lib:
+        def quant_act(self, *a):
+            calls.append(a)
+            return 0
+
+    monkeypatch.setattr(ops, "_route", lambda *a: True)
+    monkeypatch.setattr(ops, "_stream", lambda t: 0)
+    monkeypatch.setattr(ops.build, "library", lambda: Lib())
+    ops.reset_launch_counts()
+    shapes = ((3, 1024, 0), (127, 4096, 0), (2, 1027, 0), (5, 24576, 0),
+              (4, 1024, 1))
+    for M, K, offset in shapes:
+        x = torch.ones(offset + M * K)[offset:].view(M, K)
+        x_q, scale = ops.quant_act(x, torch.ones(K))
+        assert x_q.dtype == torch.int8 and x_q.shape == (M, K)
+        assert scale.dtype == torch.float32 and scale.shape == (M, 1)
+        assert len(calls[-1]) == len(build.SIGNATURES["quant_act"])
+        assert calls[-1][4:10] == (M, K, 0, *ops._quant_act_geometry(K),
+                                   int(K % 4 == 0 and offset == 0))
+    assert ops.launch_counts()["quant_act"] == len(shapes)
+    ops.quant_act(torch.ones((0, 8)), torch.ones(8))
+    assert ops.launch_counts()["quant_act"] == len(shapes)
+    with pytest.raises(ValueError, match="smooth must be float32"):
+        ops.quant_act(torch.ones((2, 8)), torch.ones(8, dtype=torch.float64))
+
+
 def test_build_without_toolkit_raises(monkeypatch, tmp_path):
     """A missing compiler is an error, never a quiet fallback."""
     monkeypatch.setenv("PATH", str(tmp_path))
@@ -850,7 +903,7 @@ def test_build_without_toolkit_raises(monkeypatch, tmp_path):
         build.build()
     assert {p.name for p in build.sources()} == {
         "ln_res.cu", "mha_decode.cu", "mp_matmul.cu", "paged_mha.cu",
-        "paged_verify.cu"}
+        "paged_verify.cu", "quant_act.cu"}
 
 
 

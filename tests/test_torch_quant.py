@@ -25,6 +25,7 @@ from repro.serving import quantize as jquantize
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.core import quant
+from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.serving import quantize
 
@@ -64,6 +65,40 @@ def test_quantize_act_bitexact():
     tq, ts = quant.quantize_act(torch.from_numpy(x))
     assert tq.dtype == torch.int8 and ts.dtype == torch.float32
     assert _same(tq, jq) and _same(ts, js)
+
+
+@pytest.mark.parametrize("dtype,M,K", [
+    ("float32", 6, 40), ("float32", 5, 33), ("bfloat16", 6, 40),
+    ("bfloat16", 1, 1027)])
+def test_quant_act_plain_bitexact(dtype, M, K):
+    """``ops.quant_act`` on the CPU (its plain version) is, bit for bit,
+    the sequence ``layers.linear`` ran inline before it and the JAX
+    package's smoothing multiply and ``quantize_act``: ragged widths, a
+    row of zeros, smoothing factors over [1e-3, 1e3]."""
+    rng = np.random.default_rng(M + K)
+    x = (rng.standard_normal((M, K)) * rng.uniform(0.01, 50, (M, 1))
+         ).astype(np.float32)
+    x[M // 2] = 0.0
+    s = np.exp(rng.uniform(np.log(1e-3), np.log(1e3), K)).astype(np.float32)
+    tx, ts = torch.from_numpy(x).to(getattr(torch, dtype)), torch.from_numpy(s)
+    q, sc = ops.quant_act(tx, ts)
+    assert q.dtype == torch.int8 and q.shape == (M, K)
+    assert sc.dtype == torch.float32 and sc.shape == (M, 1)
+    iq, isc = quant.quantize_act(tx.float() * (1.0 / ts)[None, :])
+    assert torch.equal(q, iq) and torch.equal(sc, isc)
+    xj = jnp.asarray(tx.float().numpy()) * (1.0 / jnp.asarray(s))[None, :]
+    jq, jsc = jquant.quantize_act(xj)
+    assert _same(q, jq) and _same(sc, jsc)
+
+
+def test_quant_act_on_meta_gives_shapes():
+    """The dry run's ``meta`` tensors take the plain version: shapes and
+    dtypes only."""
+    q, sc = ops.quant_act(torch.empty((5, 48), device="meta"),
+                          torch.empty(48, device="meta"))
+    assert q.device.type == sc.device.type == "meta"
+    assert q.shape == (5, 48) and q.dtype == torch.int8
+    assert sc.shape == (5, 1) and sc.dtype == torch.float32
 
 
 def test_quantize_weight_bitexact():
