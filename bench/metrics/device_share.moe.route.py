@@ -1,0 +1,14 @@
+"""The device time launched inside ``model.moe.route`` ranges over the
+device's busy time in the profiled part (%): the MoE FFN's route stage
+(the router's product, softmax and top-k, and the slots;
+``models/moe.py`` ``moe_apply``).  A launch belongs to the innermost
+range open at its call (``harness.trace.read``).  Nothing where the
+program opens no such range."""
+
+
+def read(run):
+    p = run.prof
+    r = p and p["ranges"].get("model.moe.route")
+    if not r or p["busy_s"] <= 0:
+        return None
+    return 100.0 * r["device_s"] / p["busy_s"]

@@ -5,8 +5,12 @@ tiny same-family config used by the CPU tests.
 The fields, ``reduced()``, ``param_counts()`` and the benchmark shapes
 (:data:`SHAPES`, :func:`applicable_shapes`) mirror the JAX package's
 ``repro/configs/base.py`` exactly, so a test can hold one config against
-the other field by field.  Every configuration of the JAX package is
-registered (:func:`get_config` imports each module).
+the other field by field.  Two fields are the port's own
+(``expert_dtype``, ``norm_topk_prob``): a configuration that serves a MoE
+in its published form sets them, and every registered config leaves
+them at their defaults, the JAX package's arithmetic.  Every
+configuration of the JAX package is registered (:func:`get_config`
+imports each module).
 """
 from __future__ import annotations
 
@@ -35,6 +39,10 @@ SHAPES: Dict[str, ShapeSpec] = {
     "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
     "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
 }
+
+
+#: the expert products' dtypes a config may state ("": the stream's)
+EXPERT_DTYPES = ("", "float32", "bfloat16")
 
 
 @dataclass(frozen=True)
@@ -77,11 +85,22 @@ class ModelConfig:
     dtype: str = "bfloat16"
     source: str = ""  # provenance note
 
+    # --- the port's own (no field of the JAX package) ---
+    # dtype name of the MoE expert products ("": the activation stream's)
+    expert_dtype: str = ""
+    # renormalise the top-k gates to sum to one (False: the softmax
+    # probabilities weigh the experts as they are)
+    norm_topk_prob: bool = True
+
     def __post_init__(self):
         if self.n_heads % self.n_kv_heads:
             raise ValueError(
                 f"{self.name}: n_heads={self.n_heads} is not a multiple of "
                 f"n_kv_heads={self.n_kv_heads}")
+        if self.expert_dtype not in EXPERT_DTYPES:
+            raise ValueError(
+                f"{self.name}: expert_dtype={self.expert_dtype!r} is not one "
+                f"of {EXPERT_DTYPES}")
 
     @property
     def q_dim(self) -> int:

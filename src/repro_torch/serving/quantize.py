@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
-from repro_torch.models import lm
+from repro_torch.models import lm, moe
 from repro_torch.models.layers import to_device
 
 
@@ -84,6 +84,35 @@ def quantize_model_params(params, cfg: ModelConfig,
     return walk(params, "")
 
 
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where it is a view into a larger storage (a
+    buffer it shares with other tensors, which would stay alive for it)."""
+    if t.untyped_storage().nbytes() > t.numel() * t.element_size():
+        return t.clone()
+    return t
+
+
+def serve_experts(params, cfg: ModelConfig, act_dtype: torch.dtype):
+    """``params`` with every MoE layer's expert banks converted once to the
+    experts' dtype (``moe.expert_dtype``: the config's, else
+    ``act_dtype``) and its router weight in storage of its own; the same
+    tree for a stack without experts."""
+    if not cfg.n_experts:
+        return params
+    ed = moe.expert_dtype(cfg, act_dtype)
+    layers = []
+    for layer in params["layers"]:
+        if "moe" in layer:
+            m = dict(layer["moe"])
+            for name in ("w_up", "w_gate", "w_down"):
+                if name in m:
+                    m[name] = m[name].to(ed)
+            m["router"] = dict(m["router"], w=_own(m["router"]["w"]))
+            layer = dict(layer, moe=m)
+        layers.append(layer)
+    return dict(params, layers=layers)
+
+
 def serving_params(params, cfg: ModelConfig, device, *,
                    quantized: bool = False, calibration_batches=None,
                    act_dtype: Optional[torch.dtype] = None):
@@ -91,12 +120,15 @@ def serving_params(params, cfg: ModelConfig, device, *,
     ``quantized`` the linears become W8A8 (calibrated on
     ``calibration_batches`` when given), and the stream between the MP
     kernels, which re-quantize their inputs, defaults to float32; else
-    bf16."""
-    params = to_device(params, device)
+    bf16.  A MoE stack's expert banks are converted to the experts'
+    dtype here, once (:func:`serve_experts`): the tree holds no bank in
+    another dtype."""
+    act_dtype = act_dtype or (torch.float32 if quantized
+                              else torch.bfloat16)
+    params = serve_experts(to_device(params, device), cfg, act_dtype)
     if quantized:
         stats = None
         if calibration_batches is not None:
             stats = calibrate(params, cfg, calibration_batches)
         params = quantize_model_params(params, cfg, stats)
-    return params, act_dtype or (torch.float32 if quantized
-                                 else torch.bfloat16)
+    return params, act_dtype

@@ -34,8 +34,12 @@
     (:func:`set_active`); outside a tick it holds :data:`NULL_TRACER`.
     Model and sampler code open their stages (``model.norm``,
     ``model.quant_act``, ``model.attn``, ``model.mlp_act``,
-    ``model.head``, ``engine.sync``) through it with a fixed name: when
+    ``model.moe.{route,dispatch,experts,combine}``, ``model.head``,
+    ``engine.sync``) through it with a fixed name: when
     disabled that costs one lookup and the shared no-op context.
+    :func:`count` adds a host-side number (the MoE FFN's rows, from
+    shapes) to the ticking engine's registry the same way, and to the
+    process's totals (:func:`counted`).
   * :func:`modeled_vs_measured` aggregates a trace's compute spans
     against the perf model's predicted seconds (``args["modeled_s"]``);
     :func:`validate_chrome_trace` checks a trace's structure.
@@ -310,6 +314,9 @@ class NullTracer:
     def transfer(self, name, t0, nbytes, hidden, phase, kind="stage"):
         return None
 
+    def count(self, name, n):
+        return None
+
     def reset(self):
         return None
 
@@ -335,6 +342,24 @@ def stage(name: str):
     return _active.span(name)
 
 
+#: :func:`count`'s totals over the process
+_counted: Dict[str, int] = {}
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the counter ``name`` while a tracing engine ticks: to
+    its registry and to the process's totals (:func:`counted`).  Nothing
+    on the null tracer."""
+    _active.count(name, n)
+
+
+def counted() -> Dict[str, int]:
+    """The totals of every :func:`count` in the process: what a reader
+    outside the engine (a benchmark's metric, once the engine is gone)
+    takes, as ``ops.launch_counts`` is for the kernels."""
+    return dict(_counted)
+
+
 class Tracer(NullTracer):
     """Recording tracer: a bounded event ring exported as Chrome JSON.
 
@@ -350,10 +375,13 @@ class Tracer(NullTracer):
 
     enabled = True
     __slots__ = ("_perf0", "_epoch0", "_events", "_stack",
-                 "_record_function", "_profiling")
+                 "_record_function", "_profiling", "registry")
 
     def __init__(self, *, max_events: int = 1_000_000,
-                 annotate: bool = False):
+                 annotate: bool = False,
+                 registry: Optional[MetricsRegistry] = None):
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
         self._record_function = self._profiling = None
         if annotate:
             import torch
@@ -405,6 +433,12 @@ class Tracer(NullTracer):
             TID_TRANSFER, self._stamp(t0), t1 - t0,
             {"bytes": nbytes, "hidden": hidden, "phase": phase,
              "kind": kind}))
+
+    def count(self, name, n):
+        """Add ``n`` to counter ``name`` of :attr:`registry` (the engine's,
+        through :class:`Telemetry`) and to the process's totals."""
+        self.registry.counter(name).inc(n)
+        _counted[name] = _counted.get(name, 0) + n
 
     def reset(self) -> None:
         """Drop recorded events without disturbing open spans, and take
@@ -546,7 +580,8 @@ class Telemetry:
     def __init__(self, *, trace: bool = False, annotate: bool = False,
                  max_events: int = 1_000_000):
         self.registry = MetricsRegistry()
-        self.tracer = (Tracer(max_events=max_events, annotate=annotate)
+        self.tracer = (Tracer(max_events=max_events, annotate=annotate,
+                              registry=self.registry)
                        if trace else NULL_TRACER)
 
     @property

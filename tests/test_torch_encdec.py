@@ -140,7 +140,10 @@ def test_config_and_program_match_reference(arch, reduced):
     j, t = jget_config(arch), get_config(arch)
     if reduced:
         j, t = j.reduced(), t.reduced()
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    got = dataclasses.asdict(t)
+    # the port's own fields, at the defaults that keep JAX's arithmetic
+    assert got.pop("expert_dtype") == "" and got.pop("norm_topk_prob") is True
+    assert got == dataclasses.asdict(j)
     assert arch in list_archs()
     assert [dataclasses.astuple(s) for s in scheduler.model_program(t)] == \
         [dataclasses.astuple(s) for s in jscheduler.model_program(j)]

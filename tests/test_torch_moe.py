@@ -23,6 +23,13 @@ Held against the reference on the same numpy inputs:
   equal to the JAX *stacked* engine's (its paged speculative path fails
   on this CPU); chain and tree speculation equal plain decode, and a
   lower-triangular tree mask equals the causal chunk on both layouts.
+
+The published form (``expert_dtype="bfloat16"``, ``norm_topk_prob=False``:
+OLMoE-1B-7B-0924's, top 8 of 64 experts at a small width) in the port
+alone: the raw top-k probabilities as gates, bf16 expert products equal
+to a per-expert loop at the stated rounding points, the served tree
+holding no float32 bank, W8A8 speculation equal to plain decoding, and
+the FFN's stages and counters in a traced tick.
 """
 import dataclasses
 import functools
@@ -240,7 +247,10 @@ def test_config_copy_matches_reference(arch, reduced):
     j, t = jget_config(arch), get_config(arch)
     if reduced:
         j, t = j.reduced(), t.reduced()
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    got = dataclasses.asdict(t)
+    # the port's own fields, at the defaults that keep JAX's arithmetic
+    assert got.pop("expert_dtype") == "" and got.pop("norm_topk_prob") is True
+    assert got == dataclasses.asdict(j)
     assert arch in list_archs()
     lm.check_supported(t)
 
@@ -617,3 +627,188 @@ def test_routing_near_tie_rule_rejects_a_planted_fault(arch, monkeypatch,
     out = capsys.readouterr().out
     assert ": a routing near-tie" in out and "NOT a" not in out
     assert "pinned to the second's choices" in out
+
+
+# ---------------------------------------------------------------------------
+# the published form: bf16 experts, gates not renormalised
+
+
+def _published(arch="olmoe-1b-7b"):
+    """OLMoE-1B-7B-0924's routing and expert precision at a small width."""
+    return dataclasses.replace(
+        get_config(arch).reduced(), n_experts=64, experts_per_token=8,
+        d_ff=32, expert_dtype="bfloat16", norm_topk_prob=False)
+
+
+def test_route_without_renormalising_gives_the_topk_probabilities():
+    """``norm_topk_prob=False``: the gates are the router's top-k float32
+    probabilities as they are (their sum below one); the choices and
+    slots are those of the renormalised route."""
+    cfg = _published()
+    p = moe.moe_init(torch.Generator().manual_seed(1), cfg)
+    xt = torch.randn((21, cfg.d_model),
+                     generator=torch.Generator().manual_seed(2))
+    gates, experts, slots, C, _ = moe.route(p, xt, cfg, None)
+    want_g, want_e = torch.topk(moe.router_probs(p, xt), 8, dim=-1)
+    assert torch.equal(gates, want_g) and torch.equal(experts, want_e)
+    assert float(gates.sum(-1).max()) < 1.0
+    normed = moe.route(p, xt, dataclasses.replace(cfg, norm_topk_prob=True),
+                       None)
+    assert torch.equal(normed[1], experts) and torch.equal(normed[2], slots)
+    torch.testing.assert_close(normed[0], gates / gates.sum(-1, keepdim=True),
+                               rtol=0, atol=0)
+
+
+def test_bf16_moe_apply_equals_a_per_expert_loop():
+    """``expert_dtype="bfloat16"`` on a float32 stream: each expert's
+    routed tokens alone, rounded to bf16, through its bf16 banks (each
+    product rounded to bf16, ``layers.silu`` rounding after each of its
+    operations, its product with the up projection rounded once), the
+    output cast to float32 and weighed by the raw gate, summed over the
+    k choices in their order: equal to the padded batched products, bit
+    for bit; the banks as the engine serves them (converted once) and
+    as float32 (cast on the call) give the same."""
+    from repro_torch.models.layers import silu
+
+    cfg = _published()
+    p = moe.moe_init(torch.Generator().manual_seed(3), cfg)
+    served = quantize.serve_experts({"layers": [{"moe": p}]}, cfg,
+                                    torch.float32)["layers"][0]["moe"]
+    x = torch.randn((3, 7, cfg.d_model),
+                    generator=torch.Generator().manual_seed(4))
+    out, _ = moe.moe_apply(served, x, cfg)
+    assert out.dtype == torch.float32
+    assert torch.equal(moe.moe_apply(p, x, cfg)[0], out)
+    xt = x.reshape(-1, cfg.d_model)
+    gates, experts = torch.topk(moe.router_probs(p, xt), 8, dim=-1)
+    ys = torch.zeros((xt.shape[0], 8, cfg.d_model))
+    bf = torch.bfloat16
+    for e in range(cfg.n_experts):
+        tok, slot = torch.nonzero(experts == e, as_tuple=True)
+        xe = xt[tok].to(bf)
+        h = silu(xe @ p["w_gate"][e].to(bf)) * (xe @ p["w_up"][e].to(bf))
+        y = h @ p["w_down"][e].to(bf)
+        ys[tok, slot] = y.float() * gates[tok, slot][:, None]
+    assert torch.equal(out, ys.sum(dim=1).reshape(x.shape))
+    # the stream's dtype where the config states none: float32 experts
+    f32 = moe.moe_apply(p, x, dataclasses.replace(cfg, expert_dtype=""))[0]
+    assert not torch.equal(f32, out)
+
+
+def test_serving_params_hold_no_float32_bank():
+    """A W8A8 engine of the published form holds every expert bank in
+    bf16, converted once, and its float32 router in storage of its own
+    (not a view that keeps a shared buffer alive); a registered config's
+    banks stay in the stream's dtype, the same tensors."""
+    cfg = _published()
+    params = lm.init(cfg, torch.Generator().manual_seed(0))
+    flat = torch.randn(2 * cfg.d_model * cfg.n_experts)
+    for i, layer in enumerate(params["layers"]):  # routers sharing a buffer
+        n = cfg.d_model * cfg.n_experts
+        layer["moe"]["router"]["w"] = flat[i * n:(i + 1) * n].view(
+            cfg.d_model, cfg.n_experts)
+    calib = [np.random.default_rng(0).integers(1, cfg.vocab_size, (1, 16))]
+    eng = ServeEngine(cfg, params, quantized=True, calibration_batches=calib,
+                      device="cpu", **_COMMON)
+    assert eng.act_dtype == torch.float32
+    for layer in eng.params["layers"]:
+        m = layer["moe"]
+        for name in ("w_up", "w_gate", "w_down"):
+            assert m[name].dtype == torch.bfloat16, name
+        w = m["router"]["w"]
+        assert w.dtype == torch.float32
+        assert w.untyped_storage().nbytes() == w.numel() * 4
+    plain = get_config("olmoe-1b-7b").reduced()
+    p = lm.init(plain, torch.Generator().manual_seed(0))
+    served, act = quantize.serving_params(p, plain, "cpu", quantized=True)
+    assert act == torch.float32
+    for a, b in zip(p["layers"], served["layers"]):
+        for name in ("w_up", "w_gate", "w_down"):
+            assert b["moe"][name] is a["moe"][name]
+
+
+@pytest.mark.parametrize("variant", ["chain-ngram", "tree-model"])
+def test_w8a8_spec_streams_equal_plain_in_published_form(variant):
+    """The published form's W8A8 engine (bf16 experts, raw gates): chain
+    speculation with the n-gram proposer and tree speculation with a
+    model draft give the plain engine's greedy streams, drafts accepted
+    and rejected."""
+    cfg = _published()
+    params = lm.init(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(5)
+    calib = [rng.integers(1, cfg.vocab_size, (2, 16))]
+    prompts = []
+    for first, n in zip(rng.permutation(np.arange(1, cfg.vocab_size)),
+                        (6, 19, 11, 27)):
+        run = rng.integers(1, cfg.vocab_size, int(rng.integers(2, 5)))
+        prompts.append([int(first)] + (run.tolist() * n)[:n - 1])
+
+    def engine(**kw):
+        return ServeEngine(cfg, params, quantized=True,
+                           calibration_batches=calib, device="cpu",
+                           **_COMMON, **kw)
+
+    if variant == "chain-ngram":
+        spec = speculative.SpecConfig(k=4)
+    else:
+        draft = torch.utils._pytree.tree_map(
+            lambda t: t + 0.25 * t.std() * torch.randn(
+                t.shape, generator=torch.Generator().manual_seed(7)), params)
+        spec = speculative.SpecConfig(k=5, proposer="model", draft_cfg=cfg,
+                                      draft_params=draft, tree=True,
+                                      branch=3)
+    want = _serve(engine(), prompts)
+    eng = engine(spec=spec)
+    assert _serve(eng, prompts) == want
+    s = eng.stats()
+    assert 0 < s["spec_accepted"] < s["spec_proposed"]
+
+
+@pytest.mark.parametrize("tick,calls", [(0, ("chunk",)),
+                                        (2, ("chunk", "decode"))],
+                         ids=["prefill_chunk", "last_chunk_and_decode"])
+def test_a_traced_tick_ranges_each_moe_stage_and_counts_rows(tick, calls):
+    """One request of 19 prompt tokens in chunks of 8 on a traced W8A8
+    engine of the published form: each ``model.moe.*`` stage is a
+    profiler range and a host span once a layer per model call, and the
+    counters add ``E x C`` computed rows (C = T x k, exact capacity) and
+    ``T x k`` routed ones per call, T the call's tokens (8 a chunk, every
+    slot in a decode step), in the engine's registry and the process's
+    totals alike."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import telemetry as tel
+
+    cfg = _published()
+    params = lm.init(cfg, torch.Generator().manual_seed(0))
+    calib = [np.random.default_rng(0).integers(1, cfg.vocab_size, (1, 16))]
+    eng = ServeEngine(cfg, params, quantized=True, calibration_batches=calib,
+                      device="cpu", telemetry=tel.Telemetry(
+                          trace=True, annotate=True), **_COMMON)
+    eng.submit(list(range(1, 20)), max_new=6)
+    for _ in range(tick):
+        eng.tick()
+    reg = eng.tel.registry
+    before = (reg.counter("moe.rows_computed").value,
+              reg.counter("moe.rows_routed").value, tel.counted())
+    eng.tel.tracer.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.tick()
+    E, k, L = cfg.n_experts, cfg.experts_per_token, cfg.n_layers
+    stages = [f"model.moe.{s}"
+              for s in ("route", "dispatch", "experts", "combine")]
+    ranges = [e.name() for e in prof.profiler.kineto_results.events()
+              if e.is_user_annotation()]
+    spans = [e[1] for e in eng.tel.tracer.events if e[0] == "X"]
+    for name in stages:
+        assert ranges.count(name) == spans.count(name) == L * len(calls)
+    T = [CHUNK if c == "chunk" else SLOTS for c in calls]
+    computed = sum(L * E * t * k for t in T)
+    routed = sum(L * t * k for t in T)
+    assert reg.counter("moe.rows_computed").value - before[0] == computed
+    assert reg.counter("moe.rows_routed").value - before[1] == routed
+    after = tel.counted()
+    assert after["moe.rows_computed"] - before[2].get(
+        "moe.rows_computed", 0) == computed
+    assert after["moe.rows_routed"] - before[2].get(
+        "moe.rows_routed", 0) == routed

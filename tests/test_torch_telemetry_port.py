@@ -7,6 +7,7 @@ included), and the profiler ranges of ``annotate=True``: on the CPU
 engine (float and W8A8) they leave streams and stats as they were, and a
 ``torch.profiler`` trace holds one range per host span, under its name.
 """
+import dataclasses
 import json
 import tracemalloc
 
@@ -226,21 +227,32 @@ def test_modeled_vs_measured_aggregation():
 
 
 def test_null_tracer_zero_allocations(gpt2):
-    """The disabled tracer's hot-path methods, the stage hooks included,
-    allocate nothing: neither called alone nor from inside decode steps
-    of a W8A8 model with the null tracer active."""
+    """The disabled tracer's hot-path methods, the stage hooks and
+    counters included, allocate nothing: neither called alone nor from
+    inside decode steps of a W8A8 model with the null tracer active, a
+    dense one and a MoE one in its published form (bf16 experts, whose
+    FFN opens four stages and counts two numbers a layer)."""
     tel_file = NULL_TRACER.span.__func__.__code__.co_filename
     cfg, params, _ = gpt2
-    eng = ServeEngine(cfg, params, batch_slots=2, max_seq=64, eos_id=-1,
-                      quantized=True, chunk_size=8, page_size=8,
-                      calibration_batches=[np.arange(1, 17)[None]],
-                      device="cpu")
-    assert eng.tel.tracer is NULL_TRACER
+    moe_cfg = dataclasses.replace(
+        get_config("olmoe-1b-7b").reduced(), n_experts=64,
+        experts_per_token=8, d_ff=32, expert_dtype="bfloat16",
+        norm_topk_prob=False)
+    models = []
+    for c, p in ((cfg, params),
+                 (moe_cfg, lm.init(moe_cfg, torch.Generator().manual_seed(0),
+                                   device="cpu"))):
+        eng = ServeEngine(c, p, batch_slots=2, max_seq=64, eos_id=-1,
+                          quantized=True, chunk_size=8, page_size=8,
+                          calibration_batches=[np.arange(1, 17)[None]],
+                          device="cpu")
+        assert eng.tel.tracer is NULL_TRACER
+        models.append((c, eng.params, lm.init_cache(
+            c, 2, 64, layout="stacked", device="cpu")))
     # a stage on the null tracer is the one shared context: it allocates
     # nothing even for a moment
     assert stage("model.norm") is stage("engine.sync") is NULL_TRACER.span(
         "decode.step")
-    cache = lm.init_cache(cfg, 2, 64, layout="stacked", device="cpu")
     tok = torch.ones((2, 1), dtype=torch.long)
     lengths = torch.zeros((2,), dtype=torch.int32)
 
@@ -255,13 +267,18 @@ def test_null_tracer_zero_allocations(gpt2):
             for name in STAGES:
                 with stage(name):
                     pass
+            tel.count("moe.rows_routed", 1000 + i)
         prev = set_active(NULL_TRACER)
         for _ in range(max(1, n // 100)):
-            lm.decode_step(eng.params, cfg, tok, cache, lengths,
-                           dtype=torch.float32)
+            for c, p, cache in models:
+                lm.decode_step(p, c, tok, cache, lengths,
+                               dtype=torch.float32)
         set_active(prev)
 
+    counted = tel.counted()
     burst(10)
+    # the null tracer counts nothing: the MoE steps' counters included
+    assert tel.counted() == counted
     tracemalloc.start()
     try:
         before = tracemalloc.take_snapshot()
