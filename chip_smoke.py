@@ -70,6 +70,13 @@ failure exits non-zero and nothing is caught and continued:
    to the CPU's and the output within 1e-4 at 8 tokens; timed whole, its
    router alone and its products alone, beside its bytes bound and the
    padded products' operations bound; one ``moe_ffn`` JSON line.
+   Then the grouped experts kernel (``moe_experts``, bf16 experts) at
+   ``olmoe-1b-7b-0924``'s widths at 32 and 256 tokens: held to its plain
+   version on the card (within 2^-7 of each row's largest magnitude, at
+   most 5% of elements apart; it reads equal), two calls bit-identical,
+   timed beside its plain version, the padded ``bmm`` + ``layers.silu``
+   path it replaced and its bound (the touched experts' banks read once);
+   a reduced published-form engine counts two launches a MoE layer.
    Then the hybrid stacks' kernels: ``mha_decode`` on
    ``recurrentgemma-9b``'s ring (8 rows, 16 query heads over one KV head
    of 256, a bf16 ring of 2,048 slots, lengths up to W + 1 as the ring
@@ -455,6 +462,13 @@ RECURRENT_BLOCKS = (("recurrentgemma-9b", "rglru"), ("xlstm-350m", "mlstm"),
                     ("xlstm-350m", "slstm"))
 #: the MoE FFN timed alone: a decode tick's tokens and a prefill chunk's
 MOE_TIMED_T = (SLOTS, CHUNK)
+#: the grouped experts kernel at olmoe-1b-7b-0924's widths (d 2,048, f
+#: 1,024, 64 bf16 experts, top 8): the cell's 32-slot decode step and a
+#: prefill of 256 tokens; its tolerance against the plain version on the
+#: card, per output row and as the share of elements that differ (the card
+#: tests', where the reason is stated)
+MOE_EXPERTS_T = (32, 256)
+MOE_REL_TOL, MOE_DIFF_SHARE = 2 ** -7, 0.05
 #: the over-commit phase's page pool (pages of 16, the null page included):
 #: every prompt fits, the requests' reservations together do not
 OVERCOMMIT_PAGES = 97
@@ -1694,6 +1708,118 @@ def moe_ffn_phase(dev, timer):
     del p
     torch.cuda.empty_cache()
     return rows
+
+
+def moe_experts_phase(dev, timer):
+    """The grouped experts kernel (``ops.moe_experts``) at
+    olmoe-1b-7b-0924's widths, uniform random top-8 choices of a float32
+    stream at ``MOE_EXPERTS_T`` tokens: held to its plain version on the
+    card (a per-expert loop of cuBLAS products) within ``MOE_REL_TOL`` per
+    output row and ``MOE_DIFF_SHARE`` of elements, two calls
+    bit-identical; then timed beside its plain version, the padded path it
+    replaced (zero-filled scatter into (E, T k, d), three ``torch.bmm``,
+    ``layers.silu``, the gather: the library yardstick) and its bound, the
+    touched experts' banks read once.  A reduced published-form engine
+    counts its launches.  Returns ``(entry, launches)``."""
+    phase("the grouped MoE experts kernel (olmoe-1b-7b-0924's widths)")
+    d, f, E, k = 2048, 1024, 64, 8
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(8)
+    banks = [(torch.randn(shape, generator=gen, device=dev) * s).to(bf)
+             for shape, s in (((E, d, f), d ** -0.5), ((E, d, f), d ** -0.5),
+                              ((E, f, d), f ** -0.5))]
+    silu = activation_fn("swiglu")
+    rng = np.random.default_rng(30)
+    rows = []
+    for T in MOE_EXPERTS_T:
+        x = torch.from_numpy(rng.standard_normal((T, d)).astype(
+            np.float32)).to(dev)
+        experts = torch.from_numpy(np.argsort(
+            rng.random((T, E)), axis=1)[:, :k].astype(np.int64)).to(dev)
+        C = T * k
+        slots, order, offsets = moe.sort_choices(experts, E, C)
+        flat_e = experts.reshape(-1)
+
+        def call(x=x, order=order, offsets=offsets):
+            return ops.moe_experts(x, order, offsets, *banks, k)
+
+        def plain(x=x, order=order, offsets=offsets):
+            return ref.moe_experts_ref(x, order, offsets, *banks, k)
+
+        def padded(x=x, flat_e=flat_e, slots=slots, C=C):
+            buf = torch.zeros((E * C, d), dtype=bf, device=dev)
+            buf[flat_e * C + slots] = x.to(bf).repeat_interleave(k, dim=0)
+            buf = buf.view(E, C, d)
+            h = silu(torch.bmm(buf, banks[0])) * torch.bmm(buf, banks[1])
+            return torch.bmm(h, banks[2])[flat_e, slots]
+
+        got, again, want = call(), call(), plain()
+        lib = padded()
+        torch.cuda.synchronize()
+        _, rel = rel_err(got, want)
+        share = (got != want).float().mean().item()
+        pos = order.argsort()
+        lib_rel = rel_err(got[pos], lib)[1]
+        lib_share = (got[pos] != lib).float().mean().item()
+        lib_plain = (want[pos] != lib).float().mean().item()
+        check(rel <= MOE_REL_TOL and share <= MOE_DIFF_SHARE,
+              f"moe_experts T={T}: rel err {rel}, {share:.4f} of elements "
+              "differ from the plain version")
+        check(torch.equal(got, again), f"moe_experts T={T}: two calls differ")
+        touched = int((offsets[1:] > offsets[:-1]).sum())
+        t, tp, tl = timer.ms(call), timer.ms(plain), timer.ms(padded)
+        nbytes = (3 * touched * d * f * 2 + 4 * T * d + 2 * C * d
+                  + 2 * 2 * C * f)
+        b, by = bound_ms(nbytes, 3 * 2 * C * d * f, "bf16")
+        geo = ops._moe_geometry(C, E)
+        r = {"T": T, "ms": t, "plain_ms": tp, "library_ms": tl,
+             "bound_ms": b, "bound_by": by, "touched_experts": touched,
+             "max_rel_err": rel, "share_differing": share,
+             "padded_rel_err": lib_rel, "padded_share_differing": lib_share,
+             "padded_vs_plain_share_differing": lib_plain, "mt": geo.mt,
+             "m_tiles": geo.m_tiles}
+        rows.append(r)
+        field = "by_kernel" if len(rows) == 1 else f"T{T}_by_kernel"
+        PROFILED.append((f"moe_experts T={T}", "moe_experts", field, call,
+                         ("experts_kernel",)))
+        print(f"moe_experts T={T}: rel err {rel:.3e} (<= {MOE_REL_TOL}), "
+              f"{share:.4%} of elements differ, two calls bit-identical, "
+              f"padded path rel err {lib_rel:.3e} ({lib_share:.4%} differ; "
+              f"padded vs plain {lib_plain:.4%}); kernel {t:.4f} ms, "
+              f"plain {tp:.4f} ms, padded bmm + silu {tl:.4f} ms, bound "
+              f"{b:.4f} ms ({by}, {touched} experts touched, "
+              f"{nbytes / 1e6:.1f} MB); {geo.mt} m16 tiles a block, "
+              f"{geo.m_tiles} row tiles")
+    cfg = dataclasses.replace(
+        get_config("olmoe-1b-7b").reduced(), n_experts=64,
+        experts_per_token=8, d_ff=32, expert_dtype="bfloat16",
+        norm_topk_prob=False)
+    params = lm.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                     device=dev)
+    calib = [np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 16))]
+    eng = ServeEngine(cfg, params, batch_slots=2, max_seq=64, eos_id=-1,
+                      quantized=True, calibration_batches=calib,
+                      chunk_size=16)
+    for n in (5, 30, 12):
+        eng.submit(([3, 4, 5] * n)[:n], max_new=6)
+    ops.reset_launch_counts()
+    eng.run()
+    n = ops.launch_counts()["moe_experts"]
+    calls = eng.stats()["model_calls"]
+    check(n == 2 * cfg.n_layers * calls > 0, f"moe_experts: {n} launches "
+          f"for {calls} model calls of {cfg.n_layers} MoE layers")
+    print(f"moe_experts: {n} launches in the reduced published-form "
+          f"engine's {calls} model calls (two a layer)")
+    first = rows[0]
+    return {
+        "name": "moe_experts", "route": "cuda",
+        "source": "src/repro_torch/csrc/moe_experts.cu", "replaces": None,
+        "max_abs_err": None, "max_rel_err": first["max_rel_err"],
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": first["library_ms"],
+        "shape": f"T={first['T']} d={d} f={f} E={E} k={k} float32 x",
+        "timed": rows}, {"moe_experts": n}
 
 
 def mp_per_call(cfg) -> int:
@@ -2950,15 +3076,14 @@ class RouterProbe:
         self._route = moe.route
 
         def route(p, xt, cfg, capacity_factor):
-            gates, experts, slots, C, aux = self._route(p, xt, cfg,
-                                                        capacity_factor)
+            r = self._route(p, xt, cfg, capacity_factor)
             probs = moe.router_probs(p, xt)
             layer, self.calls = self.calls % self.L, self.calls + 1
             keys = [(layer, self.pos0 + i) for i in range(self.n)]
             self.rec.update(zip(keys, probs[:self.n].cpu()))
             if self.pin is None:
-                return gates, experts, slots, C, aux
-            chosen = experts.cpu()
+                return r
+            chosen = r.experts.cpu()
             for i, key in enumerate(keys):
                 if key not in self.pin:
                     continue
@@ -2969,8 +3094,10 @@ class RouterProbe:
             experts = chosen.to(xt.device)
             g = probs.gather(1, experts)
             gates = g / g.sum(dim=-1, keepdim=True).clamp_min(1e-9)
-            return (gates, experts, moe.slots_of(experts, cfg.n_experts, C),
-                    C, aux)
+            slots, order, offsets = moe.sort_choices(experts, cfg.n_experts,
+                                                     r.C)
+            return moe.Routing(gates, experts, slots, r.C, r.probs, order,
+                               offsets)
 
         moe.route, RouterProbe.active = route, self
         return self
@@ -4586,6 +4713,7 @@ def main() -> int:
         entries[name]["mixed"] = rows
     entries["mp_matmul"]["column_shards"] = ring_phase(dev, timer)
     moe_ffn_phase(dev, timer)
+    entries["moe_experts"], grouped_launches = moe_experts_phase(dev, timer)
     recurrent_block_phase(dev, timer)
     del timer
     launches, qparams, cfg = serving_phase(dev)
@@ -4618,13 +4746,14 @@ def main() -> int:
               **replay_launches, **dist_launches,
               "MDK program": {"ln_res": ln_launches}, **family_launches,
               "trained checkpoint": train_launches,
-              "analysis": analysis_launches}
+              "analysis": analysis_launches,
+              "published MoE": grouped_launches}
     # each kernel's count from the run of its own path: plain paged
     # serving for the first slice's three, the tree run for the tree
     # verify, the stacked target's decode for mha_decode, the MDK program
     # walk for ln_res
     own = {"paged_verify_tree": "tree spec", "mha_decode": "stacked plain",
-           "ln_res": "MDK program"}
+           "ln_res": "MDK program", "moe_experts": "published MoE"}
     kernels = []
     for name, e in entries.items():
         e = dict(e)
@@ -4633,7 +4762,7 @@ def main() -> int:
                                 for run, n in by_run.items()}
         check(e["launches"] > 0, f"kernel {name} never launched on its path")
         kernels.append(e)
-    check(len(kernels) == 7, f"{len(kernels)} kernels in the line")
+    check(len(kernels) == 8, f"{len(kernels)} kernels in the line")
     print(f"total {time.perf_counter() - T_START:.1f} s on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

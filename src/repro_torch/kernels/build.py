@@ -53,6 +53,9 @@ SIGNATURES = {
     "ln_res": [_P] * 8 + [_I] * 5 + [_F] + [_I] * 2 + [_P],
     # x, smooth, x_q, scale, M, K, x_bf16, threads, nv, vec, stream
     "quant_act": [_P] * 4 + [_I] * 6 + [_P],
+    # x, order, offsets, w_gate, w_up, w_down, h, y, T, d, f, E, k, x_bf16,
+    # act, mt, m_tiles, stream
+    "moe_experts": [_P] * 8 + [_I] * 9 + [_P],
 }
 
 

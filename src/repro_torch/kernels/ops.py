@@ -16,7 +16,9 @@ cluster of blocks per output strip; ``paged_mha_decode``,
 ``mha_decode`` and ``paged_verify`` launch two each (the split-KV
 attention, then the combine of its splits) and count once, the verify's
 causal and tree-masked calls apart (``launches``, ``tree_launches``);
-``quant_act`` launches one per call.  ``ln_res``
+``quant_act`` launches one per call; ``moe_experts`` launches two (the
+gate and up products with the activation, then the down product) and
+counts both.  ``ln_res``
 is reached only through ``core/mdk.MDK_REGISTRY["ln_res"]``, as in the
 JAX package.  Unlike the TPU wrappers these pad nothing: the kernels
 mask their own ragged edges.
@@ -62,6 +64,10 @@ _DECODE_BLOCKS = 4 * _N_SMS
 _LN_THREADS, _LN_MAX_NV = 256, 8
 #: quant_act.cu: the widest block
 _QA_MAX_THREADS = 1024
+#: moe_experts.cu: rows of one m16 MMA tile; the gated activations it
+#: applies, by the code the kernel takes
+_MOE_M16 = 16
+_MOE_ACTS = {"swiglu": 0, "geglu": 1}
 
 
 class MpGeometry(NamedTuple):
@@ -136,7 +142,8 @@ def launch_counts() -> Dict[str, int]:
             "paged_verify_tree": paged_verify.tree_launches,
             "mha_decode": mha_decode.launches,
             "ln_res": ln_res.launches,
-            "quant_act": quant_act.launches}
+            "quant_act": quant_act.launches,
+            "moe_experts": moe_experts.launches}
 
 
 def reset_launch_counts() -> None:
@@ -147,6 +154,7 @@ def reset_launch_counts() -> None:
     mha_decode.launches = 0
     ln_res.launches = 0
     quant_act.launches = 0
+    moe_experts.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -596,6 +604,83 @@ def quant_act(x, smooth):
     _check_launch(name, err)
     quant_act.launches += 1
     return x_q, scale
+
+
+class MoeGeometry(NamedTuple):
+    """Launch geometry of ``moe_experts.cu``."""
+    mt: int         # m16 row tiles a block: 1, or 2 past 32 rows an expert
+    m_tiles: int    # the grid's row tiles: an upper bound from the shapes
+
+
+def _moe_geometry(Tk: int, E: int) -> MoeGeometry:
+    """The row tiling of ``moe_experts`` for ``Tk`` sorted choices over
+    ``E`` experts, from the shapes alone (the experts' counts live on the
+    card): two m16 tiles a block when the experts hold 32 rows or more on
+    average, else one; and the most row tiles any routing can need, each
+    non-empty expert (at most ``min(E, Tk)``) rounding its rows up to a
+    whole tile."""
+    mt = 2 if Tk >= 2 * _MOE_M16 * E else 1
+    bm = _MOE_M16 * mt
+    return MoeGeometry(mt, (Tk + (bm - 1) * min(E, Tk)) // bm)
+
+
+def moe_experts(x, order, offsets, w_gate, w_up, w_down, k: int, *,
+                activation: str = "swiglu") -> torch.Tensor:
+    """The MoE FFN's experts over the routed rows alone, in expert order.
+
+    ``x`` (T, d) the tokens, float32 or bf16; ``order`` (T k,) int64, the
+    flat choice (token ``order // k``) at each sorted position;
+    ``offsets`` (E + 1,) int32, each expert's first sorted position;
+    ``w_gate``, ``w_up`` (E, d, f) and ``w_down`` (E, f, d) bf16.  Returns
+    ``y`` (T k, d) bf16: row p is expert e's FFN of its routed row, for
+    ``offsets[e] <= p < offsets[e + 1]``, at the rounding points of
+    ``models/moe.py`` (``activation`` ``"swiglu"`` or ``"geglu"``).
+
+    On the card one call launches two CUDA functions (gate and up with
+    the activation, then down; ``_moe_geometry``) and counts both."""
+    name = "moe_experts"
+    if not _route(name, x, order, offsets, w_gate, w_up, w_down):
+        return ref.moe_experts_ref(x, order, offsets, w_gate, w_up, w_down,
+                                   k, activation=activation)
+    _require(activation in _MOE_ACTS,
+             f"{name}: activation {activation!r} not one of "
+             f"{tuple(_MOE_ACTS)}")
+    _require(x.dim() == 2 and x.dtype in (torch.float32, torch.bfloat16),
+             f"{name}: x must be (T, d) float32 or bfloat16")
+    T, d = x.shape
+    E, f = w_gate.shape[0], w_gate.shape[2]
+    _require(w_gate.shape == w_up.shape == (E, d, f)
+             and w_down.shape == (E, f, d),
+             f"{name}: banks {tuple(w_gate.shape)}, {tuple(w_up.shape)}, "
+             f"{tuple(w_down.shape)} do not fit x {tuple(x.shape)}")
+    _require(all(w.dtype == torch.bfloat16 for w in (w_gate, w_up, w_down)),
+             f"{name}: the banks must be bfloat16")
+    _require(order.dtype == torch.int64 and tuple(order.shape) == (T * k,),
+             f"{name}: order must be int64 ({T * k},)")
+    _require(offsets.dtype == torch.int32
+             and tuple(offsets.shape) == (E + 1,),
+             f"{name}: offsets must be int32 ({E + 1},)")
+    _require(d % 8 == 0 and f % 8 == 0,
+             f"{name}: d {d} and f {f} must be multiples of 8")
+    _contig(name, x=x, order=order, offsets=offsets, w_gate=w_gate,
+            w_up=w_up, w_down=w_down)
+    # the kernels stage rows and bank tiles with 16-byte copies
+    _require(all(t.data_ptr() % 16 == 0 for t in (x, w_gate, w_up, w_down)),
+             f"{name}: x and the banks must be 16-byte aligned")
+    y = torch.empty((T * k, d), dtype=torch.bfloat16, device=x.device)
+    if T * k == 0:
+        return y
+    h = torch.empty((T * k, f), dtype=torch.bfloat16, device=x.device)
+    geo = _moe_geometry(T * k, E)
+    _require(geo.m_tiles <= 65535, f"{name}: {T * k} rows exceed the grid")
+    err = build.library().moe_experts(
+        x.data_ptr(), order.data_ptr(), offsets.data_ptr(),
+        w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(), h.data_ptr(),
+        y.data_ptr(), T, d, f, E, k, int(x.dtype == torch.bfloat16),
+        _MOE_ACTS[activation], geo.mt, geo.m_tiles, _stream(x))
+    _check_launch(name, err)
+    moe_experts.launches += 2
+    return y
 
 
 reset_launch_counts()

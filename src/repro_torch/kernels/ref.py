@@ -192,3 +192,30 @@ def ln_res_ref(
     scale = amax.clamp(min=1e-6) / 127.0
     y_q = torch.round(y / scale).clamp(-127, 127).to(torch.int8)
     return y.to(torch.bfloat16), r.to(res.dtype), y_q, scale
+
+
+def moe_experts_ref(x, order, offsets, w_gate, w_up, w_down, k: int, *,
+                    activation: str = "swiglu") -> torch.Tensor:
+    """The experts over the routed rows alone: for each expert, its rows
+    (sorted positions ``offsets[e]`` to ``offsets[e + 1]``, tokens
+    ``order // k``) rounded to the banks' dtype, through its banks (each
+    product rounded to that dtype, the activation rounding after each of
+    its operations, its product with the up projection rounded once).
+    Returns (T k, d) in sorted order.  Reads the offsets on the host, so
+    it is the CPU's path only; on ``meta`` it computes the shape."""
+    from repro_torch.models.layers import activation_fn  # imports ops
+
+    y = torch.empty((order.shape[0], w_down.shape[2]), dtype=w_down.dtype,
+                    device=x.device)
+    if x.device.type == "meta":
+        return y
+    act = activation_fn(activation)
+    rows = x[order // k].to(w_up.dtype)
+    off = offsets.tolist()
+    for e in range(len(off) - 1):
+        lo, hi = off[e], off[e + 1]
+        if lo < hi:
+            xe = rows[lo:hi]
+            h = act(xe @ w_gate[e]) * (xe @ w_up[e])
+            y[lo:hi] = h @ w_down[e]
+    return y

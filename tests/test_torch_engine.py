@@ -119,7 +119,7 @@ def test_quantized_greedy_agreement(setup):
     assert ops.launch_counts() == {
         "mp_matmul": 0, "paged_mha_decode": 0, "paged_verify": 0,
         "paged_verify_tree": 0, "mha_decode": 0, "ln_res": 0,
-        "quant_act": 0}
+        "quant_act": 0, "moe_experts": 0}
 
 
 def test_engine_without_card_raises(setup, monkeypatch):

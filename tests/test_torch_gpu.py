@@ -1149,6 +1149,174 @@ def test_moe_engine_on_card_runs_every_kernel(h100, arch):
                                          else L * decodes)
 
 
+# the grouped experts (``ops.moe_experts``) at olmoe-1b-7b-0924's widths:
+# d 2,048, f 1,024, 64 bf16 experts, top 8, a float32 stream
+MOE_D, MOE_F, MOE_E, MOE_K = 2048, 1024, 64, 8
+#: per output row, the largest error over the row's largest magnitude, and
+#: the share of elements that may differ at all: the kernel sums each
+#: product over K in float32 in another order than cuBLAS, so a bf16
+#: rounding of an output (or of the gate, up or hidden value feeding it)
+#: can land one bf16 place away (2^-8 of the value; 2^-7 of the row's
+#: largest covers a flip anywhere in the row); a dropped K stage moves every
+#: element by about 1/128 of its sum
+MOE_REL_TOL, MOE_DIFF_SHARE = 2 ** -7, 0.05
+
+
+def _moe_banks(dev, seed=0):
+    """The three bf16 banks of one layer, scaled as ``moe.moe_init``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = {"generator": gen, "device": dev}
+    s_in, s_out = MOE_D ** -0.5, MOE_F ** -0.5
+    return tuple((torch.randn(shape, **kw) * s).to(torch.bfloat16)
+                 for shape, s in (((MOE_E, MOE_D, MOE_F), s_in),
+                                  ((MOE_E, MOE_D, MOE_F), s_in),
+                                  ((MOE_E, MOE_F, MOE_D), s_out)))
+
+
+def _moe_choices(rng, T, hot=None):
+    """Top-8 expert choices (T, 8) without repeats; with ``hot`` every
+    token's first choice is that expert (it holds all T rows)."""
+    ch = np.argsort(rng.random((T, MOE_E)), axis=1)[:, :MOE_K]
+    if hot is not None:
+        for row in ch:
+            if hot in row:
+                row[list(row).index(hot)] = row[0]
+            row[0] = hot
+    return torch.from_numpy(ch.astype(np.int64))
+
+
+def _moe_close(got, want):
+    """``got`` within ``MOE_REL_TOL`` of each row's largest magnitude of
+    ``want``, and at most ``MOE_DIFF_SHARE`` of its elements different."""
+    rel = _rel_err(got, want)
+    share = (got != want).float().mean().item()
+    assert rel <= MOE_REL_TOL and share <= MOE_DIFF_SHARE, (rel, share)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,hot,xdtype,activation", [
+    (1, None, "float32", "swiglu"), (8, None, "float32", "swiglu"),
+    (32, None, "float32", "swiglu"), (256, None, "float32", "swiglu"),
+    (32, 3, "float32", "swiglu"), (256, 5, "float32", "swiglu"),
+    (32, None, "bfloat16", "swiglu"), (32, None, "float32", "geglu")])
+def test_moe_experts_kernel_against_plain_on_card(h100, T, hot, xdtype,
+                                                  activation):
+    """The grouped experts kernel against its plain version on the card
+    (a per-expert loop of cuBLAS products) at the cell's widths: a single
+    token, a decode step of 8 and of 32, a prefill of 256 (two m16 tiles a
+    block); one expert holding every token (2 row tiles at T 32, 8 of 32
+    rows at T 256); a bf16 stream; the tanh GELU.  Within
+    ``MOE_REL_TOL`` per output row and ``MOE_DIFF_SHARE`` of elements;
+    two calls bit-identical (a fixed order of the sums)."""
+    from repro_torch.models import moe
+
+    w_gate, w_up, w_down = _moe_banks(h100)
+    rng = np.random.default_rng(T + (hot or 0))
+    x = torch.from_numpy(rng.standard_normal((T, MOE_D)).astype(
+        np.float32)).to(device=h100, dtype=getattr(torch, xdtype))
+    experts = _moe_choices(rng, T, hot).to(h100)
+    _, order, offsets = moe.sort_choices(experts, MOE_E, T * MOE_K)
+    ops.reset_launch_counts()
+    got = ops.moe_experts(x, order, offsets, w_gate, w_up, w_down, MOE_K,
+                          activation=activation)
+    again = ops.moe_experts(x, order, offsets, w_gate, w_up, w_down, MOE_K,
+                            activation=activation)
+    assert ops.launch_counts()["moe_experts"] == 4
+    want = ref.moe_experts_ref(x, order, offsets, w_gate, w_up, w_down,
+                               MOE_K, activation=activation)
+    torch.cuda.synchronize()
+    assert got.shape == (T * MOE_K, MOE_D) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    _moe_close(got, want)
+
+
+@pytest.mark.gpu
+def test_grouped_moe_apply_on_card_launches_two_kernels_without_sync(h100):
+    """One layer of OLMoE-1B-7B-0924's MoE FFN on the card (bf16 banks, a
+    float32 stream, exact capacity) at a decode step's 32 tokens: no host
+    sync (``set_sync_debug_mode("error")``), two ``moe_experts`` launches
+    by ``launch_counts()`` and two CUDA functions of the kernel by
+    ``torch.profiler``, no ``bmm`` and no product but the router's; the
+    CPU's routing and, within ``MOE_REL_TOL`` per row, its output (the
+    plain per-expert loop)."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import to_device
+
+    cfg = dataclasses.replace(
+        get_config("olmoe-1b-7b"), expert_dtype="bfloat16",
+        norm_topk_prob=False)
+    p = moe.moe_init(torch.Generator(device=h100).manual_seed(0), cfg,
+                     device=h100)
+    for name in ("w_gate", "w_up", "w_down"):
+        p[name] = p[name].to(torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (32, 1, cfg.d_model)).astype(np.float32)).to(h100)
+    moe.moe_apply(p, x, cfg)  # build, load and warm up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got, _ = moe.moe_apply(p, x, cfg)
+            torch.cuda.synchronize()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert ops.launch_counts()["moe_experts"] == 2
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert sum("experts_kernel" in k for k in kernels) == 2, kernels
+    host = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    # the router's (32, 2048) x (2048, 64) float32 product is the only one
+    assert "aten::bmm" not in host and host.count("aten::mm") == 1, host
+    assert sum("gemm" in k.lower() or "nvjet" in k for k in kernels) == 1, \
+        kernels
+    pc = to_device(p, torch.device("cpu"))
+    xt = x.reshape(32, cfg.d_model)
+    assert torch.equal(moe.route(p, xt, cfg, None).experts.cpu(),
+                       moe.route(pc, xt.cpu(), cfg, None).experts)
+    want, _ = moe.moe_apply(pc, x.cpu(), cfg)
+    assert _rel_err(got.cpu().reshape(32, -1), want.reshape(32, -1)) \
+        <= MOE_REL_TOL
+
+
+@pytest.mark.gpu
+def test_grouped_moe_engine_on_card_counts_its_launches(h100):
+    """A reduced published-form engine on the card (64 bf16 experts of 32,
+    top 8, raw gates; W8A8 attention): every model call's MoE layers go
+    through the grouped kernels, two launches a layer, and every request
+    gets its tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = dataclasses.replace(
+        get_config("olmoe-1b-7b").reduced(), n_experts=64,
+        experts_per_token=8, d_ff=32, expert_dtype="bfloat16",
+        norm_topk_prob=False)
+    params = lm.init(cfg, torch.Generator(device=h100).manual_seed(0),
+                     device=h100)
+    calib = [np.random.default_rng(0).integers(1, cfg.vocab_size, (2, 16))]
+    eng = ServeEngine(cfg, params, batch_slots=2, max_seq=64, eos_id=-1,
+                      quantized=True, calibration_batches=calib,
+                      chunk_size=16)
+    for n in (5, 30, 12):
+        eng.submit(([3, 4, 5] * n)[:n], max_new=6)
+    ops.reset_launch_counts()
+    done = eng.run()
+    s, n = eng.stats(), ops.launch_counts()
+    assert len(done) == 3 and all(len(r.out) == 6 for r in done)
+    assert n["moe_experts"] == 2 * cfg.n_layers * s["model_calls"] > 0
+
+
 # ---------------------------------------------------------------------------
 # the hybrid stacks: recurrentgemma-9b's ring decode (16 query heads over
 # one KV head of 256 on a ring of 2,048) and linears, xlstm-350m's

@@ -274,10 +274,14 @@ def test_plain_path_counts_no_launch():
                      torch.ones((2, 1)), torch.ones((1, 3)))
     ops.ln_res(torch.ones((2, 4)), torch.ones((2, 4)), torch.ones(4))
     ops.quant_act(torch.ones((2, 4)), torch.ones(4))
+    bank = torch.ones((2, 8, 8), dtype=torch.bfloat16)
+    ops.moe_experts(torch.ones((2, 8)), torch.arange(4),
+                    torch.tensor([0, 2, 4], dtype=torch.int32), bank, bank,
+                    bank, 2)
     assert ops.launch_counts() == {
         "mp_matmul": 0, "paged_mha_decode": 0, "paged_verify": 0,
         "paged_verify_tree": 0, "mha_decode": 0, "ln_res": 0,
-        "quant_act": 0}
+        "quant_act": 0, "moe_experts": 0}
 
 
 @pytest.mark.parametrize("K", [1, 3, 100, 1024, 1027, 1280, 4096, 5120,
@@ -902,8 +906,8 @@ def test_build_without_toolkit_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
     assert {p.name for p in build.sources()} == {
-        "ln_res.cu", "mha_decode.cu", "mp_matmul.cu", "paged_mha.cu",
-        "paged_verify.cu", "quant_act.cu"}
+        "ln_res.cu", "mha_decode.cu", "moe_experts.cu", "mp_matmul.cu",
+        "paged_mha.cu", "paged_verify.cu", "quant_act.cu"}
 
 
 

@@ -51,6 +51,7 @@ from repro.serving.engine import ServeEngine as JServeEngine
 from repro_torch import bridge
 from repro_torch.configs import get_config, list_archs
 from repro_torch.core import perfmodel, scheduler
+from repro_torch.kernels import ops
 from repro_torch.models import lm, moe
 from repro_torch.serving import admission, quantize, speculative
 from repro_torch.serving.engine import ServeEngine
@@ -207,8 +208,8 @@ def test_moe_apply_matches_reference(arch, dtype, capacity_factor):
 
     want_e, want_rank, want_slot, C = _jax_route(jp, jx, jcfg,
                                                  capacity_factor)
-    gates, experts, slots, tC, _ = moe.route(tp, tx.reshape(-1, cfg.d_model),
-                                             cfg, capacity_factor)
+    gates, experts, slots, tC = moe.route(tp, tx.reshape(-1, cfg.d_model),
+                                          cfg, capacity_factor)[:4]
     assert tC == C == moe.capacity(cfg, 21, capacity_factor)
     np.testing.assert_array_equal(experts.numpy(), want_e)
     np.testing.assert_array_equal(slots.numpy(), want_slot)
@@ -648,7 +649,7 @@ def test_route_without_renormalising_gives_the_topk_probabilities():
     p = moe.moe_init(torch.Generator().manual_seed(1), cfg)
     xt = torch.randn((21, cfg.d_model),
                      generator=torch.Generator().manual_seed(2))
-    gates, experts, slots, C, _ = moe.route(p, xt, cfg, None)
+    gates, experts, slots = moe.route(p, xt, cfg, None)[:3]
     want_g, want_e = torch.topk(moe.router_probs(p, xt), 8, dim=-1)
     assert torch.equal(gates, want_g) and torch.equal(experts, want_e)
     assert float(gates.sum(-1).max()) < 1.0
@@ -693,6 +694,151 @@ def test_bf16_moe_apply_equals_a_per_expert_loop():
     # the stream's dtype where the config states none: float32 experts
     f32 = moe.moe_apply(p, x, dataclasses.replace(cfg, expert_dtype=""))[0]
     assert not torch.equal(f32, out)
+
+
+def _padded_products(p, x, cfg):
+    """The published form's FFN through the padded batched products at
+    exact capacity, as ``moe_apply`` ran every bf16 call before the
+    grouped path: the routed rows scattered into an (E, T k, d) bf16
+    buffer, three ``torch.bmm`` over it, ``layers.silu`` between them, the
+    outputs gathered back, cast to the stream's dtype, weighed by the
+    gates and summed over k."""
+    from repro_torch.models.layers import silu
+
+    B, S, d = x.shape
+    E, k, bf = cfg.n_experts, cfg.experts_per_token, torch.bfloat16
+    xt = x.reshape(-1, d)
+    r = moe.route(p, xt, cfg, None)
+    flat_e = r.experts.reshape(-1)
+    buf = torch.zeros((E * r.C, d), dtype=bf)
+    buf[flat_e * r.C + r.slots] = xt.to(bf).repeat_interleave(k, dim=0)
+    buf = buf.view(E, r.C, d)
+    h = silu(torch.bmm(buf, p["w_gate"].to(bf))) * torch.bmm(
+        buf, p["w_up"].to(bf))
+    y = torch.bmm(h, p["w_down"].to(bf))[flat_e, r.slots]
+    y = y.reshape(-1, k, d).to(x.dtype) * r.gates[..., None].to(x.dtype)
+    return y.sum(dim=1).reshape(x.shape)
+
+
+def _grouped_on_the_cpu(monkeypatch):
+    """Let ``moe_apply`` take the grouped path on the CPU too, where it
+    otherwise keeps the padded products: ``ops.moe_experts``' plain
+    version, a per-expert loop, stands in for the card's kernels."""
+    rule = moe.grouped
+    monkeypatch.setattr(moe, "grouped", lambda cfg, ed, cf, device: rule(
+        cfg, ed, cf, torch.device("cuda")))
+
+
+def _skewed(p, cfg, experts):
+    """A copy of ``p`` whose router sends every token to ``experts``
+    first: a large bias on their logits through a constant input
+    feature."""
+    q = dict(p, router={"w": p["router"]["w"].clone()})
+    q["router"]["w"][0, list(experts)] += 1e3
+    return q
+
+
+@pytest.mark.parametrize("banks", ["served", "float32"])
+@pytest.mark.parametrize("T", [1, 7, 21, 32, "skew"])
+def test_grouped_experts_equal_the_padded_products(T, banks, monkeypatch):
+    """The grouped path, let onto the CPU (``ops.moe_experts``' plain
+    version: a per-expert loop over the routed rows in sorted order),
+    gives the padded batched products' output bit for bit, at a single
+    token, a ragged few, a prefill chunk and a decode step's 32; and
+    under skew, where every token picks the same 8 experts (each of them
+    holds all T rows, 56 hold none); with the banks converted to bf16
+    once, as an engine serves them, and as float32 cast on the call."""
+    _grouped_on_the_cpu(monkeypatch)
+    cfg = _published()
+    p = moe.moe_init(torch.Generator().manual_seed(11), cfg)
+    n = 32 if T == "skew" else T
+    x = torch.randn((1, n, cfg.d_model),
+                    generator=torch.Generator().manual_seed(12))
+    if T == "skew":
+        x[..., 0] = 1.0
+        p = _skewed(p, cfg, range(8, 16))
+        experts = moe.route(p, x.reshape(n, -1), cfg, None).experts
+        assert set(experts.reshape(-1).tolist()) == set(range(8, 16))
+    served = p if banks == "float32" else quantize.serve_experts(
+        {"layers": [{"moe": p}]}, cfg, torch.float32)["layers"][0]["moe"]
+    ops.reset_launch_counts()
+    got, aux = moe.moe_apply(served, x, cfg)
+    assert ops.launch_counts()["moe_experts"] == 0  # the CPU: plain
+    want = _padded_products(p, x, cfg)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    r = moe.route(p, x.reshape(n, -1), cfg, None)
+    assert torch.equal(aux, moe.balance_loss(r.probs, r.experts,
+                                             cfg.n_experts))
+
+
+def test_sorted_choices_place_each_choice_at_its_expert_rank():
+    """``route``'s sort: ``order`` lists the flat choices expert by
+    expert, each expert's in token order, ``offsets`` are the experts'
+    first sorted positions (int32, ending at T k), and a choice sits at
+    ``offsets[e] + slot`` in that order, so the combine needs no second
+    sort; with a capacity factor the slots past C read C."""
+    cfg = _published()
+    p = moe.moe_init(torch.Generator().manual_seed(13), cfg)
+    xt = torch.randn((21, cfg.d_model),
+                     generator=torch.Generator().manual_seed(14))
+    r = moe.route(p, xt, cfg, None)
+    flat_e = r.experts.reshape(-1)
+    assert r.offsets.dtype == torch.int32
+    counts = torch.bincount(flat_e, minlength=cfg.n_experts)
+    assert torch.equal(r.offsets.long(), torch.cat(
+        [torch.zeros(1, dtype=torch.long), counts.cumsum(0)]))
+    assert torch.equal(flat_e[r.order], flat_e.sort(stable=True).values)
+    pos = r.offsets[flat_e] + r.slots
+    assert torch.equal(r.order[pos], torch.arange(flat_e.numel()))
+    for e in range(cfg.n_experts):
+        seg = r.order[r.offsets[e]:r.offsets[e + 1]]
+        assert torch.equal(seg, seg.sort().values)
+    dropped = moe.route(p, xt, cfg, 1.0)
+    assert torch.equal(dropped.order, r.order)
+    assert bool((dropped.slots == dropped.C).any())
+    assert torch.equal(torch.where(r.slots < dropped.C, r.slots, dropped.C),
+                       dropped.slots)
+
+
+@pytest.mark.parametrize("case", ["float32_banks", "capacity_factor",
+                                  "ungated", "cpu"])
+def test_padded_path_keeps_its_calls(case, monkeypatch):
+    """Float32 banks, a capacity factor and an ungated activation keep the
+    padded products on the card, and the published form keeps them on
+    the CPU: ``ops.moe_experts`` is not called, and the counter reads
+    E x C computed rows."""
+    cfg = _published()
+    cf, card = None, torch.device("cuda")
+    if case == "float32_banks":
+        cfg = dataclasses.replace(cfg, expert_dtype="")
+    elif case == "capacity_factor":
+        cf = 1.25
+    elif case == "ungated":
+        cfg = dataclasses.replace(cfg, activation="gelu_mlp")
+    else:
+        card = torch.device("cpu")
+    assert not moe.grouped(cfg, moe.expert_dtype(cfg, torch.float32), cf,
+                           card)
+    if case != "cpu":
+        _grouped_on_the_cpu(monkeypatch)
+    p = moe.moe_init(torch.Generator().manual_seed(15), cfg)
+    x = torch.randn((2, 5, cfg.d_model),
+                    generator=torch.Generator().manual_seed(16))
+
+    def refuse(*a, **kw):
+        raise AssertionError("the grouped kernel on the padded path")
+
+    seen = {}
+    monkeypatch.setattr(ops, "moe_experts", refuse)
+    monkeypatch.setattr(moe, "count", lambda name, n: seen.update({name: n}))
+    out, _ = moe.moe_apply(p, x, cfg, capacity_factor=cf)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+    C = moe.capacity(cfg, 10, cf)
+    assert seen == {"moe.rows_computed": cfg.n_experts * C,
+                    "moe.rows_routed": 10 * cfg.experts_per_token}
+    assert moe.grouped(_published(), torch.bfloat16, None, card) == (
+        case != "cpu")
 
 
 def test_serving_params_hold_no_float32_bank():
@@ -764,22 +910,31 @@ def test_w8a8_spec_streams_equal_plain_in_published_form(variant):
     assert 0 < s["spec_accepted"] < s["spec_proposed"]
 
 
+@pytest.mark.parametrize("experts", ["bfloat16", "float32"])
 @pytest.mark.parametrize("tick,calls", [(0, ("chunk",)),
                                         (2, ("chunk", "decode"))],
                          ids=["prefill_chunk", "last_chunk_and_decode"])
-def test_a_traced_tick_ranges_each_moe_stage_and_counts_rows(tick, calls):
+def test_a_traced_tick_ranges_each_moe_stage_and_counts_rows(tick, calls,
+                                                             experts,
+                                                             monkeypatch):
     """One request of 19 prompt tokens in chunks of 8 on a traced W8A8
     engine of the published form: each ``model.moe.*`` stage is a
     profiler range and a host span once a layer per model call, and the
-    counters add ``E x C`` computed rows (C = T x k, exact capacity) and
-    ``T x k`` routed ones per call, T the call's tokens (8 a chunk, every
-    slot in a decode step), in the engine's registry and the process's
-    totals alike."""
+    counters add the computed rows and ``T x k`` routed ones per call, T
+    the call's tokens (8 a chunk, every slot in a decode step), in the
+    engine's registry and the process's totals alike.  bf16 experts run
+    the grouped path, as on the card (let onto the CPU here), which
+    computes the ``T x k`` routed rows alone; float32 experts (the
+    config's ``expert_dtype`` left empty, so the stream's) the padded
+    products over ``E x C`` rows (C = T x k, exact capacity)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving import telemetry as tel
 
+    _grouped_on_the_cpu(monkeypatch)
     cfg = _published()
+    if experts == "float32":
+        cfg = dataclasses.replace(cfg, expert_dtype="")
     params = lm.init(cfg, torch.Generator().manual_seed(0))
     calib = [np.random.default_rng(0).integers(1, cfg.vocab_size, (1, 16))]
     eng = ServeEngine(cfg, params, quantized=True, calibration_batches=calib,
@@ -803,7 +958,8 @@ def test_a_traced_tick_ranges_each_moe_stage_and_counts_rows(tick, calls):
     for name in stages:
         assert ranges.count(name) == spans.count(name) == L * len(calls)
     T = [CHUNK if c == "chunk" else SLOTS for c in calls]
-    computed = sum(L * E * t * k for t in T)
+    padded = E if experts == "float32" else 1
+    computed = sum(L * padded * t * k for t in T)
     routed = sum(L * t * k for t in T)
     assert reg.counter("moe.rows_computed").value - before[0] == computed
     assert reg.counter("moe.rows_routed").value - before[1] == routed

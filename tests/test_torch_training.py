@@ -171,14 +171,14 @@ def _reference_loss_and_grads(jcfg, jparams, batch):
 def _drops(monkeypatch):
     """Record how many MoE choices drop (rank past capacity)."""
     seen = []
-    orig = moe.slots_of
+    orig = moe.sort_choices
 
-    def slots_of(experts, n_experts, C):
+    def sort_choices(experts, n_experts, C):
         out = orig(experts, n_experts, C)
-        seen.append(int((out == C).sum()))
+        seen.append(int((out[0] == C).sum()))
         return out
 
-    monkeypatch.setattr(moe, "slots_of", slots_of)
+    monkeypatch.setattr(moe, "sort_choices", sort_choices)
     return seen
 
 
