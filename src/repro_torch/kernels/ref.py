@@ -6,7 +6,8 @@ the softmax probabilities to the cache dtype before the PV product, so
 that on the CPU the port agrees with the JAX reference.  They are the
 path ``kernels/ops.py`` takes for CPU tensors, and the yardstick the
 CUDA kernels are held against on the card.  They are device-agnostic:
-``chip_smoke.py`` runs them on CUDA tensors for that comparison.
+``tests/test_torch_gpu.py`` runs them on CUDA tensors for that
+comparison.
 """
 from __future__ import annotations
 

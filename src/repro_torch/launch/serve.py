@@ -26,7 +26,8 @@ pages); an attention-free hybrid one (``recurrentgemma-9b``,
 ``xlstm-350m``) on the stacked layout, with no request ceiling.
 ``pixtral-12b`` serves its decoder on tokens alone (the engine takes no
 patches, as the reference's); ``whisper-large-v3`` is refused
-(encoder-decoder: it runs at model level, see ``chip_smoke.py``).  Draws
+(encoder-decoder: it runs at model level, see
+``serving/near_tie.whisper_run``).  Draws
 random weights from ``--seed``, calibrates SmoothQuant on synthetic
 prompts made with numpy from the same seed, serves ``--requests``
 requests of mixed prompt lengths greedily, and prints the first four

@@ -13,9 +13,9 @@ checkpoint from ``launch/serve.py``, and the port's imports.
 * ``launch/serve.py --ckpt-dir --device cpu`` serves a three-step
   ``Trainer`` checkpoint with the same greedy streams as the in-memory
   params, W8A8 and with ``--no-quant`` (float weights).
-* A fresh interpreter imports every ``repro_torch`` module and
-  ``chip_smoke.py`` and finds no ``jax``, ``ml_dtypes`` or ``repro``
-  module loaded.
+* A fresh interpreter imports every ``repro_torch`` module,
+  ``repro_torch.serving.near_tie`` by name and ``chip_smoke.py`` and finds
+  no ``jax``, ``ml_dtypes`` or ``repro`` module loaded.
 """
 import os
 import subprocess
@@ -219,6 +219,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(repro_torch.__path__, "
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import repro_torch.serving.near_tie\n"
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         "'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

@@ -49,7 +49,7 @@ from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.launch import serve
 from repro_torch.launch.mesh import make_host_mesh, make_serving_mesh
 from repro_torch.models import lm
-from repro_torch.serving import admission, telemetry
+from repro_torch.serving import admission, near_tie, telemetry
 from repro_torch.serving.distributed import (DistributedServeEngine,
                                              ShardedPageAllocator,
                                              ShardedSlotAllocator,
@@ -59,7 +59,7 @@ from repro_torch.serving.kv_cache import PagePoolExhausted
 from repro_torch.serving.lifecycle import DECODE
 from repro_torch.serving.quantize import calibrate, quantize_model_params
 from repro_torch.serving.speculative import SpecConfig
-from test_torch_gpu import ForcedDrafts, _chip_smoke
+from torch_helpers import ForcedDrafts
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAX_SEQ, PAGE, CHUNK, MAX_NEW = 64, 8, 8, 8
@@ -530,12 +530,11 @@ def test_distributed_refusals(g2):
                                   "paged-migrated"])
 def test_dist_schedule_probe_recomputes_served_tokens(g2, layout, spec,
                                                       migrate):
-    """``chip_smoke.py``'s near-tie rule for the distributed runs:
+    """The near-tie rule (``serving/near_tie.py``) for the distributed runs:
     ``DistScheduleProbe`` records each request's calls across its shards
     (and its migrations, by state and by recompute), and
     ``logits_after`` replaying them in a shard's batch of rows prefers
     every token the run served."""
-    cs = _chip_smoke()
     eng = DistributedServeEngine(
         g2.cfg, g2.tq, mesh=make_serving_mesh(2, ["cpu"] * 2),
         slots_per_shard=2, max_seq=MAX_SEQ, eos_id=-1, chunk_size=CHUNK,
@@ -544,7 +543,7 @@ def test_dist_schedule_probe_recomputes_served_tokens(g2, layout, spec,
     prompts = g2.prompts[:5]
     for p in prompts:
         eng.submit(p, max_new=MAX_NEW)
-    with cs.DistScheduleProbe(eng) as probe:
+    with near_tie.DistScheduleProbe(eng) as probe:
         moved = 0
         while migrate and moved < 2:
             eng.tick()
@@ -559,12 +558,14 @@ def test_dist_schedule_probe_recomputes_served_tokens(g2, layout, spec,
                 moved += 1
         out = {r.rid: r.out for r in eng.run()}
     assert eng.migrations == (2 if migrate else 0)
-    fn = cs.served_logits(eng.params, g2.cfg, probe.calls,
-                          torch.device("cpu"), max_seq=MAX_SEQ, page=PAGE,
-                          chunk=CHUNK, rows=2, layout=layout)
+    fn = near_tie.served_logits(eng.params, g2.cfg, probe.calls,
+                                torch.device("cpu"), max_seq=MAX_SEQ,
+                                page=PAGE, chunk=CHUNK, rows=2, layout=layout)
+    prefilled = near_tie.Prefilled()
     for rid, o in out.items():
         for i in range(len(o)):
-            assert int(fn(rid, prompts[rid], o[:i]).argmax()) == o[i]
+            lg = fn(rid, prompts[rid], o[:i], prefilled=prefilled)
+            assert int(lg.argmax()) == o[i]
 
 
 def test_new_modules_import_no_jax():

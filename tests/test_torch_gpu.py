@@ -29,7 +29,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.serving import speculative
+from repro_torch.serving import near_tie
+from torch_helpers import ForcedDrafts
 
 ATTN_REL_TOL = 1e-2
 
@@ -198,44 +199,68 @@ def _decode_case(rng, dev, lengths_np, Hkv, group, D=64, ps=16, n_pg=24,
     return q, kp, vp, torch.from_numpy(lengths_np).to(dev), bt
 
 
-def _decode_split_lengths(H, Hkv, ps, D, n_pg):
+def _decode_split_lengths(H, Hkv, ps, D, n_pg, B=9):
     """Lengths 0, 1 and 16, a length on each side of the first two split
-    edges, and ``n_pg * ps``."""
-    geo = ops._decode_geometry(9, H, Hkv, ps, D, n_pg)
+    edges of the geometry at ``B`` rows, and ``n_pg * ps``."""
+    geo = ops._decode_geometry(B, H, Hkv, ps, D, n_pg)
     assert geo.splits >= 3, geo
     edge = geo.pps * ps
     return [0, 1, 16, edge - 1, edge, edge + 1, 2 * edge - 1, 2 * edge + 1,
             n_pg * ps]
 
 
+def _batches(values, B, pad):
+    """``values`` in runs of ``B``, the last run filled up with ``pad``:
+    each run one call of ``B`` rows, the row count whose split geometry
+    the values were chosen at."""
+    return [(list(values[i:i + B]) + [pad] * B)[:B]
+            for i in range(0, len(values), B)]
+
+
+#: (B, n_pg, Hkv, group, D, qdtype, window): 9 rows in a table of 40 pages
+#: at every head shape, window and query type; GPT-2's heads at a serving
+#: tick's 8 rows and a shard's 4 and 2 (2 x 4, 4 x 2) in its table of 64
+#: pages, with the windows and query types its engines send
+_PAGED_EDGE_CASES = [
+    (9, 40, Hkv, group, D, qdtype, window)
+    for Hkv, group, D in ((16, 1, 64), (4, 2, 64), (2, 4, 64), (4, 1, 128),
+                          (2, 4, 16))
+    for qdtype in ("float32", "bfloat16") for window in (0, 40)] + [
+    (B, 64, 16, 1, 64, qdtype, window) for B in (8, 4, 2)
+    for qdtype, window in (("float32", 0), ("float32", 128),
+                           ("bfloat16", 0))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("window", [0, 40])
-@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Hkv,group,D", [(16, 1, 64), (4, 2, 64),
-                                         (2, 4, 64), (4, 1, 128),
-                                         (2, 4, 16)])
-def test_paged_mha_decode_split_edges_on_card(h100, window, qdtype, Hkv,
-                                              group, D):
+@pytest.mark.parametrize("B,n_pg,Hkv,group,D,qdtype,window",
+                         _PAGED_EDGE_CASES)
+def test_paged_mha_decode_split_edges_on_card(h100, B, n_pg, Hkv, group, D,
+                                              qdtype, window):
     """Rows of lengths 0, 1, 16, at key-split edges +-1 and at the end of
     the table, with and without a window that crosses a split edge; GQA
-    groups 2 and 4, head dims 16, 64 and 128, q float32 and bf16.  Each
-    output vector within 1e-2 of its largest magnitude, the empty row
-    exactly 0, two calls bit-identical."""
-    rng = np.random.default_rng(window + group + D)
-    ps, n_pg = 16, 40
-    lengths_np = _decode_split_lengths(Hkv * group, Hkv, ps, D, n_pg)
-    q, kp, vp, lengths, bt = _decode_case(rng, h100, lengths_np, Hkv, group,
-                                          D, ps, n_pg, qdtype)
+    groups 2 and 4, head dims 16, 64 and 128, q float32 and bf16; each
+    call at the split edges of its own row count (the geometry follows
+    B).  Each output vector within 1e-2 of its largest magnitude, an
+    empty row exactly 0, two calls bit-identical."""
+    rng = np.random.default_rng([window, group, D, B, n_pg])
+    ps = 16
+    lengths_all = _decode_split_lengths(Hkv * group, Hkv, ps, D, n_pg, B)
+    runs = _batches(lengths_all, B, n_pg * ps)
     ops.reset_launch_counts()
-    got = ops.paged_mha_decode(q, kp, vp, lengths, bt, window=window)
-    again = ops.paged_mha_decode(q, kp, vp, lengths, bt, window=window)
-    want = ref.paged_mha_decode_ref(q, kp, vp, lengths, bt, window=window)
-    torch.cuda.synchronize()
-    assert got.dtype == q.dtype and got.shape == q.shape
-    assert bool((got[0] == 0).all())  # no valid key: 0, not NaN
-    assert _rel_err(got[1:], want[1:]) <= ATTN_REL_TOL
-    assert torch.equal(got, again)
-    assert ops.launch_counts()["paged_mha_decode"] == 2
+    for lengths_np in runs:
+        q, kp, vp, lengths, bt = _decode_case(rng, h100, lengths_np, Hkv,
+                                              group, D, ps, n_pg, qdtype)
+        got = ops.paged_mha_decode(q, kp, vp, lengths, bt, window=window)
+        again = ops.paged_mha_decode(q, kp, vp, lengths, bt, window=window)
+        want = ref.paged_mha_decode_ref(q, kp, vp, lengths, bt,
+                                        window=window)
+        torch.cuda.synchronize()
+        live = lengths > 0
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert bool((got[~live] == 0).all())  # no valid key: 0, not NaN
+        assert _rel_err(got[live], want[live]) <= ATTN_REL_TOL
+        assert torch.equal(got, again)
+    assert ops.launch_counts()["paged_mha_decode"] == 2 * len(runs)
 
 
 @pytest.mark.gpu
@@ -276,23 +301,32 @@ def test_paged_mha_decode_makes_no_host_sync_on_card(h100):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("window", [0, 20])
-def test_paged_verify_kernel_matches_plain_on_card(h100, window):
+@pytest.mark.parametrize("Hkv,group,n_pg,bases,window", [
+    (4, 2, 6, (0, 45, 96), 0), (4, 2, 6, (0, 45, 96), 20),
+    (16, 1, 64, (480, 1024), 0), (16, 1, 64, (480, 1024), 100)])
+def test_paged_verify_kernel_matches_plain_on_card(h100, Hkv, group, n_pg,
+                                                   bases, window):
     """Ragged bases, a chunk crossing pages, and a row parked past its
-    table (output never read, but the kernel stays inside the table)."""
-    rng = np.random.default_rng(60 + window)
-    B, C, Hkv, group, D, ps, n_pg = 3, 32, 4, 2, 64, 16, 6
+    table (output never read, but the kernel stays inside the table): 4
+    KV heads of group 2 in a table of 6 pages, and a prefill chunk at base
+    480 at GPT-2's 16 heads in its table of 64 pages."""
+    rng = np.random.default_rng([window, n_pg])
+    C, D, ps = 32, 64, 16
+    base_np = np.array(bases, np.int32)
+    B = len(base_np)
     P = 1 + B * n_pg
     kp, vp = _pool(rng, P, Hkv, ps, D, h100)
-    base = torch.tensor([0, 45, n_pg * ps], dtype=torch.int32, device=h100)
-    bt = _block_table(rng, B, n_pg, P, [2, 5, n_pg], h100)
+    base = torch.from_numpy(base_np).to(h100)
+    bt = _block_table(rng, B, n_pg, P,
+                      np.minimum(-(-(base_np + C) // ps), n_pg), h100)
     q = torch.from_numpy(rng.standard_normal(
         (B, C, Hkv * group, D)).astype(np.float32)).to(h100)
     ops.reset_launch_counts()
     got = ops.paged_verify(q, kp, vp, base, bt, window=window)
     want = ref.paged_verify_ref(q, kp, vp, base, bt, window=window)
     torch.cuda.synchronize()
-    assert _rel_err(got[:2], want[:2]) <= ATTN_REL_TOL
+    live = torch.from_numpy(base_np < n_pg * ps).to(h100)
+    assert _rel_err(got[live], want[live]) <= ATTN_REL_TOL
     assert bool(torch.isfinite(got).all())
     assert ops.launch_counts()["paged_verify"] == 1
     assert ops.launch_counts()["paged_verify_tree"] == 0
@@ -311,20 +345,27 @@ def _tree_anc(rng, B, C):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("C", [5, 9])
-@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Hkv,group", [(4, 2), (16, 1)])
-def test_paged_verify_tree_kernel_matches_plain_on_card(h100, C, qdtype,
-                                                        Hkv, group):
+@pytest.mark.parametrize("n_pg,Hkv,group,qdtype,C", [
+    (6, Hkv, group, qdtype, C) for Hkv, group in ((4, 2), (16, 1))
+    for qdtype in ("float32", "bfloat16") for C in (5, 9)] + [
+    (64, 16, 1, qdtype, C) for qdtype in ("float32", "bfloat16")
+    for C in (5, 9)])
+def test_paged_verify_tree_kernel_matches_plain_on_card(h100, n_pg, Hkv,
+                                                        group, qdtype, C):
     """The tree body on random trees and on a random mask that is not
     triangular at all (a query may see later chunk positions), with bases
-    at and beside page edges and a row parked past its table; a
-    lower-triangular mask is bit-identical to the causal kernel."""
-    rng = np.random.default_rng(C + Hkv)
-    B, D, ps, n_pg = 5, 64, 16, 6
+    at and beside page edges and a row parked past its table, in a table
+    of 6 pages (5 rows) and in GPT-2's of 64 (8 rows: the end of the
+    table, mid rows); a lower-triangular mask is bit-identical to the
+    causal kernel."""
+    rng = np.random.default_rng([C, Hkv, n_pg])
+    D, ps = 64, 16
+    S = n_pg * ps
+    base_np = np.array([0, 15, 16, 45, S] if n_pg == 6 else
+                       [0, 15, 16, 31, S - C, S // 3, S // 2, S], np.int32)
+    B = len(base_np)
     P = 1 + B * n_pg
     kp, vp = _pool(rng, P, Hkv, ps, D, h100)
-    base_np = np.array([0, 15, 16, 45, n_pg * ps], np.int32)
     bt = _block_table(rng, B, n_pg, P,
                       np.minimum(-(-(base_np + C) // ps), n_pg), h100)
     base = torch.from_numpy(base_np).to(h100)
@@ -379,31 +420,43 @@ def _split_edge_bases(C, Hkv, group, ps, n_pg, B=7):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("tree", [False, True])
-@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C", [5, 32])
-def test_paged_verify_split_edges_on_card(h100, tree, qdtype, C):
-    """Rows whose keys end exactly on a split edge, just past it and a
-    page past it, at base 0, at the end of the table and parked: each
-    split is merged once.  Two calls give bit-identical output (the
-    splits merge in a fixed order, no atomics)."""
-    rng = np.random.default_rng(C + 2 * tree)
-    Hkv, group, ps, n_pg = 4, 1, 16, 24
-    base_np = _split_edge_bases(C, Hkv, group, ps, n_pg)
-    B = len(base_np)
-    q, kp, vp, base, bt = _verify_case(rng, h100, B, C, Hkv, group, base_np,
-                                       qdtype, n_pg=n_pg)
-    anc = torch.from_numpy(_tree_anc(rng, B, C)).to(h100) if tree else None
+@pytest.mark.parametrize("B,Hkv,n_pg,C,qdtype,tree", [
+    (7, 4, 24, C, qdtype, tree) for C in (5, 32)
+    for qdtype in ("float32", "bfloat16") for tree in (False, True)] + [
+    (B, 16, 64, C, qdtype, tree) for B in (8, 4, 2) for C in (5, 9, 32)
+    for qdtype in ("float32", "bfloat16") for tree in (False, True)])
+def test_paged_verify_split_edges_on_card(h100, B, Hkv, n_pg, C, qdtype,
+                                          tree):
+    """Rows whose keys end exactly on a split edge, just past it, a page
+    past it and on the second edge, at base 0, at the end of the table and
+    parked: each split is merged once.  Calls of 7 rows of 4 KV heads in a
+    table of 24 pages, and of 8, 4 and 2 rows (a serving tick's, a
+    shard's of 2 x 4 and of 4 x 2) at GPT-2's 16 heads in its table of 64
+    pages, each at the split edges of its own row count (the geometry
+    follows B).  Two calls give bit-identical output (the splits merge in
+    a fixed order, no atomics)."""
+    rng = np.random.default_rng([C, tree, B, n_pg])
+    group, ps = 1, 16
+    S = n_pg * ps
+    geo = ops._verify_geometry(B, C, Hkv, Hkv, ps, 64, n_pg)
+    runs = _batches(_split_edge_bases(C, Hkv, group, ps, n_pg, B)
+                    + [2 * geo.pps * ps - C], B, S)
     ops.reset_launch_counts()
-    got = ops.paged_verify(q, kp, vp, base, bt, anc=anc)
-    again = ops.paged_verify(q, kp, vp, base, bt, anc=anc)
-    want = ref.paged_verify_ref(q, kp, vp, base, bt, anc=anc)
-    torch.cuda.synchronize()
-    assert _rel_err(got[:-1], want[:-1]) <= ATTN_REL_TOL
-    assert bool(torch.isfinite(got).all())
-    assert torch.equal(got, again)
+    for base_np in runs:
+        q, kp, vp, base, bt = _verify_case(rng, h100, B, C, Hkv, group,
+                                           base_np, qdtype, n_pg=n_pg)
+        anc = (torch.from_numpy(_tree_anc(rng, B, C)).to(h100) if tree
+               else None)
+        got = ops.paged_verify(q, kp, vp, base, bt, anc=anc)
+        again = ops.paged_verify(q, kp, vp, base, bt, anc=anc)
+        want = ref.paged_verify_ref(q, kp, vp, base, bt, anc=anc)
+        torch.cuda.synchronize()
+        live = base < S
+        assert _rel_err(got[live], want[live]) <= ATTN_REL_TOL
+        assert bool(torch.isfinite(got).all())
+        assert torch.equal(got, again)
     n = ops.launch_counts()
-    assert n["paged_verify_tree" if tree else "paged_verify"] == 2
+    assert n["paged_verify_tree" if tree else "paged_verify"] == 2 * len(runs)
 
 
 @pytest.mark.gpu
@@ -526,49 +579,69 @@ def _mha_case(rng, dev, lengths_np, Hkv, group, D, S, qdtype, kvdtype):
     return q, k, v, lengths
 
 
-def _mha_split_lengths(H, Hkv, S, D, elem):
+def _mha_split_lengths(H, Hkv, S, D, elem, B=9):
     """Nine rows: lengths 0, 1 and 16, one on each side of the first key
-    split edge, past the second, and S - 1 and S."""
-    geo = ops._mha_geometry(9, H, Hkv, S, D, elem)
+    split edge of the geometry at ``B`` rows, past the second, and S - 1
+    and S."""
+    geo = ops._mha_geometry(B, H, Hkv, S, D, elem)
     edge = geo.kps
     assert geo.splits >= 2, geo
     return [0, 1, 16, edge - 1, edge, edge + 1, min(2 * edge + 1, S - 2),
             S - 1, S]
 
 
+_TYPES = ("float32", "bfloat16")
+#: (B, Hkv, group, D, S, kvdtype, qdtype, window): 9 rows at every head
+#: shape, cache and query type and window; a serving tick's 8 rows at
+#: GPT-2's widths (the draft's and the stacked target's caches), group 4
+#: at D 64 and group 16 at D 128, windows 0 and 128; a shard's 4 and 2
+#: rows at GPT-2's widths with float32 queries
+_MHA_EDGE_CASES = [
+    (9, Hkv, group, D, S, kv, q, window)
+    for Hkv, group, D, S in ((16, 1, 64, 1024), (4, 2, 64, 1000),
+                             (2, 4, 16, 300), (1, 16, 128, 520),
+                             (4, 1, 128, 77))
+    for kv in _TYPES for q in _TYPES for window in (0, 7, 128)] + [
+    (8, Hkv, 16 // Hkv, D, S, kv, q, window)
+    for Hkv, D, S in ((16, 64, 1024), (16, 64, 1000), (4, 64, 1024),
+                      (4, 64, 1000), (1, 128, 1000))
+    for kv in _TYPES for q in _TYPES for window in (0, 128)] + [
+    (B, 16, 1, 64, 1024, kv, "float32", window) for B in (4, 2)
+    for kv in _TYPES for window in (0, 128)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("window", [0, 7, 128])
-@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kvdtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Hkv,group,D,S", [(16, 1, 64, 1024),
-                                           (4, 2, 64, 1000),
-                                           (2, 4, 16, 300),
-                                           (1, 16, 128, 520),
-                                           (4, 1, 128, 77)])
-def test_mha_decode_split_edges_on_card(h100, window, qdtype, kvdtype, Hkv,
-                                        group, D, S):
+@pytest.mark.parametrize("B,Hkv,group,D,S,kvdtype,qdtype,window",
+                         _MHA_EDGE_CASES)
+def test_mha_decode_split_edges_on_card(h100, B, Hkv, group, D, S, kvdtype,
+                                        qdtype, window):
     """Rows of lengths 0, 1, 16, at key-split edges +-1, S - 1 and S, with
     windows that stay inside a split or cross its edge; all heads, GQA
     groups 2 and 4 and a group of 16 on one KV head at D 128 (two head
     chunks); head dims 16, 64 and 128; ragged S; q and the cache each in
-    float32 and bf16.  Each output vector within 1e-2 of its largest
-    magnitude, the empty row exactly 0, two calls bit-identical, one
-    launch counted per call."""
-    rng = np.random.default_rng(window + group + D + S)
+    float32 and bf16; calls of 9 rows, of a serving tick's 8 (GPT-2's
+    draft and stacked caches, group 4 at D 64, group 16 at D 128) and of a
+    shard's 4 and 2, each at the split edges of its own row count.  Each
+    output vector within 1e-2 of its largest magnitude, an empty row
+    exactly 0, two calls bit-identical, one launch counted per call."""
+    rng = np.random.default_rng([window, group, D, S, B])
     elem = 2 if kvdtype == "bfloat16" else 4
-    lengths_np = _mha_split_lengths(Hkv * group, Hkv, S, D, elem)
-    q, k, v, lengths = _mha_case(rng, h100, lengths_np, Hkv, group, D, S,
-                                 qdtype, kvdtype)
+    runs = _batches(_mha_split_lengths(Hkv * group, Hkv, S, D, elem, B), B,
+                    S)
     ops.reset_launch_counts()
-    got = ops.mha_decode(q, k, v, lengths, window=window)
-    again = ops.mha_decode(q, k, v, lengths, window=window)
-    want = ref.mha_decode_ref(q, k, v, lengths, window=window)
-    torch.cuda.synchronize()
-    assert got.dtype == q.dtype and got.shape == q.shape
-    assert bool((got[0] == 0).all())  # no valid key: 0, not NaN
-    assert _rel_err(got[1:], want[1:]) <= ATTN_REL_TOL
-    assert torch.equal(got, again)
-    assert ops.launch_counts()["mha_decode"] == 2
+    for lengths_np in runs:
+        q, k, v, lengths = _mha_case(rng, h100, lengths_np, Hkv, group, D,
+                                     S, qdtype, kvdtype)
+        got = ops.mha_decode(q, k, v, lengths, window=window)
+        again = ops.mha_decode(q, k, v, lengths, window=window)
+        want = ref.mha_decode_ref(q, k, v, lengths, window=window)
+        torch.cuda.synchronize()
+        live = lengths > 0
+        assert got.dtype == q.dtype and got.shape == q.shape
+        assert bool((got[~live] == 0).all())  # no valid key: 0, not NaN
+        assert _rel_err(got[live], want[live]) <= ATTN_REL_TOL
+        assert torch.equal(got, again)
+    assert ops.launch_counts()["mha_decode"] == 2 * len(runs)
 
 
 @pytest.mark.gpu
@@ -693,23 +766,31 @@ def _ln_res_inputs(rng, B, D, dtype, dev, mean=0.0):
     return (x.to(dev, dtype), res.to(dev, dtype), w.to(dev), b.to(dev))
 
 
+_LN_CASES = [(B, D, 3000.0 if B == 5 else 0.0) for B, D in (
+    (8, 1024), (256, 1024), (32, 4096), (5, 1000), (3, 8192), (2, 16384),
+    (3, 256), (5, 200), (33, 100), (8, 64), (33, 257), (3, 2056),
+    (3, 8200))]
+# every serving row count at GPT-2's and the family's widths, a ragged one
+# and a warp's, a prefill chunk's rows with a large mean
+_LN_CASES += [case for case in [
+    (B, D, 3000.0 if B == 32 else 0.0) for B in (5, 8, 32, 256)
+    for D in (1024, 4096, 1000, 256)] if case not in _LN_CASES]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,D", [(8, 1024), (256, 1024), (32, 4096),
-                                 (5, 1000), (3, 8192), (2, 16384),
-                                 (3, 256), (5, 200), (33, 100), (8, 64),
-                                 (33, 257), (3, 2056), (3, 8200)])
-def test_ln_res_kernel_matches_plain_on_card(h100, kind, dtype, B, D):
+@pytest.mark.parametrize("B,D,mean", _LN_CASES)
+def test_ln_res_kernel_matches_plain_on_card(h100, kind, dtype, B, D, mean):
     """Decode and prefill rows at GPT-2's width, wider rows up to the
     16,384 columns a block holds (8,200 and 16,384: 8 chunks a thread),
     narrow rows that leave most of a row's 256 threads idle, odd row
     counts (3, 5, 33), ragged widths (1000, 200, and 257 and 100, which
     take element-wise accesses), rows with a large mean; one launch
     counted per call."""
-    rng = np.random.default_rng(B + D)
+    rng = np.random.default_rng([B, D, int(mean)])
     x, res, w, b = _ln_res_inputs(rng, B, D, getattr(torch, dtype), h100,
-                                  mean=3000.0 if B == 5 else 0.0)
+                                  mean=mean)
     ops.reset_launch_counts()
     got = ops.ln_res(x, res, w, b, kind=kind)
     assert ops.launch_counts()["ln_res"] == 1
@@ -758,6 +839,7 @@ def _quant_act_inputs(rng, M, K, dtype, dev, offset=0):
 _QA_CASES = [(M, K, 0) for M in (1, 8, 32, 127, 128, 1500)
              for K in (1024, 1280, 4096, 5120, 14336, 24576)] + [
     (M, K, 0) for M in (1, 127) for K in (1027, 3, 100)] + [
+    (32, 1027, 0), (1500, 1027, 0),
     (127, 1024, 1), (8, 14336, 2), (3, 24576, 1)]
 
 
@@ -855,21 +937,34 @@ def test_stacked_and_overcommit_engines_on_card(h100):
 # gemma-7b (4096-wide q, 24,576 FFN)
 
 
+_FAMILY_WIDTHS = [(4096, 1024), (4096, 14336), (14336, 4096), (3072, 9216),
+                  (9216, 3072), (3072, 24576), (24576, 3072), (4096, 128256),
+                  (3072, 256000)]
+#: the rest of the family's quantized shapes: llama3-8b's and gemma-7b's q
+#: and out, minitron-4b's k, v, q and out
+_FAMILY_OTHER_WIDTHS = [(4096, 4096), (3072, 1024), (3072, 3072),
+                        (3072, 4096), (4096, 3072)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("K,N", [(4096, 1024), (4096, 14336), (14336, 4096),
-                                 (3072, 9216), (9216, 3072), (3072, 24576),
-                                 (24576, 3072), (4096, 128256),
-                                 (3072, 256000)])
-@pytest.mark.parametrize("M", [1, 8, 32, 40, 72])
-def test_mp_matmul_bitexact_at_family_widths_on_card(h100, M, K, N):
+@pytest.mark.parametrize("M,K,N,out_dtype", [
+    (M, K, N, "float32") for M in (1, 8, 32, 40, 72)
+    for K, N in _FAMILY_WIDTHS] + [
+    (M, K, N, "bfloat16") for M in (8, 32, 40)
+    for K, N in _FAMILY_WIDTHS + _FAMILY_OTHER_WIDTHS])
+def test_mp_matmul_bitexact_at_family_widths_on_card(h100, M, K, N,
+                                                     out_dtype):
     """The W8A8 kernel at the family's weight shapes, at a decode tick's,
     a prefill chunk's and the verifies' token counts, with bias, float32
-    out (a W8A8 engine's activations): bit-identical, twice."""
+    out (a W8A8 engine's activations); and at every quantized shape of
+    the family's layers and heads with bf16 out at a decode tick's, a
+    prefill chunk's and a chain verify's: bit-identical, twice."""
     rng = np.random.default_rng(M + K + N)
     args = _mp_case(rng, M, K, N, True, h100)
-    got = ops.quant_matmul(*args, out_dtype=torch.float32)
-    again = ops.quant_matmul(*args, out_dtype=torch.float32)
-    want = ref.quant_matmul_ref(*args, out_dtype=torch.float32)
+    dt = getattr(torch, out_dtype)
+    got = ops.quant_matmul(*args, out_dtype=dt)
+    again = ops.quant_matmul(*args, out_dtype=dt)
+    want = ref.quant_matmul_ref(*args, out_dtype=dt)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got, again)
@@ -1043,17 +1138,20 @@ def test_rope_engine_on_card_runs_every_kernel(h100, arch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("K,N", [(2048, 2048), (2048, 50304)])
 @pytest.mark.parametrize("M", [8, 32, 40])
-def test_mp_matmul_bitexact_at_olmoe_widths_on_card(h100, M, K, N):
+def test_mp_matmul_bitexact_at_olmoe_widths_on_card(h100, M, K, N,
+                                                    out_dtype):
     """The W8A8 kernel at olmoe-1b-7b's quantized weight shapes, at a
     decode tick's, a prefill chunk's and a chain verify's token counts,
-    with bias, float32 out: bit-identical, twice."""
+    with bias, float32 and bf16 out: bit-identical, twice."""
     rng = np.random.default_rng(M + K + N + 1)
     args = _mp_case(rng, M, K, N, True, h100)
-    got = ops.quant_matmul(*args, out_dtype=torch.float32)
-    again = ops.quant_matmul(*args, out_dtype=torch.float32)
-    want = ref.quant_matmul_ref(*args, out_dtype=torch.float32)
+    dt = getattr(torch, out_dtype)
+    got = ops.quant_matmul(*args, out_dtype=dt)
+    again = ops.quant_matmul(*args, out_dtype=dt)
+    want = ref.quant_matmul_ref(*args, out_dtype=dt)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got, again)
@@ -1092,6 +1190,38 @@ def test_moe_apply_on_card_makes_no_host_sync(h100, arch):
         assert torch.equal(route[2].cpu(), want_route[2])
         torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
         assert abs(float(aux) - float(want_aux)) <= 1e-6
+
+
+@pytest.mark.gpu
+def test_moe_apply_at_full_width_on_card_matches_cpu(h100):
+    """One full-width ``olmoe-1b-7b`` layer's MoE FFN (64 float32 experts
+    of 2,048 x 1,024, top 8, exact capacity, the padded products) at a
+    decode tick's 8 tokens and a prefill chunk's 32: the output finite;
+    at 8 tokens the CPU's expert choices and, per output row, within 1e-4
+    of its largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import to_device
+
+    cfg = get_config("olmoe-1b-7b")
+    d = cfg.d_model
+    p = moe.moe_init(torch.Generator(device=h100).manual_seed(5), cfg,
+                     device=h100)
+    rng = np.random.default_rng(10)
+    for T, shape in ((8, (8, 1, d)), (32, (1, 32, d))):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(h100)
+        out, aux = moe.moe_apply(p, x, cfg)
+        assert out.shape == x.shape and bool(torch.isfinite(out).all())
+        assert bool(torch.isfinite(aux))
+        if T == 8:
+            pc = to_device(p, torch.device("cpu"))
+            want, _ = moe.moe_apply(pc, x.cpu(), cfg)
+            xt = x.reshape(T, d)
+            assert torch.equal(moe.route(p, xt, cfg, None).experts.cpu(),
+                               moe.route(pc, xt.cpu(), cfg, None).experts)
+            assert _rel_err(out.cpu().reshape(T, d),
+                            want.reshape(T, d)) <= 1e-4
 
 
 @pytest.mark.gpu
@@ -1323,19 +1453,6 @@ def test_grouped_moe_engine_on_card_counts_its_launches(h100):
 # linears, and the reduced hybrid engines
 
 
-def _chip_smoke():
-    """``chip_smoke.py`` as a module (it runs nothing on import): the
-    engines' launch accounting lives there."""
-    import importlib.util
-    import os
-
-    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
 def test_mha_decode_on_a_full_ring_on_card(h100, qdtype):
@@ -1344,7 +1461,8 @@ def test_mha_decode_on_a_full_ring_on_card(h100, qdtype):
     full ring passes ``min(len, W) + 1``), past the ring (3,000) and
     short rows.  Each vector within 1e-2 of its plain version's largest
     magnitude; rows W, W + 1 and 3,000 on the same query and ring are
-    bit-identical (the kernel reads no further than the ring)."""
+    bit-identical (the kernel reads no further than the ring); two calls
+    bit-identical."""
     rng = np.random.default_rng(19)
     W, B = 2048, 8
     q, k, v, lengths = _mha_case(rng, h100, [W, W + 1, 3000, 1, 17, W - 1,
@@ -1354,30 +1472,35 @@ def test_mha_decode_on_a_full_ring_on_card(h100, qdtype):
         t[1:3] = t[0]  # rows 0-2: one query and ring at three lengths
     ops.reset_launch_counts()
     got = ops.mha_decode(q, k, v, lengths)
+    again = ops.mha_decode(q, k, v, lengths)
     want = ref.mha_decode_ref(q, k, v, lengths)
     torch.cuda.synchronize()
     assert _rel_err(got, want) <= ATTN_REL_TOL
     assert torch.equal(got[0], got[1]) and torch.equal(got[0], got[2])
-    assert ops.launch_counts()["mha_decode"] == 1
+    assert torch.equal(got, again)
+    assert ops.launch_counts()["mha_decode"] == 2
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("K,N", [(4096, 8192), (4096, 4096), (4096, 256),
                                  (4096, 12288), (12288, 4096), (1024, 3072),
                                  (1024, 1024)])
 @pytest.mark.parametrize("M", [8, 32, 40])
-def test_mp_matmul_bitexact_at_hybrid_widths_on_card(h100, M, K, N):
+def test_mp_matmul_bitexact_at_hybrid_widths_on_card(h100, M, K, N,
+                                                     out_dtype):
     """The W8A8 kernel at the hybrid stacks' quantized weight shapes:
     recurrentgemma-9b's ``in_proj`` (4096 x 8192), ``out_proj``, q and
     out (4096 x 4096), k and v (4096 x 256) and GeGLU MLP, xlstm-350m's
     ``qkv`` (1024 x 3072), ``o_gate`` and ``out``; at a decode tick's, a
     prefill chunk's and a chain verify's token counts, with bias, float32
-    out: bit-identical, twice."""
+    and bf16 out: bit-identical, twice."""
     rng = np.random.default_rng(M + K + N + 2)
     args = _mp_case(rng, M, K, N, True, h100)
-    got = ops.quant_matmul(*args, out_dtype=torch.float32)
-    again = ops.quant_matmul(*args, out_dtype=torch.float32)
-    want = ref.quant_matmul_ref(*args, out_dtype=torch.float32)
+    dt = getattr(torch, out_dtype)
+    got = ops.quant_matmul(*args, out_dtype=dt)
+    again = ops.quant_matmul(*args, out_dtype=dt)
+    want = ref.quant_matmul_ref(*args, out_dtype=dt)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got, again)
@@ -1442,28 +1565,37 @@ def test_hybrid_decode_verify_commit_make_no_host_sync_on_card(h100, arch):
             assert bool(torch.isfinite(t.float()).all())
 
 
-class ForcedDrafts(speculative.DraftProposer):
-    """A chain proposer that drafts each request's plain greedy stream
-    with every third position made wrong, so verifies accept and reject
-    drafts whatever the weights (the CPU tests use it too)."""
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,kind", [("recurrentgemma-9b", "rglru"),
+                                       ("xlstm-350m", "mlstm"),
+                                       ("xlstm-350m", "slstm")])
+def test_recurrent_blocks_at_full_width_on_card_are_finite(h100, arch, kind):
+    """One full-width W8A8 block of each recurrent kind (RG-LRU with its
+    GeGLU MLP, mLSTM, sLSTM) as the engine calls it, a decode step of 8
+    rows (lengths 100-800) and a prefill chunk of 32 tokens at position
+    100, on a cache of 1,024 positions: the output finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+    from repro_torch.serving.quantize import quantize_model_params
 
-    def __init__(self, k, plain, vocab):
-        self.k, self.plain, self.vocab = k, plain, vocab
-
-    def propose(self, slots, cur_tok, lengths, active, caps):
-        draft = np.zeros((len(slots), self.k), np.int32)
-        counts = np.zeros(len(slots), np.int32)
-        for b, req in enumerate(slots):
-            if req is None or not active[b] or caps[b] <= 0:
-                continue
-            done = len(req.out)
-            toks = list(self.plain[req.rid][done:done + int(caps[b])])
-            for j in range(len(toks)):
-                if (done + j) % 3 == 2:
-                    toks[j] = (toks[j] + 1) % self.vocab
-            counts[b] = len(toks)
-            draft[b, :len(toks)] = toks
-        return draft, counts
+    cfg = get_config(arch)
+    gen = torch.Generator(device=h100).manual_seed(3)
+    p = blocks.block_init(gen, cfg, kind, device=h100)
+    qp = quantize_model_params({"layers": [p]}, cfg)["layers"][0]
+    del p
+    for B, C in ((8, 1), (1, 32)):
+        x = torch.randn((B, C, cfg.d_model), generator=gen, device=h100)
+        cache = blocks.block_init_cache(cfg, kind, B, 1024, device=h100)
+        if C == 1:
+            lengths = 100 * torch.arange(1, B + 1, dtype=torch.int32,
+                                         device=h100)
+            out = blocks.block_apply_step(qp, x, cache, lengths, cfg,
+                                          kind)[0]
+        else:
+            pos = 100 + torch.arange(C, device=h100)[None]
+            out = blocks.block_apply_chunk(qp, x, cache, cfg, kind,
+                                           positions=pos)[0]
+        assert bool(torch.isfinite(out).all()), (B, C)
 
 
 @pytest.mark.gpu
@@ -1480,7 +1612,7 @@ def test_hybrid_engine_on_card_runs_every_kernel(h100, arch):
     from repro_torch.serving.speculative import SpecConfig
 
     cfg, qp = _hybrid_w8a8(arch, h100)
-    mp_per_call = _chip_smoke().mp_per_call
+    mp_per_call = near_tie.mp_per_call
     n_local = sum(cfg.block_kind(li) == "local_attn"
                   for li in range(cfg.n_layers))
     plain = None
@@ -1537,18 +1669,25 @@ def test_mha_decode_at_whisper_shapes_on_card(h100, qdtype, kvdtype, S,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("M,out_dtype", [
+    (8, "float32"), (1500, "float32"), (3000, "float32"), (12007, "float32"),
+    (12000, "float32"), (8, "bfloat16"), (32, "bfloat16"), (40, "bfloat16"),
+    (3000, "bfloat16"), (12007, "bfloat16")])
 @pytest.mark.parametrize("K,N", [(1280, 1280), (1280, 5120), (5120, 1280)])
-@pytest.mark.parametrize("M", [8, 1500, 3000, 12007])
-def test_mp_matmul_bitexact_at_whisper_shapes_on_card(h100, M, K, N):
+def test_mp_matmul_bitexact_at_whisper_shapes_on_card(h100, K, N, M,
+                                                      out_dtype):
     """The W8A8 kernel at whisper's weight shapes and the encoder's token
     counts: one request's 1,500 frames (24 blocks of 64 tokens, the last
-    ragged), two requests', eight and a ragged 7, and a decode step's 8
-    rows; with bias, float32 out: bit-identical, twice."""
+    ragged), two requests', eight and eight with a ragged 7, and a decode
+    step's 8 rows, with bias, float32 out; a decode step's, a prefill
+    chunk's, a chain verify's and the encoder's two and eight and a
+    ragged 7 with bf16 out: bit-identical, twice."""
     rng = np.random.default_rng(M + K + N + 3)
     args = _mp_case(rng, M, K, N, True, h100)
-    got = ops.quant_matmul(*args, out_dtype=torch.float32)
-    again = ops.quant_matmul(*args, out_dtype=torch.float32)
-    want = ref.quant_matmul_ref(*args, out_dtype=torch.float32)
+    dt = getattr(torch, out_dtype)
+    got = ops.quant_matmul(*args, out_dtype=dt)
+    again = ops.quant_matmul(*args, out_dtype=dt)
+    want = ref.quant_matmul_ref(*args, out_dtype=dt)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got, again)
@@ -1557,7 +1696,7 @@ def test_mp_matmul_bitexact_at_whisper_shapes_on_card(h100, M, K, N):
 @pytest.mark.gpu
 def test_whisper_model_level_on_card_runs_the_kernels(h100):
     """Reduced ``whisper-large-v3`` W8A8 at model level on the card
-    (``chip_smoke.whisper_run``: ragged prompts through ``lm.prefill``,
+    (``near_tie.whisper_run``: ragged prompts through ``lm.prefill``,
     uniform ones through ``lm.batch_prefill``, then greedy
     ``decode_step(enc_lengths=)``): every quantized linear through the MP
     kernel, two contiguous decodes a layer a step (self and cross), no
@@ -1569,7 +1708,6 @@ def test_whisper_model_level_on_card_runs_the_kernels(h100):
     from repro_torch.serving.quantize import (calibrate,
                                               quantize_model_params)
 
-    cs = _chip_smoke()
     cfg = get_config("whisper-large-v3").reduced()
     rng = np.random.default_rng(23)
     params = lm.init(cfg, torch.Generator().manual_seed(0), max_seq=64)
@@ -1581,17 +1719,18 @@ def test_whisper_model_level_on_card_runs_the_kernels(h100):
     ragged = [[5, 6, 7], [8, 9, 10, 11, 12, 13, 14]]
     uniform = [[3, 4, 5, 6, 7], [9, 8, 7, 6, 5]]
     ops.reset_launch_counts()
-    toks, la, _ = cs.whisper_run(to_device(qp, h100), cfg,
-                                 torch.from_numpy(frames).to(h100), ragged,
-                                 uniform, 8, h100, max_seq=64)
+    toks, la, _ = near_tie.whisper_run(to_device(qp, h100), cfg,
+                                       torch.from_numpy(frames).to(h100),
+                                       ragged, uniform, 8, h100, max_seq=64)
     n = ops.launch_counts()
-    assert n["mp_matmul"] == cs.whisper_mp_calls(cfg, 7, 8)
+    assert n["mp_matmul"] == near_tie.whisper_mp_calls(cfg, 7, 8)
     assert n["mha_decode"] == 2 * cfg.n_layers * (7 + 8)
     assert n["paged_mha_decode"] == n["paged_verify"] == 0
-    _, lb, _ = cs.whisper_run(qp, cfg, torch.from_numpy(frames), ragged,
-                              uniform, 8, torch.device("cpu"), forced=toks,
-                              max_seq=64)
-    assert cs.hold_taught("reduced whisper card vs CPU", toks, la, lb) > 0
+    _, lb, _ = near_tie.whisper_run(qp, cfg, torch.from_numpy(frames),
+                                    ragged, uniform, 8, torch.device("cpu"),
+                                    forced=toks, max_seq=64)
+    assert near_tie.hold_taught("reduced whisper card vs CPU", toks, la,
+                                lb) > 0
 
 
 @pytest.mark.gpu
@@ -1634,15 +1773,17 @@ def test_replay_engine_on_card_runs_only_decode_kernels(h100):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
-def test_paged_mha_decode_group_16_d256_on_card(h100, qdtype):
+@pytest.mark.parametrize("n_pg,qdtype", [(40, "float32"), (40, "bfloat16"),
+                                         (256, "float32")])
+def test_paged_mha_decode_group_16_d256_on_card(h100, n_pg, qdtype):
     """The paged decode at 16 query heads over one KV head of 256 (two
     head chunks of 8 a block): rows of lengths 0, 1, 16, at key-split
-    edges +-1 and at the end of the table.  Each output vector within
+    edges +-1 and at the end of the table, in a table of 40 pages and in
+    the mixed stack's of 256 (4,096 positions).  Each output vector within
     1e-2 of its largest magnitude, the empty row exactly 0, two calls
     bit-identical, one launch counted a call."""
-    rng = np.random.default_rng(1616)
-    Hkv, group, D, ps, n_pg = 1, 16, 256, 16, 40
+    rng = np.random.default_rng([1616, n_pg])
+    Hkv, group, D, ps = 1, 16, 256, 16
     lengths_np = _decode_split_lengths(Hkv * group, Hkv, ps, D, n_pg)
     q, kp, vp, lengths, bt = _decode_case(rng, h100, lengths_np, Hkv, group,
                                           D, ps, n_pg, qdtype)
@@ -1658,18 +1799,20 @@ def test_paged_mha_decode_group_16_d256_on_card(h100, qdtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("C", [5, 32])
-def test_paged_verify_group_16_d256_on_card(h100, qdtype, C):
+@pytest.mark.parametrize("n_pg,C,qdtype", [
+    (24, C, qdtype) for C in (5, 32) for qdtype in ("float32", "bfloat16")]
+    + [(256, 5, "float32"), (256, 32, "float32")])
+def test_paged_verify_group_16_d256_on_card(h100, n_pg, C, qdtype):
     """The causal verify at 16 query heads over one KV head of 256: one
     query a 16-row tile, C tiles along the chunk, Q staged in shared
     memory and P V over two blocks; a chain verify (C 5) and a prefill
     chunk (C 32) on rows ending on a key-split edge, past it, a page past
-    it, at base 0, at the end of the table and parked.  Each vector
-    within 1e-2, two calls bit-identical, a lower-triangular mask
-    bit-identical to the causal kernel."""
-    rng = np.random.default_rng(1600 + C)
-    Hkv, group, D, ps, n_pg = 1, 16, 256, 16, 24
+    it, at base 0, at the end of the table and parked, in a table of 24
+    pages and in the mixed stack's of 256.  Each vector within 1e-2, two
+    calls bit-identical, a lower-triangular mask bit-identical to the
+    causal kernel."""
+    rng = np.random.default_rng([1600 + C, n_pg])
+    Hkv, group, D, ps = 1, 16, 256, 16
     base_np = _split_edge_bases(C, Hkv, group, ps, n_pg)
     B = len(base_np)
     q, kp, vp, base, bt = _verify_case(rng, h100, B, C, Hkv, group, base_np,
@@ -1694,7 +1837,7 @@ def test_mixed_paged_engine_on_card_matches_stacked(h100):
     the attn layer and the contiguous decode for the ring, the stacked
     runs no paged kernel; each pair of streams is equal up to where it
     parts, each parting a near-tie along the calls that served it
-    (``chip_smoke.hold_streams``)."""
+    (``near_tie.hold_streams``)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1704,7 +1847,6 @@ def test_mixed_paged_engine_on_card_matches_stacked(h100):
                                               quantize_model_params)
     from repro_torch.serving.speculative import SpecConfig
 
-    cs = _chip_smoke()
     cfg = dataclasses.replace(get_config("recurrentgemma-9b").reduced(),
                               name="hybrid-mixed-reduced",
                               block_pattern=("attn", "local_attn", "rglru"))
@@ -1729,7 +1871,7 @@ def test_mixed_paged_engine_on_card_matches_stacked(h100):
             for p in prompts:
                 eng.submit(p, max_new=8)
             ops.reset_launch_counts()
-            with cs.ScheduleProbe(eng) as probe:
+            with near_tie.ScheduleProbe(eng) as probe:
                 done = {r.rid: r.out for r in eng.run()}
             n, s = ops.launch_counts(), eng.stats()
             assert len(done) == 3 and all(len(o) == 8 for o in done.values())
@@ -1743,7 +1885,7 @@ def test_mixed_paged_engine_on_card_matches_stacked(h100):
                 assert n["mha_decode"] == 2 * decodes
             key = f"{'paged' if eng.paged else 'stacked'} {variant}"
             streams[key] = done
-            fns[key] = cs.served_logits(
+            fns[key] = near_tie.served_logits(
                 qp, cfg, probe.calls, h100,
                 layout="paged" if eng.paged else "stacked", **shape)
             if key == "paged plain":
@@ -1751,8 +1893,8 @@ def test_mixed_paged_engine_on_card_matches_stacked(h100):
     for a, b in (("stacked plain", "paged plain"),
                  ("paged chain", "paged plain"),
                  ("stacked chain", "paged chain")):
-        cs.hold_streams(f"{a} vs {b}", (streams[a], streams[b]), prompts,
-                        (fns[a], fns[b]), 8)
+        near_tie.hold_streams(f"{a} vs {b}", (streams[a], streams[b]),
+                              prompts, (fns[a], fns[b]), 8)
 
 
 # ---------------------------------------------------------------------------
@@ -1858,60 +2000,76 @@ def test_async_save_of_card_state_isolated_from_later_steps(h100, tmp_path):
 # multi-device serving on shards of the card (a mesh naming it several times)
 
 
+#: the ring test's sizes: small ones, and GPT-2's serving ones (the
+#: distributed tick's logits blocks of a shard's 4 rows, one and k + 1
+#: positions each, a 2^20-float all-reduce, a decode tick's and a prefill
+#: chunk's products, every W8A8 weight shape with its bias, float32 and
+#: bf16 out)
+_RING_SIZES = {
+    "small": dict(blocks=[(3, 7, 50)], psum=4096, mm=[(8, 256, 512)],
+                  tp=[(1024, 4096)], bias=False, out=["float32"]),
+    "serving": dict(blocks=[(4, 50257), (4, 5, 50257)], psum=1 << 20,
+                    mm=[(8, 1024, 4096), (32, 4096, 1024)],
+                    tp=[(1024, 1024), (1024, 4096), (4096, 1024)], bias=True,
+                    out=["float32", "bfloat16"])}
+
+
 @pytest.mark.gpu
-def test_ring_collectives_on_four_shards_of_the_card(h100):
+@pytest.mark.parametrize("size", list(_RING_SIZES))
+def test_ring_collectives_on_four_shards_of_the_card(h100, size):
     """The ring all-gather bit-identical to ``torch.cat``, the int8-wire
     all-reduce within one int8 step per hop of the CPU's, the ring
     products within 1e-5 relative of one float32 product, and the
-    column-split W8A8 product bit-identical to the unsharded kernel."""
+    column-split W8A8 product bit-identical to the unsharded kernel at M
+    8, 32 and 40, one launch a shard (``_RING_SIZES``)."""
     from repro_torch.core import collectives, ring
     from repro_torch.launch.mesh import make_host_mesh
 
+    sz = _RING_SIZES[size]
     n = 4
     mesh = make_host_mesh(model=n, devices=[h100] * n)
     rng = np.random.default_rng(41)
-    blocks = [torch.from_numpy(rng.standard_normal((3, 7, 50)).astype(
-        np.float32)).to(h100) for _ in range(n)]
-    for out in collectives.ring_all_gather(blocks):
-        assert torch.equal(out, torch.cat(blocks))
-    xs = [rng.standard_normal(4096).astype(np.float32) for _ in range(n)]
+    for shape in sz["blocks"]:
+        blocks = [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(h100) for _ in range(n)]
+        for out in collectives.ring_all_gather(blocks):
+            assert torch.equal(out, torch.cat(blocks))
+    xs = [rng.standard_normal(sz["psum"]).astype(np.float32)
+          for _ in range(n)]
     got = collectives.compressed_psum(
         [torch.from_numpy(x).to(h100) for x in xs])
     cpu = collectives.compressed_psum([torch.from_numpy(x) for x in xs])[0]
     step = np.abs(np.stack(xs)).sum(axis=0).max() / 127.0
     assert max((g.cpu() - cpu).abs().max().item() for g in got) <= n * step
-    x = torch.from_numpy(rng.standard_normal((8, 256)).astype(
-        np.float32)).to(h100)
-    w = torch.from_numpy(rng.standard_normal((256, 512)).astype(
-        np.float32)).to(h100)
-    want = x @ w
-    for fn, dim in ((ring.ring_ag_matmul, 1), (ring.ring_rs_matmul, 0)):
-        y = torch.cat(fn(list(x.chunk(n, dim=1)),
-                         [c.contiguous() for c in w.chunk(n, dim=dim)]), 1)
-        assert (y - want).abs().max() <= 1e-5 * want.abs().max()
+    for M, K, N in sz["mm"]:
+        x = torch.from_numpy(rng.standard_normal((M, K)).astype(
+            np.float32)).to(h100)
+        w = torch.from_numpy(rng.standard_normal((K, N)).astype(
+            np.float32)).to(h100)
+        want = x @ w
+        for fn, dim in ((ring.ring_ag_matmul, 1), (ring.ring_rs_matmul, 0)):
+            y = torch.cat(fn(list(x.chunk(n, dim=1)),
+                             [c.contiguous() for c in w.chunk(n, dim=dim)]),
+                          1)
+            assert (y - want).abs().max() <= 1e-5 * want.abs().max()
     for M in (8, 32, 40):
-        xq = torch.from_numpy(rng.integers(-127, 128, (M, 1024),
-                                           dtype=np.int8)).to(h100)
-        wq = torch.from_numpy(rng.integers(-127, 128, (1024, 4096),
-                                           dtype=np.int8)).to(h100)
-        xsc = torch.from_numpy(rng.uniform(1e-3, 1e-1, (M, 1)).astype(
-            np.float32)).to(h100)
-        wsc = torch.from_numpy(rng.uniform(1e-4, 1e-2, (1, 4096)).astype(
-            np.float32)).to(h100)
-        ops.reset_launch_counts()
-        got = ring.tp_quant_matmul(xq, wq, xsc, wsc, mesh=mesh,
-                                   out_dtype=torch.float32)
-        assert ops.launch_counts()["mp_matmul"] == n
-        assert torch.equal(got, ops.quant_matmul(xq, wq, xsc, wsc,
-                                                 out_dtype=torch.float32))
+        for K, N in sz["tp"]:
+            args = _mp_case(rng, M, K, N, sz["bias"], h100)
+            for out_dtype in sz["out"]:
+                dt = getattr(torch, out_dtype)
+                ops.reset_launch_counts()
+                got = ring.tp_quant_matmul(*args, mesh=mesh, out_dtype=dt)
+                assert ops.launch_counts()["mp_matmul"] == n
+                assert torch.equal(got, ops.quant_matmul(*args,
+                                                         out_dtype=dt))
 
 
 @pytest.mark.gpu
 def test_distributed_engine_on_card_2x2(h100):
     """A reduced W8A8 ``DistributedServeEngine`` on 2 shards x 2 slots of
     the card against the single-device engine with 4 slots on the card:
-    the streams held under ``chip_smoke.py``'s near-tie rule along each
-    run's own calls; every paged kernel launched; then
+    the streams held under the near-tie rule (``serving/near_tie.py``)
+    along each run's own calls; every paged kernel launched; then
     ``ServeEngine(mesh=)`` over 4 shards of the card, whose streams are
     the unsharded engine's token for token."""
     from repro_torch.configs import get_config
@@ -1921,7 +2079,6 @@ def test_distributed_engine_on_card_2x2(h100):
     from repro_torch.serving.engine import ServeEngine
     from repro_torch.serving.quantize import calibrate, quantize_model_params
 
-    cs = _chip_smoke()
     cfg = get_config("gpt2-345m").reduced()
     params = lm.init(cfg, torch.Generator().manual_seed(0), max_seq=128)
     rng = np.random.default_rng(5)
@@ -1936,8 +2093,8 @@ def test_distributed_engine_on_card_2x2(h100):
         **kw)
     single = ServeEngine(cfg, qp, batch_slots=4, device=h100, **kw)
     streams, fns = [], []
-    for eng, probe, rows in ((dist, cs.DistScheduleProbe, 2),
-                             (single, cs.ScheduleProbe, 4)):
+    for eng, probe, rows in ((dist, near_tie.DistScheduleProbe, 2),
+                             (single, near_tie.ScheduleProbe, 4)):
         for p in prompts:
             eng.submit(p, max_new=16)
         ops.reset_launch_counts()
@@ -1946,10 +2103,10 @@ def test_distributed_engine_on_card_2x2(h100):
         launches = ops.launch_counts()
         for k in ("mp_matmul", "paged_mha_decode", "paged_verify"):
             assert launches[k] > 0, (k, launches)
-        fns.append(cs.served_logits(eng.params, cfg, pr.calls, h100,
-                                    rows=rows))
-    cs.hold_streams("distributed 2x2 vs single-device on the card", streams,
-                    prompts, fns, 16)
+        fns.append(near_tie.served_logits(eng.params, cfg, pr.calls, h100,
+                                          rows=rows))
+    near_tie.hold_streams("distributed 2x2 vs single-device on the card",
+                          streams, prompts, fns, 16)
     assert dist.stats()["overlap_ratio"] >= 0.5
     mesh = make_host_mesh(model=4, devices=[h100] * 4)
     ringed = ServeEngine(cfg, qp, batch_slots=4, device=h100, mesh=mesh,
@@ -1966,7 +2123,8 @@ def test_distributed_engine_on_card_2x2(h100):
 @pytest.mark.gpu
 def test_samplers_on_a_cuda_generator(h100):
     """``greedy``, ``temperature`` at 0.01 and ``top_k`` at 1 give the
-    argmax on the card; two draws from one seed are equal."""
+    argmax on the card; two draws from one seed are equal, by
+    ``temperature`` at 1 and by ``top_k`` at 40."""
     from repro_torch.serving import sampler
 
     logits = torch.randn((8, 50257), device=h100,
@@ -1980,18 +2138,35 @@ def test_samplers_on_a_cuda_generator(h100):
         logits, torch.Generator(device=h100).manual_seed(2), temp=1.0)
         for _ in range(2))
     assert a.device == h100 and torch.equal(a, b)
+    a, b = (sampler.top_k(logits, torch.Generator(device=h100).manual_seed(
+        9), k=40, temp=1.0) for _ in range(2))
+    assert torch.equal(a, b)
+
+
+#: the engine's annotated dispatch sites, and the CUDA function each kernel
+#: of the paged W8A8 path launches once a call (the decode's split kernel
+#: is its Paged instance; the combines are not counted)
+_ANNOTATED = ("prefill.chunk", "decode.step", "spec.verify", "prefill.round",
+              "wave.consume", "wave.dispatch")
+_RANGE_KERNELS = {"mp_matmul": ("mp_matmul_kernel",),
+                  "paged_verify": ("verify::split_kernel",),
+                  "paged_mha_decode": ("decode::split_kernel", "Paged")}
 
 
 @pytest.mark.gpu
 def test_annotated_ranges_hold_the_engine_kernels(h100):
     """A reduced W8A8 engine traced with ``annotate=True`` under
-    ``torch.profiler``: one range per annotated host span, every
-    ``mp_matmul`` CUDA function launched inside one (as many as the
-    counter says), none outside, and the streams of an untraced run."""
+    ``torch.profiler``: the host trace valid, one range per annotated
+    host span, every ``mp_matmul``, ``paged_verify`` and paged decode CUDA
+    function launched inside one (as many as the counters say), none
+    outside: ``mp_matmul`` inside both the prefill chunks and the decode
+    steps, the verify inside the prefill chunks alone and the decode
+    inside the decode steps alone; and the streams of an untraced run."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.serving.engine import ServeEngine
-    from repro_torch.serving.telemetry import Telemetry, profile_ranges
+    from repro_torch.serving.telemetry import (Telemetry, profile_ranges,
+                                               validate_chrome_trace)
     from torch.profiler import ProfilerActivity, profile
 
     cfg = get_config("gpt2-345m").reduced()
@@ -2015,19 +2190,45 @@ def test_annotated_ranges_hold_the_engine_kernels(h100):
                              ProfilerActivity.CUDA]) as prof:
         got = {r.rid: r.out for r in eng.run()}
         torch.cuda.synchronize()
+    launches = ops.launch_counts()
     assert got == want
-    names = ("prefill.chunk", "decode.step")
-    ranges = profile_ranges(prof.profiler.kineto_results.events(), names)
-    spans = {n: 0 for n in names}
-    for ev in eng.tel.tracer.to_chrome()["traceEvents"]:
-        if ev["ph"] == "X" and ev["name"] in names:
-            spans[ev["name"]] += 1
-    assert {n: ranges[n]["ranges"] for n in names} == spans
-    mp = {n: sum(c for k, c in r["kernels"].items()
-                 if "mp_matmul_kernel" in k) for n, r in ranges.items()}
-    assert mp[None] == 0
+    host = eng.tel.tracer.to_chrome()
+    validate_chrome_trace(host)
+    spans = {}
+    for ev in host["traceEvents"]:
+        if ev["ph"] == "X" and ev["name"] in _ANNOTATED:
+            spans[ev["name"]] = spans.get(ev["name"], 0) + 1
+    ranges = profile_ranges(prof.profiler.kineto_results.events(),
+                            _ANNOTATED)
+    assert spans and {n: r["ranges"] for n, r in ranges.items()
+                      if n is not None and r["ranges"]} == spans
+    inside = {}
+    for name, keys in _RANGE_KERNELS.items():
+        inside[name] = {n: sum(c for k, c in r["kernels"].items()
+                               if all(x in k for x in keys))
+                        for n, r in ranges.items()}
+        assert inside[name].pop(None) == 0, name
+        assert sum(inside[name].values()) == launches[name] > 0, name
+    mp = inside["mp_matmul"]
     assert mp["prefill.chunk"] > 0 and mp["decode.step"] > 0
-    assert sum(mp.values()) == ops.launch_counts()["mp_matmul"]
+    assert inside["paged_verify"]["prefill.chunk"] == launches["paged_verify"]
+    assert (inside["paged_mha_decode"]["decode.step"]
+            == launches["paged_mha_decode"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,shape", [
+    ("gpt2-345m", "train_4k"), ("gpt2-345m", "prefill_32k"),
+    ("gpt2-345m", "decode_32k"), ("llama3-8b", "decode_32k")])
+def test_dry_run_cells_on_meta_beside_the_card(h100, tmp_path, arch, shape):
+    """The dry run's ``run_cell`` on ``meta`` tensors on the single
+    production mesh, under the PyTorch of the card's machine: ``ok``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    rec = dryrun.run_cell(arch, shape, make_production_mesh(), "pod16x16",
+                          str(tmp_path), force=True)
+    assert rec["status"] == "ok", rec.get("error")
 
 
 def _innermost(ranges, t):

@@ -75,7 +75,7 @@ from repro_torch.serving import admission, quantize, speculative
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.kv_cache import PagedCacheManager
 from repro_torch.serving.lifecycle import DECODE
-from test_torch_gpu import ForcedDrafts
+from torch_helpers import ForcedDrafts
 
 ARCHS = ("recurrentgemma-9b", "xlstm-350m", "mixed")
 WINDOW_CAPPED = ("recurrentgemma-9b", "xlstm-350m")

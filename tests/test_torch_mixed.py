@@ -50,10 +50,10 @@ from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models import lm
-from repro_torch.serving import admission, speculative
+from repro_torch.serving import admission, near_tie, speculative
 from repro_torch.serving.engine import ServeEngine
 from repro_torch.serving.lifecycle import DECODE
-from test_torch_gpu import ForcedDrafts, _chip_smoke
+from torch_helpers import ForcedDrafts
 
 MAX_SEQ, CHUNK, PS, SLOTS, MAX_NEW = 64, 16, 16, 2, 10
 ATOL = RTOL = 1e-4
@@ -440,11 +440,11 @@ def test_bridge_carries_mixed_paged_cache(mixed):
 
 
 # ---------------------------------------------------------------------------
-# chip_smoke.py's near-tie rule along the served call schedule
+# the near-tie rule (serving/near_tie.py) along the served call schedule
 
 
-def _probed(cs, eng, prompts, *, preempt=None, emit=None):
-    """Serve ``prompts`` under ``cs.ScheduleProbe``: ``preempt`` names a
+def _probed(eng, prompts, *, preempt=None, emit=None):
+    """Serve ``prompts`` under ``near_tie.ScheduleProbe``: ``preempt`` names a
     mode in which the first decoding request with output is preempted
     once; ``emit`` replaces the engine's ``_emit`` (a planted fault).
     Returns (rid -> tokens, rid -> calls)."""
@@ -452,7 +452,7 @@ def _probed(cs, eng, prompts, *, preempt=None, emit=None):
         eng._emit = emit(eng._emit)
     for p in prompts:
         eng.submit(list(p), max_new=MAX_NEW)
-    with cs.ScheduleProbe(eng) as probe:
+    with near_tie.ScheduleProbe(eng) as probe:
         while preempt is not None:
             eng.tick()
             victims = [r for r in eng.slots
@@ -475,7 +475,6 @@ def test_schedule_replay_recomputes_the_served_logits(mixed, case):
     replayed prompt) gives, for every token of the stream, logits whose
     argmax is the token the engine emitted: the recomputation is the
     computation that served it (on the CPU bit for bit)."""
-    cs = _chip_smoke()
     arch, layout, variant = case.split()
     kw = {"kv_layout": layout}
     if arch == "mixed":
@@ -503,7 +502,7 @@ def test_schedule_replay_recomputes_the_served_logits(mixed, case):
             kw["prefill_mode"] = "replay"
         eng = ServeEngine(cfg, params, act_dtype=torch.float32,
                           device="cpu", **_COMMON, **kw)
-    out, calls = _probed(cs, eng, prompts, preempt=(
+    out, calls = _probed(eng, prompts, preempt=(
         "recompute" if variant == "recompute" else None))
     kinds = {c["kind"] for cs_ in calls.values() for c in cs_}
     want = {"plain": {"prefill", "step"}, "recompute": {"prefill", "step"},
@@ -515,12 +514,14 @@ def test_schedule_replay_recomputes_the_served_logits(mixed, case):
     if variant == "tree":
         assert any("path" in c and (c["path"] < MAX_SEQ).any()
                    for cs_ in calls.values() for c in cs_)
+    prefilled = near_tie.Prefilled()
     for rid, toks in out.items():
         for i, tok in enumerate(toks):
-            lg = cs.logits_after(params, cfg, calls[rid], prompts[rid],
-                                 toks[:i], torch.device("cpu"),
-                                 max_seq=MAX_SEQ, page=PS, chunk=CHUNK,
-                                 rows=SLOTS, layout=layout)
+            lg = near_tie.logits_after(params, cfg, calls[rid], prompts[rid],
+                                       toks[:i], torch.device("cpu"),
+                                       max_seq=MAX_SEQ, page=PS, chunk=CHUNK,
+                                       rows=SLOTS, layout=layout,
+                                       prefilled=prefilled)
             assert int(lg.argmax()) == tok, (rid, i)
 
 
@@ -531,17 +532,16 @@ def test_near_tie_rule_fails_a_forced_wrong_token(mixed, capsys):
     side's logits recomputed along its own calls prefer the token its
     computation sampled: a negative margin, which fails the rule.  Two
     fault-free runs (paged plain, paged chain on forced drafts) pass."""
-    cs = _chip_smoke()
     shape = dict(max_seq=MAX_SEQ, page=PS, chunk=CHUNK, rows=SLOTS)
     cpu = torch.device("cpu")
-    plain, plain_calls = _probed(cs, mixed.engine(), mixed.prompts)
+    plain, plain_calls = _probed(mixed.engine(), mixed.prompts)
     eng = mixed.engine(spec=speculative.SpecConfig(k=4))
     eng.proposer = ForcedDrafts(4, mixed.plain_stream, mixed.cfg.vocab_size)
-    chain, chain_calls = _probed(cs, eng, mixed.prompts)
-    fns = [cs.served_logits(mixed.tq, mixed.cfg, c, cpu, **shape)
+    chain, chain_calls = _probed(eng, mixed.prompts)
+    fns = [near_tie.served_logits(mixed.tq, mixed.cfg, c, cpu, **shape)
            for c in (chain_calls, plain_calls)]
-    assert cs.hold_streams("fault-free", (chain, plain), mixed.prompts, fns,
-                           MAX_NEW) == 1.0
+    assert near_tie.hold_streams("fault-free", (chain, plain), mixed.prompts,
+                                 fns, MAX_NEW) == 1.0
 
     def wrong_fifth_token_of_request_1(emit):
         def emit_(req, tok, now):
@@ -550,12 +550,13 @@ def test_near_tie_rule_fails_a_forced_wrong_token(mixed, capsys):
             return emit(req, tok, now)
         return emit_
 
-    faulty, faulty_calls = _probed(cs, mixed.engine(), mixed.prompts,
+    faulty, faulty_calls = _probed(mixed.engine(), mixed.prompts,
                                    emit=wrong_fifth_token_of_request_1)
     assert faulty[1][4] != plain[1][4] and faulty[0] == plain[0]
-    with pytest.raises(cs.SmokeFailure, match="prefers the other side"):
-        cs.hold_streams(
+    with pytest.raises(near_tie.NearTieFailure,
+                       match="prefers the other side"):
+        near_tie.hold_streams(
             "planted fault", (faulty, plain), mixed.prompts,
-            (cs.served_logits(mixed.tq, mixed.cfg, faulty_calls, cpu,
-                              **shape), fns[1]), MAX_NEW)
+            (near_tie.served_logits(mixed.tq, mixed.cfg, faulty_calls, cpu,
+                                    **shape), fns[1]), MAX_NEW)
     assert "request 1 parts at token 4" in capsys.readouterr().out

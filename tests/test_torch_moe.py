@@ -540,33 +540,22 @@ def test_moe_engine_without_card_raises(family, arch, monkeypatch):
         ServeEngine(f.cfg, f.tq, **_COMMON)
 
 
-def _chip_smoke():
-    """``chip_smoke.py`` as a module (it runs nothing on import)."""
-    import importlib.util
-    import os
-
-    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_routing_near_tie_rule_rejects_a_planted_fault(arch, monkeypatch,
                                                        capsys):
-    """``chip_smoke.py``'s near-tie rule with its routing branch, on the
-    CPU: two engines on the same W8A8 weights, one whose decode drops
-    each row's newest key, must not pass as parted at near-ties (the
-    routers' first split is too far apart to be a routing near-tie);
-    nor must one whose decode drops the newest key in one head only,
+    """The near-tie rule (``serving/near_tie.py``) with its routing
+    branch, on the CPU: two engines on the same W8A8 weights, one whose
+    decode drops each row's newest key, must not pass as parted at
+    near-ties (the routers' first split is too far apart to be a routing
+    near-tie); nor must one whose decode drops the newest key in one
+    head only,
     where the first split is a routing near-tie and only the logits
     with the routers pinned to the other side's choices show the fault;
     the same rule passes two fault-free runs."""
     from repro_torch.kernels import ops
+    from repro_torch.serving import near_tie
     from repro_torch.serving.quantize import calibrate
 
-    cs = _chip_smoke()
     cfg = get_config(arch).reduced()
     rng = np.random.default_rng(2)
     params = lm.init(cfg, torch.Generator().manual_seed(0))
@@ -598,33 +587,33 @@ def test_routing_near_tie_rule_rejects_a_planted_fault(arch, monkeypatch,
                           page_size=16, device=cpu)
         for p in prompts:
             eng.submit(p, max_new=16)
-        with cs.ScheduleProbe(eng) as probe:
+        with near_tie.ScheduleProbe(eng) as probe:
             out = {r.rid: r.out for r in eng.run()}
         schedules[decode] = probe.calls
         return out
 
     def logits(decode):
-        def fn(rid, prompt, history):
+        def fn(rid, prompt, history, **kw):
             monkeypatch.setattr(ops, "paged_mha_decode", decode)
-            return cs.logits_after(q, cfg, schedules[decode][rid], prompt,
-                                   history, cpu, rows=4)
+            return near_tie.logits_after(q, cfg, schedules[decode][rid],
+                                         prompt, history, cpu, rows=4, **kw)
         return fn
 
     plain = serve(good)
-    assert cs.hold_streams("fault-free", (plain, serve(good)), prompts,
-                           (logits(good), logits(good)), 16,
-                           moe_cfg=cfg) == 1.0
-    with pytest.raises(cs.SmokeFailure, match="logits err"):
-        cs.hold_streams("planted fault", (plain, serve(dropped_key)),
-                        prompts, (logits(good), logits(dropped_key)), 16,
-                        moe_cfg=cfg)
+    assert near_tie.hold_streams("fault-free", (plain, serve(good)), prompts,
+                                 (logits(good), logits(good)), 16,
+                                 moe_cfg=cfg) == 1.0
+    with pytest.raises(near_tie.NearTieFailure, match="logits err"):
+        near_tie.hold_streams("planted fault", (plain, serve(dropped_key)),
+                              prompts, (logits(good), logits(dropped_key)),
+                              16, moe_cfg=cfg)
     assert "NOT a routing near-tie" in capsys.readouterr().out
     faulty = serve(one_head_dropped_key)
-    with pytest.raises(cs.SmokeFailure, match="logits err"):
+    with pytest.raises(near_tie.NearTieFailure, match="logits err"):
         # request 0, whose routers first split at a routing near-tie
-        cs.hold_streams("one head's fault", ({0: plain[0]}, {0: faulty[0]}),
-                        prompts, (logits(good), logits(one_head_dropped_key)),
-                        16, moe_cfg=cfg)
+        near_tie.hold_streams(
+            "one head's fault", ({0: plain[0]}, {0: faulty[0]}), prompts,
+            (logits(good), logits(one_head_dropped_key)), 16, moe_cfg=cfg)
     out = capsys.readouterr().out
     assert ": a routing near-tie" in out and "NOT a" not in out
     assert "pinned to the second's choices" in out
